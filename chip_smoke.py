@@ -1,0 +1,439 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch / CUDA port's main path once on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout on a machine with a CUDA card and the
+CUDA toolkit (nvcc).  It imports nothing of JAX and nothing of the JAX
+package (``src/repro``); it uses ``src/repro_torch`` only.  Phases, each
+printing JSON lines:
+
+1. device — torch / CUDA versions; TF32 is turned off for matmuls and
+   cuDNN convolutions (the yardsticks below), and the card's name and
+   power limit are printed as ``nvidia-smi`` gives them;
+2. build — the kernels' nvcc build (``repro_torch.kernels._build``);
+3. kernels — every kernel against its plain PyTorch version on the card
+   at every shape the main path gives it (MobileNetV2 and ResNet-18 at
+   224x224, batch 8, the rate-3 plan's tiles) plus odd-size extras;
+   each with its time, the plain version's, the library call's
+   (``torch.matmul`` / ``F.conv2d``, TF32 off) and the roofline bound;
+4. slice — MobileNetV2, then ResNet-18, at 224x224: 4 requests of 8
+   frames through ``api.apply(params, x, cfg, plan=kp)``, launch counts
+   set to 0 just before and read just after, executed tile == plan on
+   every arithmetic node, logits held against the plain path on the card;
+   one more forward pass under ``torch.profiler`` gives the device time
+   by kernel and the device's busy share of the batch latency;
+5. the ``kernels`` line, the card line, and the final ``ok`` line.
+
+Any failure raises: the script then exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+from fractions import Fraction
+
+BATCH = 8
+REQUESTS = 4
+RATE = Fraction(3)
+# fp32 against fp32 with another summation order: max |kernel - plain|
+# must stay within TOL x max(1, max |plain|).
+TOL = 1e-4
+KERNELS = {
+    "fcu_matmul": ("src/repro_torch/kernels/csrc/fcu_matmul.cu",
+                   "src/repro/kernels/fcu_matmul/fcu_matmul.py:45"),
+    "kpu_conv": ("src/repro_torch/kernels/csrc/kpu_conv.cu",
+                 "src/repro/kernels/kpu_conv/kpu_conv.py:79"),
+    "dw_conv": ("src/repro_torch/kernels/csrc/dw_conv.cu",
+                "src/repro/kernels/dw_conv/dw_conv.py:41"),
+}
+KIND_KERNEL = {"conv": "kpu_conv", "dwconv": "dw_conv",
+               "pointwise": "fcu_matmul", "dense": "fcu_matmul"}
+# The CUDA function each kernel launches (csrc/*.cu), as the profiler names it.
+DEVICE_FN = {"fcu_matmul": "fcu_kernel", "kpu_conv": "kpu_kernel",
+             "dw_conv": "dw_kernel"}
+BOUND = ("max(flops / 67 TFLOP/s, the H100 SXM fp32 CUDA-core peak; "
+         "bytes / 3.35 TB/s HBM), each input read once, each output written once")
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(msg)
+
+
+def cuda_ms(torch, fn, launches: int = 10, repeats: int = 5) -> float:
+    """Device ms per call of ``fn``: after a warm-up call, the median
+    over ``repeats`` of one CUDA-event pair around ``launches``
+    back-to-back calls, divided by ``launches`` (one pair per call
+    would also time the host's launch gap after the start event)."""
+    fn()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return statistics.median(times)
+
+
+class KernelBench:
+    """Holds each kernel against its plain version and times all three."""
+
+    def __init__(self, torch, hw):
+        self.torch = torch
+        self.hw = hw
+        self.rows = []
+
+    def case(self, kernel, label, fn, plain, library, flops, nbytes, timed=True):
+        torch = self.torch
+        y = fn()
+        ref = plain()
+        lib = library()
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(y).all()), f"{label}: non-finite output")
+        scale = max(1.0, ref.abs().max().item())
+        err = (y - ref).abs().max().item()
+        lib_err = (lib - ref).abs().max().item()
+        require(err <= TOL * scale,
+                f"{label}: kernel vs plain max|err| {err} > {TOL} x {scale}")
+        require(lib_err <= TOL * scale,
+                f"{label}: library call vs plain max|err| {lib_err} > {TOL} x {scale}")
+        row = {"node": label, "kernel": kernel, "max_abs_err": err,
+               "rel_err": err / scale, "tolerance": TOL}
+        if timed:
+            t_ops = flops / self.hw.peak_fp32_flops * 1e3
+            t_bytes = nbytes / self.hw.hbm_bw * 1e3
+            row.update(
+                ms=cuda_ms(torch, fn), plain_ms=cuda_ms(torch, plain),
+                library_ms=cuda_ms(torch, library), bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                ops_ms=t_ops, bytes_ms=t_bytes,
+            )
+        self.rows.append(row)
+        emit(row)
+
+
+def bench_nodes(torch, bench, family, plan, graph, gen):
+    """Every arithmetic node of ``family``'s main path, at its shapes."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build, dw_conv, fcu_matmul, kpu_conv
+
+    for name, ip in plan.items():
+        if not ip.has_kernel:
+            continue
+        s, t = graph.spec(name), ip.tile
+        kernel = KIND_KERNEL[s.kind]
+        label = f"{family}/{name}"
+        x = torch.randn((BATCH, *s.in_hw, s.d_in), generator=gen).cuda()
+        macs = s.total_macs * BATCH
+        out_elems = BATCH * s.out_hw[0] * s.out_hw[1] * s.d_out
+        if s.kind in ("pointwise", "dense"):
+            x2 = x.reshape(-1, s.d_in)
+            w = torch.randn((s.d_in, s.d_out), generator=gen).cuda() / s.d_in ** 0.5
+            bm = fcu_matmul._pick_bm(x2.shape[0], t.bm)
+            bench.case(
+                kernel, label,
+                lambda: fcu_matmul.fcu_matmul(x2, w, bm=bm, bk=t.bk, bn=t.bn),
+                lambda: fcu_matmul.fcu_matmul_plain(x2, w),
+                lambda: torch.matmul(x2, w),
+                2 * macs, 4 * (x2.numel() + w.numel() + out_elems),
+            )
+            continue
+        kh, kw = s.kernel
+        stride = s.stride[0]
+        _, (pt, pb) = _build.same_pads(s.in_hw[0], kh, stride)
+        _, (pl, pr) = _build.same_pads(s.in_hw[1], kw, stride)
+        xp = F.pad(x, (0, 0, pl, pr, pt, pb)).permute(0, 3, 1, 2)
+        if s.kind == "conv":
+            w = torch.randn((kh, kw, s.d_in, s.d_out), generator=gen).cuda()
+            w = w / (kh * kw * s.d_in) ** 0.5
+            w_oihw = w.permute(3, 2, 0, 1)
+            bench.case(
+                kernel, label,
+                lambda: kpu_conv.kpu_conv(x, w, stride=stride, bm=t.bm,
+                                          bci=t.bk, bco=t.bn),
+                lambda: kpu_conv.kpu_conv_plain(x, w, stride),
+                lambda: F.conv2d(xp, w_oihw, stride=stride).permute(0, 2, 3, 1),
+                2 * macs, 4 * (x.numel() + w.numel() + out_elems),
+            )
+        else:
+            w = torch.randn((kh, kw, s.d_in), generator=gen).cuda() / (kh * kw) ** 0.5
+            w_oihw = w.permute(2, 0, 1).unsqueeze(1)
+            bench.case(
+                kernel, label,
+                lambda: dw_conv.dw_conv(x, w, stride=stride, bm=t.bm, bc=t.bk),
+                lambda: dw_conv.dw_conv_plain(x, w, stride),
+                lambda: F.conv2d(xp, w_oihw, stride=stride,
+                                 groups=s.d_in).permute(0, 2, 3, 1),
+                2 * macs, 4 * (x.numel() + w.numel() + out_elems),
+            )
+
+
+def bench_extras(torch, bench, gen):
+    """Odd spatial sizes and ragged channels off the 224 path (checked,
+    not timed, not counted in the kernels line)."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.tiles import dw_rows, plan_dim_tile, select_tile
+    from repro_torch.kernels import _build, dw_conv, fcu_matmul, kpu_conv
+
+    for hw, cin, cout, k, s in [(15, 24, 32, 3, 2), (17, 3, 64, 7, 2),
+                                (13, 144, 24, 1, 2), (9, 960, 40, 3, 1)]:
+        x = torch.randn((2, hw, hw, cin), generator=gen).cuda()
+        w = torch.randn((k, k, cin, cout), generator=gen).cuda() / (k * k * cin) ** 0.5
+        ho, (pt, pb) = _build.same_pads(hw, k, s)
+        t = select_tile(ho * ho, cin, cout)
+        xp = F.pad(x, (0, 0, pt, pb, pt, pb)).permute(0, 3, 1, 2)
+        bench.case(
+            "kpu_conv", f"extra/conv{hw}x{hw}x{cin}-{cout}k{k}s{s}",
+            lambda: kpu_conv.kpu_conv(x, w, stride=s, bm=t.bm, bci=t.bk, bco=t.bn),
+            lambda: kpu_conv.kpu_conv_plain(x, w, s),
+            lambda: F.conv2d(xp, w.permute(3, 2, 0, 1), stride=s).permute(0, 2, 3, 1),
+            0, 0, timed=False,
+        )
+    for hw, c, s in [(15, 144, 2), (7, 960, 1), (11, 24, 2)]:
+        x = torch.randn((2, hw, hw, c), generator=gen).cuda()
+        w = torch.randn((3, 3, c), generator=gen).cuda() / 3.0
+        ho, (pt, pb) = _build.same_pads(hw, 3, s)
+        bc = plan_dim_tile(c, 1)
+        xp = F.pad(x, (0, 0, pt, pb, pt, pb)).permute(0, 3, 1, 2)
+        bench.case(
+            "dw_conv", f"extra/dw{hw}x{hw}x{c}s{s}",
+            lambda: dw_conv.dw_conv(x, w, stride=s, bm=dw_rows(ho, ho, bc) * ho, bc=bc),
+            lambda: dw_conv.dw_conv_plain(x, w, s),
+            lambda: F.conv2d(xp, w.permute(2, 0, 1).unsqueeze(1), stride=s,
+                             groups=c).permute(0, 2, 3, 1),
+            0, 0, timed=False,
+        )
+    for m, cin, cout in [(450, 24, 144), (3, 1280, 1000), (1001, 960, 160)]:
+        x = torch.randn((m, cin), generator=gen).cuda()
+        w = torch.randn((cin, cout), generator=gen).cuda() / cin ** 0.5
+        t = select_tile(m, cin, cout)
+        bm = fcu_matmul._pick_bm(m, t.bm)
+        bench.case(
+            "fcu_matmul", f"extra/fcu{m}x{cin}-{cout}",
+            lambda: fcu_matmul.fcu_matmul(x, w, bm=bm, bk=t.bk, bn=t.bn),
+            lambda: fcu_matmul.fcu_matmul_plain(x, w),
+            lambda: torch.matmul(x, w),
+            0, 0, timed=False,
+        )
+    # one-row tiles whose block has fewer threads (16) than the staged
+    # slice is wide (32 weight columns; 24 input features)
+    x = torch.randn((1, 2, 2, 3), generator=gen).cuda()
+    w = torch.randn((3, 3, 3, 32), generator=gen).cuda() / 27 ** 0.5
+    bench.case(
+        "kpu_conv", "extra/conv2x2x3-32k3s2-bm1",
+        lambda: kpu_conv.kpu_conv(x, w, stride=2, bm=1, bci=3, bco=32),
+        lambda: kpu_conv.kpu_conv_plain(x, w, 2),
+        lambda: F.conv2d(F.pad(x, (0, 0, 0, 1, 0, 1)).permute(0, 3, 1, 2),
+                         w.permute(3, 2, 0, 1), stride=2).permute(0, 2, 3, 1),
+        0, 0, timed=False,
+    )
+    xf = torch.randn((1, 24), generator=gen).cuda()
+    wf = torch.randn((24, 4), generator=gen).cuda() / 24 ** 0.5
+    bench.case(
+        "fcu_matmul", "extra/fcu1x24-4-bm1",
+        lambda: fcu_matmul.fcu_matmul(xf, wf, bm=1, bk=24, bn=4),
+        lambda: fcu_matmul.fcu_matmul_plain(xf, wf),
+        lambda: torch.matmul(xf, wf),
+        0, 0, timed=False,
+    )
+
+
+def device_ms_by_kernel(torch, fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: device ms summed per
+    ported kernel, the rest (bias, activation, joins, pooling, copies)
+    under "other".  Empty if the profiler saw no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.device_time_total <= 0:
+            continue
+        name = next((k for k, f in DEVICE_FN.items() if f in e.key), "other")
+        out[name] = out.get(name, 0.0) + e.device_time_total / 1e3
+    return out
+
+
+def reset_counts(kernels_mod) -> None:
+    for name in KERNELS:
+        getattr(kernels_mod[name], name).launches = 0
+
+
+def read_counts(kernels_mod) -> dict:
+    return {name: getattr(kernels_mod[name], name).launches for name in KERNELS}
+
+
+def run_slice(torch, family, kernels_mod, gen, bench):
+    """One family's main path: REQUESTS batches of BATCH frames through
+    the rate-matched forward pass on the card."""
+    from repro_torch.kernels.fcu_matmul import _pick_bm
+    from repro_torch.models.registry import get_cnn_api
+
+    api = get_cnn_api(family)
+    cfg = api.make_config()
+    params = api.init(cfg, torch.Generator().manual_seed(0))
+    kp = api.plan(cfg, RATE)
+    graph = api.graph(cfg)
+    xs = [torch.randn((BATCH, *cfg.input_hw, 3), generator=gen)
+          for _ in range(REQUESTS)]
+    api.apply(params, xs[0], cfg, plan=kp)  # warm-up
+    torch.cuda.synchronize()
+
+    reset_counts(kernels_mod)
+    logits, latency_ms, executed = [], [], []
+    for x in xs:
+        ex = {}
+        t0 = time.perf_counter()
+        y = api.apply(params, x, cfg, plan=kp, executed=ex)
+        torch.cuda.synchronize()
+        latency_ms.append((time.perf_counter() - t0) * 1e3)
+        logits.append(y)
+        executed.append(ex)
+    counts = read_counts(kernels_mod)
+
+    arith = [n for n, ip in kp.items() if ip.has_kernel]
+    want = {k: 0 for k in KERNELS}
+    for n in arith:
+        want[KIND_KERNEL[kp[n].kind]] += REQUESTS
+    require(counts == want, f"{family}: launches {counts} != nodes x requests {want}")
+    for ex in executed:
+        require(sorted(ex) == sorted(arith), f"{family}: executed tiles miss nodes")
+        for n in arith:
+            t, got, spec = kp[n].tile, ex[n], graph.spec(n)
+            bm = t.bm
+            if spec.kind in ("pointwise", "dense"):
+                bm = _pick_bm(BATCH * spec.out_hw[0] * spec.out_hw[1], t.bm)
+            require((got["bk"], got["bn"], got["bm"]) == (t.bk, t.bn, bm),
+                    f"{family}/{n}: executed {got} != plan {t}")
+
+    plain_ms, errs = [], []
+    for x, y in zip(xs, logits):
+        require(tuple(y.shape) == (BATCH, cfg.num_classes), f"{family}: shape {y.shape}")
+        require(bool(torch.isfinite(y).all()), f"{family}: non-finite logits")
+        t0 = time.perf_counter()
+        ref = api.apply(params, x, cfg)  # the plain versions, on the card
+        torch.cuda.synchronize()
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
+        scale = max(1.0, ref.abs().max().item())
+        err = (y - ref).abs().max().item()
+        require(err <= TOL * scale,
+                f"{family}: logits vs plain path max|err| {err} > {TOL} x {scale}")
+        errs.append(err / scale)
+    device_ms = device_ms_by_kernel(
+        torch, lambda: api.apply(params, xs[0], cfg, plan=kp))
+    busy_ms = sum(device_ms.values())
+    latency = statistics.median(latency_ms)
+    isolated = {k: sum(r["ms"] for r in bench.rows if r["kernel"] == k
+                       and r["node"].startswith(family + "/")) for k in KERNELS}
+    row = {
+        "phase": "slice", "family": family, "input_hw": list(cfg.input_hw),
+        "batch": BATCH, "requests": REQUESTS, "rate": str(RATE),
+        "arith_nodes": len(arith), "launches": counts,
+        "executed_tile_eq_plan": True,
+        "frames_per_s": BATCH * REQUESTS / (sum(latency_ms) / 1e3),
+        "latency_ms": latency_ms, "latency_ms_median": latency,
+        "plain_path_latency_ms_median": statistics.median(plain_ms),
+        "profiled_device_ms": device_ms,
+        "device_busy_share": busy_ms / latency if device_ms else None,
+        "kernel_ms_isolated": isolated,
+        "logits_max_rel_err": max(errs), "tolerance": TOL,
+    }
+    emit(row)
+    return counts
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(root, "src"))
+    try:
+        from repro_torch.core.graph import plan_graph  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the port's package is missing ({e})", file=sys.stderr)
+        return 1
+    from repro_torch.core.hw import H100_SXM
+    from repro_torch.kernels import _build, dw_conv, fcu_matmul, kpu_conv
+    from repro_torch.models.registry import get_cnn_api
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    emit({"phase": "device", "torch": torch.__version__, "cuda": torch.version.cuda,
+          "python": sys.version.split()[0], "name": torch.cuda.get_device_name(0),
+          "nvidia_smi": smi, "tf32": False})
+
+    t0 = time.perf_counter()
+    lib = _build.library()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "library": os.path.relpath(lib._name, root)})
+
+    kernels_mod = {"fcu_matmul": fcu_matmul, "kpu_conv": kpu_conv, "dw_conv": dw_conv}
+    gen = torch.Generator().manual_seed(2026)
+    bench = KernelBench(torch, H100_SXM)
+    emit({"phase": "kernels", "tolerance": TOL, "bound": BOUND,
+          "tolerance_of": "max|kernel - plain| <= tolerance x max(1, max|plain|)"})
+    for family in ("mobilenet_v2", "resnet18"):
+        api = get_cnn_api(family)
+        cfg = api.make_config()
+        bench_nodes(torch, bench, family, api.plan(cfg, RATE), api.graph(cfg), gen)
+    bench_extras(torch, bench, gen)
+
+    launches = {k: 0 for k in KERNELS}
+    for family in ("mobilenet_v2", "resnet18"):
+        counts = run_slice(torch, family, kernels_mod, gen, bench)
+        for k, v in counts.items():
+            launches[k] += v
+    require(all(launches.values()), f"a kernel never launched on the main path: {launches}")
+
+    out = []
+    for name, (source, replaces) in KERNELS.items():
+        rows = [r for r in bench.rows if r["kernel"] == name]
+        timed = [r for r in rows if "ms" in r]
+        ops = sum(r["ops_ms"] for r in timed)
+        nbytes = sum(r["bytes_ms"] for r in timed)
+        out.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": sum(r["ms"] for r in timed),
+            "plain_ms": sum(r["plain_ms"] for r in timed),
+            "bound_ms": sum(r["bound_ms"] for r in timed),
+            "bound_by": "operations" if ops >= nbytes else "bytes",
+            "library_ms": sum(r["library_ms"] for r in timed),
+            "shapes": len(timed),
+        })
+    emit({"kernels": out})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,3 @@
+"""Hand-written CUDA kernels for the paper's FCU, KPU and depthwise units,
+built by ``_build`` and bound through ctypes; each module keeps the
+kernel's plain PyTorch version beside its wrapper."""

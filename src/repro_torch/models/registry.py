@@ -1,0 +1,143 @@
+"""The CNN registry: one front door per family, as in the JAX package.
+
+    api = get_cnn_api("mobilenet_v2")          # on the card ("cuda")
+    cfg = api.make_config()                    # 224x224, 1000 classes
+    params = api.init(cfg, torch.Generator().manual_seed(0))
+    kp = api.plan(cfg, Fraction(3))            # per-node ImplPlan table
+    logits = api.apply(params, x, cfg, plan=kp)   # rate-matched kernels
+
+``get_cnn_api(family, device=None)`` resolves ``None`` to ``"cuda"`` and
+raises where CUDA is absent: the port's entry points run on the card
+unless the caller asks for the CPU (``device="cpu"``, as the tests do),
+where every kernel runs its plain PyTorch version.  There is no silent
+CPU path.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from fractions import Fraction
+from typing import Any, Callable, Dict, Tuple
+
+import torch
+
+from repro_torch.core.graph import plan_graph
+from repro_torch.models import mobilenet, resnet
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` -> the card; a CUDA device needs CUDA to be present."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available: the port runs on the card unless the "
+            "caller asks for the CPU (device='cpu')"
+        )
+    return dev
+
+
+def _not_yet(what: str, item: str) -> Callable:
+    def missing(*args, **kwargs):
+        raise NotImplementedError(
+            f"{what} is not ported yet (ROADMAP: {item})"
+        )
+    return missing
+
+
+@dataclasses.dataclass(frozen=True)
+class CNNApi:
+    """Uniform surface over the CNN families (the JAX package's
+    ``registry.CNNApi``).  ``plan(cfg, input_rate, **dse_kwargs)`` runs
+    the DAG DSE on the family's graph and lowers it to the per-node
+    ``ImplPlan`` table; ``apply(..., plan=kp)`` runs every arithmetic
+    node on its own planned tile.  ``caches`` memoizes graphs per config
+    and DSE plans per (config, rate, kwargs)."""
+
+    family: str
+    device: torch.device
+    make_config: Callable            # (**overrides) -> cfg dataclass
+    init: Callable                   # (cfg, generator) -> params on device
+    apply: Callable                  # (params, x, cfg, *, conv_impls, plan, ...)
+    graph: Callable                  # (cfg) -> LayerGraph (the DSE's view)
+    plan: Callable                   # (cfg, input_rate, **kw) -> ImplPlan table
+    quantize: Callable               # not ported yet: raises
+    apply_int8: Callable             # not ported yet: raises
+    partition: Callable              # not ported yet: raises
+    apply_staged: Callable           # not ported yet: raises
+    serve: Callable                  # not ported yet: raises
+    caches: Any = None               # {"graphs", "plans"} memo dicts
+
+
+def _cnn_api(family: str, make_config: Callable, mod, device) -> CNNApi:
+    graphs: Dict[Any, Any] = {}
+    plans: Dict[Any, Any] = {}
+
+    def graph(cfg):
+        try:
+            hit = graphs.get(cfg)
+        except TypeError:  # unhashable config: build fresh, skip the memo
+            return cfg.graph()
+        if hit is None:
+            hit = cfg.graph()
+            graphs[cfg] = hit
+        return hit
+
+    def _planned(cfg, input_rate, dse_kwargs):
+        try:
+            key = (cfg, Fraction(input_rate), tuple(sorted(dse_kwargs.items())))
+            hit = plans.get(key)
+        except TypeError:  # unhashable rate/kwargs: plan fresh
+            key, hit = None, None
+        if hit is None:
+            hit = plan_graph(graph(cfg), input_rate, **dse_kwargs)
+            if key is not None:
+                plans[key] = hit
+        return hit
+
+    def plan(cfg, input_rate, **dse_kwargs):
+        return _planned(cfg, input_rate, dse_kwargs).kernel_plan()
+
+    def init(cfg, generator: torch.Generator):
+        return mod.init_params(cfg, generator, device)
+
+    def apply(params, x, cfg, **kwargs):
+        kwargs.setdefault("graph", graph(cfg))
+        return mod.apply(params, torch.as_tensor(x).to(device), cfg, **kwargs)
+
+    return CNNApi(
+        family=family,
+        device=device,
+        make_config=make_config,
+        init=init,
+        apply=apply,
+        graph=graph,
+        plan=plan,
+        quantize=_not_yet("quantize", "int8 datapath"),
+        apply_int8=_not_yet("apply_int8", "int8 datapath"),
+        partition=_not_yet("partition", "staged execution"),
+        apply_staged=_not_yet("apply_staged", "staged execution"),
+        serve=_not_yet("serve", "stream engine"),
+        caches={"graphs": graphs, "plans": plans},
+    )
+
+
+_CNN_FAMILIES: Dict[str, Tuple[Callable, Any]] = {
+    "mobilenet_v1": (functools.partial(mobilenet.MobileNetConfig, version=1), mobilenet),
+    "mobilenet_v2": (functools.partial(mobilenet.MobileNetConfig, version=2), mobilenet),
+    "resnet18": (functools.partial(resnet.ResNetConfig, depth=18), resnet),
+    "resnet34": (functools.partial(resnet.ResNetConfig, depth=34), resnet),
+}
+
+
+def cnn_families() -> Tuple[str, ...]:
+    return tuple(sorted(_CNN_FAMILIES))
+
+
+def get_cnn_api(name: str, device=None) -> CNNApi:
+    try:
+        make_config, mod = _CNN_FAMILIES[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown CNN family {name!r}; known: {', '.join(cnn_families())}"
+        ) from None
+    return _cnn_api(name, make_config, mod, resolve_device(device))

@@ -1,0 +1,61 @@
+"""Shared LayerSpec-topology helpers for the CNN model builders.
+
+The port's own copy of the JAX package's ``models/topology.py``.  Each
+helper returns a fully-tagged ``LayerSpec`` — including the
+``activation`` the executor (models/cnn.py) applies — so the DSE
+topology and the inference path are generated from one description.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+from repro_torch.core.rate import LayerSpec
+
+
+def ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def conv_spec(name: str, kind: str, d_in: int, d_out: int,
+              hw: Tuple[int, int], k: int, s: int,
+              cm: int = 1, act: str = "none",
+              ) -> Tuple[LayerSpec, Tuple[int, int]]:
+    """Square-kernel 'same'-padded conv-family LayerSpec + its out_hw."""
+    out_hw = (ceil_div(hw[0], s), ceil_div(hw[1], s))
+    return (
+        LayerSpec(name=name, kind=kind, d_in=d_in, d_out=d_out,
+                  in_hw=hw, out_hw=out_hw, kernel=(k, k), stride=(s, s),
+                  channel_multiplier=cm, activation=act),
+        out_hw,
+    )
+
+
+def pool_spec(name: str, d: int, hw: Tuple[int, int], k: int, s: int,
+              ) -> Tuple[LayerSpec, Tuple[int, int]]:
+    """'same'-padded max pool (comparators only — no multipliers)."""
+    out_hw = (ceil_div(hw[0], s), ceil_div(hw[1], s))
+    return (
+        LayerSpec(name=name, kind="pool", d_in=d, d_out=d,
+                  in_hw=hw, out_hw=out_hw, kernel=(k, k), stride=(s, s)),
+        out_hw,
+    )
+
+
+def add_spec(name: str, d: int, hw: Tuple[int, int],
+             act: str = "none") -> LayerSpec:
+    """Elementwise join of equal-shape operand streams."""
+    return LayerSpec(name=name, kind="add", d_in=d, d_out=d,
+                     in_hw=hw, out_hw=hw, activation=act)
+
+
+def gap_spec(name: str, d: int, hw: Tuple[int, int]) -> LayerSpec:
+    """Global average pool: whole-frame running mean down to 1x1."""
+    return LayerSpec(name=name, kind="gap", d_in=d, d_out=d,
+                     in_hw=hw, out_hw=(1, 1), kernel=hw)
+
+
+def dense_spec(name: str, d_in: int, d_out: int,
+               act: str = "none") -> LayerSpec:
+    """Fully-connected head on the 1x1 post-GAP feature vector."""
+    return LayerSpec(name=name, kind="dense", d_in=d_in, d_out=d_out,
+                     in_hw=(1, 1), out_hw=(1, 1), activation=act)
