@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch / CUDA port's main path once on one NVIDIA card.
+"""Drive the PyTorch / CUDA port's main paths once on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -13,22 +13,33 @@ printing JSON lines:
    power limit are printed as ``nvidia-smi`` gives them;
 2. build — the kernels' nvcc build (``repro_torch.kernels._build``);
 3. kernels — every kernel against its plain PyTorch version on the card
-   at every shape the main path gives it (MobileNetV2 and ResNet-18 at
-   224x224, batch 8, the rate-3 plan's tiles) plus odd-size extras;
-   each with its time, the plain version's, the library call's
-   (``torch.matmul`` / ``F.conv2d``, TF32 off) and the roofline bound;
+   at every shape its main path gives it (MobileNetV2 and ResNet-18 at
+   224x224, batch 8, the rate-3 plan's tiles; qwen2-7b's prefill
+   attention at the served prompt lengths) plus odd-size extras; each
+   with its time, the plain version's, the library call's
+   (``torch.matmul`` / ``F.conv2d`` with TF32 off, and
+   ``F.scaled_dot_product_attention``) and the roofline bound;
 4. slice — MobileNetV2, then ResNet-18, at 224x224: 4 requests of 8
    frames through ``api.apply(params, x, cfg, plan=kp)``, launch counts
    set to 0 just before and read just after, executed tile == plan on
    every arithmetic node, logits held against the plain path on the card;
    one more forward pass under ``torch.profiler`` gives the device time
    by kernel and the device's busy share of the batch latency;
-5. the ``kernels`` line, the card line, and the final ``ok`` line.
+5. lm — qwen2-7b at full width and depth (bf16 KV cache: the config's
+   int8 cache is not ported), random weights from a seeded CUDA
+   generator: the token engine serves 4 prompts of 512-2048 tokens on 2
+   slots, 16 new tokens each, launch counts set to 0 just before and
+   read just after (the flash kernel once per layer per prefill); then
+   each prompt's prefill logits on the kernel against the same prefill on
+   the kernel's plain version, and one prefill and one decode step under
+   ``torch.profiler``;
+6. the ``kernels`` line, the card line, and the final ``ok`` line.
 
 Any failure raises: the script then exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -41,8 +52,21 @@ BATCH = 8
 REQUESTS = 4
 RATE = Fraction(3)
 # fp32 against fp32 with another summation order: max |kernel - plain|
-# must stay within TOL x max(1, max |plain|).
+# must stay within TOL x max(1, max |plain|); bf16 outputs, each rounded
+# once, within BF16_TOL x the same scale (the LM logits, the library
+# yardstick).  The flash kernel is held element by element instead,
+# |kernel - plain| <= rtol x |plain| + atol: both sides compute in f32, so
+# a bf16 output differs by at most one rounding each side (2^-7 relative),
+# while a late row's typical |o| (about 0.05 over 1000 keys) lies far
+# below any fraction of the largest |o|.
+FLASH_TOL = {"bfloat16": (2.0 ** -7, 1e-4), "float32": (1e-4, 1e-5)}
 TOL = 1e-4
+BF16_TOL = 3e-2
+# The LM phase: qwen2-7b prompts (tokens), new tokens each, engine shape.
+PROMPT_LENS = (512, 1000, 1536, 2048)
+MAX_NEW = 16
+SLOTS = 2
+MAX_LEN = 2304
 KERNELS = {
     "fcu_matmul": ("src/repro_torch/kernels/csrc/fcu_matmul.cu",
                    "src/repro/kernels/fcu_matmul/fcu_matmul.py:45"),
@@ -50,14 +74,20 @@ KERNELS = {
                  "src/repro/kernels/kpu_conv/kpu_conv.py:79"),
     "dw_conv": ("src/repro_torch/kernels/csrc/dw_conv.cu",
                 "src/repro/kernels/dw_conv/dw_conv.py:41"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/attention/flash_attention.py:89"),
 }
 KIND_KERNEL = {"conv": "kpu_conv", "dwconv": "dw_conv",
                "pointwise": "fcu_matmul", "dense": "fcu_matmul"}
 # The CUDA function each kernel launches (csrc/*.cu), as the profiler names it.
-DEVICE_FN = {"fcu_matmul": "fcu_kernel", "kpu_conv": "kpu_kernel",
-             "dw_conv": "dw_kernel"}
-BOUND = ("max(flops / 67 TFLOP/s, the H100 SXM fp32 CUDA-core peak; "
-         "bytes / 3.35 TB/s HBM), each input read once, each output written once")
+DEVICE_FN = {"fcu_matmul": ("fcu_kernel",), "kpu_conv": ("kpu_kernel",),
+             "dw_conv": ("dw_kernel",)}
+# The LM path's device time: the flash kernel, cuBLAS's products, the rest.
+LM_DEVICE_FN = {"flash_attention": ("flash_kernel",),
+                "matmul": ("gemm", "gemv", "xmma", "cutlass", "splitK", "nvjet")}
+BOUND = ("max(flops / peak of the operands' type on the H100 SXM (67 TFLOP/s "
+         "fp32 CUDA cores, 989 TFLOP/s bf16 tensor cores); bytes / 3.35 TB/s "
+         "HBM), each input read once, each output written once")
 
 
 def emit(obj) -> None:
@@ -96,7 +126,11 @@ class KernelBench:
         self.hw = hw
         self.rows = []
 
-    def case(self, kernel, label, fn, plain, library, flops, nbytes, timed=True):
+    def case(self, kernel, label, fn, plain, library, flops, nbytes, timed=True,
+             tol=TOL, peak=None, elementwise=None):
+        """``elementwise=(rtol, atol)`` holds the kernel to |y - plain| <=
+        rtol x |plain| + atol everywhere instead of ``tol`` x the scale;
+        the library call keeps the scale rule."""
         torch = self.torch
         y = fn()
         ref = plain()
@@ -104,16 +138,25 @@ class KernelBench:
         torch.cuda.synchronize()
         require(bool(torch.isfinite(y).all()), f"{label}: non-finite output")
         scale = max(1.0, ref.abs().max().item())
-        err = (y - ref).abs().max().item()
-        lib_err = (lib - ref).abs().max().item()
-        require(err <= TOL * scale,
-                f"{label}: kernel vs plain max|err| {err} > {TOL} x {scale}")
-        require(lib_err <= TOL * scale,
-                f"{label}: library call vs plain max|err| {lib_err} > {TOL} x {scale}")
+        diff = (y.float() - ref.float()).abs()
+        err = diff.max().item()
+        lib_err = (lib.float() - ref.float()).abs().max().item()
         row = {"node": label, "kernel": kernel, "max_abs_err": err,
-               "rel_err": err / scale, "tolerance": TOL}
+               "rel_err": err / scale, "tolerance": tol}
+        if elementwise is None:
+            require(err <= tol * scale,
+                    f"{label}: kernel vs plain max|err| {err} > {tol} x {scale}")
+        else:
+            rtol, atol = elementwise
+            worst = (diff / (rtol * ref.float().abs() + atol)).max().item()
+            require(worst <= 1.0,
+                    f"{label}: kernel vs plain |err| up to {worst} x the limit "
+                    f"{rtol} x |plain| + {atol}")
+            row.update(tolerance={"rtol": rtol, "atol": atol}, worst_of_limit=worst)
+        require(lib_err <= tol * scale,
+                f"{label}: library call vs plain max|err| {lib_err} > {tol} x {scale}")
         if timed:
-            t_ops = flops / self.hw.peak_fp32_flops * 1e3
+            t_ops = flops / (peak or self.hw.peak_fp32_flops) * 1e3
             t_bytes = nbytes / self.hw.hbm_bw * 1e3
             row.update(
                 ms=cuda_ms(torch, fn), plain_ms=cuda_ms(torch, plain),
@@ -253,23 +296,30 @@ def bench_extras(torch, bench, gen):
     )
 
 
-def device_ms_by_kernel(torch, fn) -> dict:
+def device_ms_by_kernel(torch, fn, classes=DEVICE_FN):
     """One call of ``fn`` under ``torch.profiler``: device ms summed per
-    ported kernel, the rest (bias, activation, joins, pooling, copies)
-    under "other".  Empty if the profiler saw no device activity."""
+    class of device function (``classes``: name -> substrings of the
+    function's name), the rest (bias, activation, joins, pooling, norms,
+    copies) under "other" (empty if the profiler saw no device activity);
+    the call's host-clock ms, ending in a synchronize; and the five
+    device functions that took the longest, with their ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-    out = {}
+        wall = (time.perf_counter() - t0) * 1e3
+    out, by_fn = {}, []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA or e.device_time_total <= 0:
             continue
-        name = next((k for k, f in DEVICE_FN.items() if f in e.key), "other")
+        name = next((k for k, subs in classes.items()
+                     if any(f in e.key for f in subs)), "other")
         out[name] = out.get(name, 0.0) + e.device_time_total / 1e3
-    return out
+        by_fn.append((e.device_time_total / 1e3, e.count, e.key[:90]))
+    return out, wall, sorted(by_fn, reverse=True)[:5]
 
 
 def reset_counts(kernels_mod) -> None:
@@ -337,7 +387,7 @@ def run_slice(torch, family, kernels_mod, gen, bench):
         require(err <= TOL * scale,
                 f"{family}: logits vs plain path max|err| {err} > {TOL} x {scale}")
         errs.append(err / scale)
-    device_ms = device_ms_by_kernel(
+    device_ms, _, _ = device_ms_by_kernel(
         torch, lambda: api.apply(params, xs[0], cfg, plan=kp))
     busy_ms = sum(device_ms.values())
     latency = statistics.median(latency_ms)
@@ -360,6 +410,180 @@ def run_slice(torch, family, kernels_mod, gen, bench):
     return counts
 
 
+def bench_flash(torch, bench, gen):
+    """The flash kernel at the LM path's prefill shapes (qwen2-7b's heads,
+    bf16, each served prompt length), then extras off that path (f32,
+    group 1, non-causal, d = 64, a length below one block; checked, not
+    timed)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    def case(label, h, hkv, s, d, dtype, causal=True, timed=True):
+        q, k, v = (torch.randn((1, n, s, d), generator=gen).to("cuda", dtype)
+                   for n in (h, hkv, hkv))
+        kx, vx = (t.repeat_interleave(h // hkv, dim=1) for t in (k, v))
+        block_q, block_k = fa.flash_blocks(h, s)
+        pairs = s * (s + 1) // 2 if causal else s * s
+        bf16 = dtype == torch.bfloat16
+        bench.case(
+            "flash_attention", label,
+            lambda: fa.flash_attention(q, k, v, causal=causal, block_q=block_q,
+                                       block_k=block_k),
+            lambda: fa.flash_attention_plain(q, k, v, causal=causal),
+            lambda: F.scaled_dot_product_attention(q, kx, vx, is_causal=causal),
+            4 * d * h * pairs, q.element_size() * (2 * q.numel() + 2 * k.numel()),
+            timed=timed, tol=BF16_TOL if bf16 else TOL,
+            elementwise=FLASH_TOL[str(dtype).removeprefix("torch.")],
+            peak=bench.hw.peak_bf16_flops if bf16 else bench.hw.peak_fp32_flops,
+        )
+
+    for s in PROMPT_LENS:
+        case(f"qwen2-7b/prefill{s}", 28, 4, s, 128, torch.bfloat16)
+    case("extra/f32-s512", 28, 4, 512, 128, torch.float32, timed=False)
+    case("extra/group1-s1024", 8, 8, 1024, 128, torch.bfloat16, timed=False)
+    case("extra/noncausal-s512", 28, 4, 512, 128, torch.bfloat16, causal=False,
+         timed=False)
+    case("extra/d64-s768", 16, 4, 768, 64, torch.bfloat16, timed=False)
+    case("extra/ragged-s9", 28, 4, 9, 128, torch.bfloat16, timed=False)
+
+
+def _param_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_param_bytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(_param_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def run_lm(torch, kernels_mod):
+    """qwen2-7b served by the token engine on the card; returns the launch
+    counts of the serve run."""
+    import numpy as np
+
+    from repro_torch.configs.base import param_count
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.models import lm
+    from repro_torch.models.registry import get_api
+    from repro_torch.serving.engine import Engine, Request
+
+    cfg = dataclasses.replace(get_config("qwen2-7b"), kv_quant=False)
+    api = get_api(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    emit({"phase": "lm_build", "model": cfg.name, "kv_cache": "bf16",
+          "layers": cfg.n_layers, "d_model": cfg.d_model, "heads": cfg.n_heads,
+          "kv_heads": cfg.n_kv, "params": param_count(cfg),
+          "param_bytes": _param_bytes(params), "init_s": time.perf_counter() - t0,
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+
+    rng = np.random.default_rng(2026)
+    prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32) for n in PROMPT_LENS]
+    warm = Engine(cfg, params, slots=SLOTS, max_len=MAX_LEN)
+    warm.submit(Request(rid=-1, prompt=prompts[0][:64], max_new=2))
+    warm.run_until_drained()
+    del warm
+    torch.cuda.synchronize()
+
+    eng = Engine(cfg, params, slots=SLOTS, max_len=MAX_LEN)
+    reqs = [Request(rid=i, prompt=p, max_new=MAX_NEW) for i, p in enumerate(prompts)]
+    reset_counts(kernels_mod)
+    t_start = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    steps = []
+    while eng.queue or eng.active:
+        started = {r.rid for r in reqs if r.t_first is not None}
+        active = {r.rid for r in eng.active.values()}
+        t0 = time.perf_counter()
+        eng.step()               # ends in a host read of the sampled tokens
+        ms = (time.perf_counter() - t0) * 1e3
+        admitted = {r.rid for r in reqs if r.t_first is not None} - started
+        steps.append((ms, admitted, active | admitted))
+    serve_s = time.perf_counter() - t_start
+    counts = read_counts(kernels_mod)
+    want = cfg.n_layers * len(reqs)
+    require(counts["flash_attention"] == want,
+            f"lm: flash launches {counts['flash_attention']} != layers x prefills {want}")
+    require(all(r.done and len(r.out) == MAX_NEW for r in reqs),
+            f"lm: requests ended with {[len(r.out) for r in reqs]} tokens")
+    decode_steps = [ms for ms, adm, _ in steps if not adm]
+    per_request = []
+    for r in reqs:
+        mine = [ms for ms, adm, act in steps if not adm and r.rid in act]
+        per_request.append({
+            "rid": r.rid, "prompt_tokens": len(r.prompt), "new_tokens": len(r.out),
+            "ttft_ms": (r.t_first - r.t_submit) * 1e3,
+            "decode_step_ms_median": statistics.median(mine),
+            "decode_tokens_per_s": (len(r.out) - 1) / (r.t_done - r.t_first),
+        })
+    emit({"phase": "lm_serve", "model": cfg.name, "slots": SLOTS, "max_len": MAX_LEN,
+          "requests": per_request, "launches": counts, "serve_s": serve_s,
+          "tokens_per_s": sum(len(r.out) for r in reqs) / serve_s,
+          "engine_steps": len(steps), "decode_step_ms_median": statistics.median(decode_steps),
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+
+    def plain(q, k, v):
+        return flash_attention_plain(q, k, v, causal=True)
+
+    agree, rows = 0, []
+    for r, p in zip(reqs, prompts):
+        toks = torch.as_tensor(p, dtype=torch.long, device="cuda")[None]
+        out = {}
+        for route, flash in (("kernel", None), ("plain", plain)):
+            cache = lm.init_cache(cfg, 1, MAX_LEN, device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = lm.prefill(params, toks, cfg, cache, flash=flash)
+            torch.cuda.synchronize()
+            out[route] = (logits, (time.perf_counter() - t0) * 1e3)
+        got, want_ = out["kernel"][0], out["plain"][0]
+        require(tuple(got.shape) == (1, 1, cfg.vocab) and got.dtype == torch.float32,
+                f"lm: logits {tuple(got.shape)} {got.dtype}")
+        require(bool(torch.isfinite(got).all()), "lm: non-finite prefill logits")
+        scale = max(1.0, want_.abs().max().item())
+        err = (got - want_).abs().max().item()
+        require(err <= BF16_TOL * scale,
+                f"lm/prefill{len(p)}: logits vs plain path max|err| {err} > "
+                f"{BF16_TOL} x {scale}")
+        same = int(got.argmax()) == int(want_.argmax())
+        agree += same
+        rows.append({"prompt_tokens": len(p), "prefill_ms": out["kernel"][1],
+                     "plain_prefill_ms": out["plain"][1], "logits_max_abs_err": err,
+                     "logits_scale": scale, "greedy_agrees": same,
+                     "served_first_token_agrees": r.out[0] == int(got.argmax())})
+    emit({"phase": "lm_prefill_check", "tolerance": BF16_TOL, "prompts": rows,
+          "greedy_agree_share": agree / len(reqs)})
+
+    toks = torch.as_tensor(prompts[-1], dtype=torch.long, device="cuda")[None]
+    cache = lm.init_cache(cfg, 1, MAX_LEN, device="cuda")
+    pool = eng.state
+    pos = np.asarray([len(p) + MAX_NEW for p in prompts[-SLOTS:]])
+    step_toks = torch.zeros((SLOTS, 1), dtype=torch.long, device="cuda")
+    calls = {"prefill": lambda: lm.prefill(params, toks, cfg, cache),
+             "decode": lambda: lm.decode_step(params, pool, step_toks, pos, cfg)}
+    profile = {"prefill_tokens": len(prompts[-1]), "decode_slots": SLOTS,
+               "decode_positions": pos.tolist()}
+    for name, fn in calls.items():
+        host_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+        device_ms, wall, top = device_ms_by_kernel(torch, fn, LM_DEVICE_FN)
+        profile[name] = {
+            "ms": statistics.median(host_ms), "profiled_wall_ms": wall,
+            "device_ms": device_ms,
+            "device_busy_share": sum(device_ms.values()) / statistics.median(host_ms),
+            "top_device_fns": top}
+    emit({"phase": "lm_profile", **profile})
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -374,7 +598,7 @@ def main() -> int:
         print(f"chip_smoke: the port's package is missing ({e})", file=sys.stderr)
         return 1
     from repro_torch.core.hw import H100_SXM
-    from repro_torch.kernels import _build, dw_conv, fcu_matmul, kpu_conv
+    from repro_torch.kernels import _build, dw_conv, fcu_matmul, flash_attention, kpu_conv
     from repro_torch.models.registry import get_cnn_api
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -392,22 +616,28 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": os.path.relpath(lib._name, root)})
 
-    kernels_mod = {"fcu_matmul": fcu_matmul, "kpu_conv": kpu_conv, "dw_conv": dw_conv}
+    kernels_mod = {"fcu_matmul": fcu_matmul, "kpu_conv": kpu_conv, "dw_conv": dw_conv,
+                   "flash_attention": flash_attention}
     gen = torch.Generator().manual_seed(2026)
     bench = KernelBench(torch, H100_SXM)
     emit({"phase": "kernels", "tolerance": TOL, "bound": BOUND,
-          "tolerance_of": "max|kernel - plain| <= tolerance x max(1, max|plain|)"})
+          "tolerance_of": "max|kernel - plain| <= tolerance x max(1, max|plain|)",
+          "flash_tolerance": FLASH_TOL,
+          "flash_tolerance_of": "|kernel - plain| <= rtol x |plain| + atol"})
     for family in ("mobilenet_v2", "resnet18"):
         api = get_cnn_api(family)
         cfg = api.make_config()
         bench_nodes(torch, bench, family, api.plan(cfg, RATE), api.graph(cfg), gen)
     bench_extras(torch, bench, gen)
+    bench_flash(torch, bench, gen)
 
     launches = {k: 0 for k in KERNELS}
     for family in ("mobilenet_v2", "resnet18"):
         counts = run_slice(torch, family, kernels_mod, gen, bench)
         for k, v in counts.items():
             launches[k] += v
+    for k, v in run_lm(torch, kernels_mod).items():
+        launches[k] += v
     require(all(launches.values()), f"a kernel never launched on the main path: {launches}")
 
     out = []

@@ -9,8 +9,8 @@ on a hash of the sources and flags, so an unchanged tree never rebuilds.
 The ptxas report (registers, shared memory, spills per kernel) is kept
 beside it as ``nvcc.log``.  A failed compile raises with nvcc's output.
 
-The kernel modules (``fcu_matmul``, ``kpu_conv``, ``dw_conv``) import this
-module and none of each other.
+The kernel modules (``fcu_matmul``, ``kpu_conv``, ``dw_conv``,
+``flash_attention``) import this module and none of each other.
 """
 from __future__ import annotations
 
@@ -34,9 +34,9 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 LIB_NAME = "librepro_torch_kernels.so"
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points (csrc/*.cu): pointers and the stream as c_void_p, ints as
-# c_int; each returns the cudaError_t of its launch.
+# c_int, floats as c_float; each returns the cudaError_t of its launch.
 SIGNATURES = {
     # x, w, y, m, d_in, d_out, bm, bk, bn, tx, ty, tm, tn, g, stream
     "fcu_matmul_f32": [_P, _P, _P] + [_I] * 11 + [_P],
@@ -46,6 +46,10 @@ SIGNATURES = {
     # x, w, y, n, h, w, c, ho, wo, kh, kw, stride, pad_t, pad_l, rows, bc,
     # stream
     "dw_conv_f32": [_P, _P, _P] + [_I] * 13 + [_P],
+    # q, k, v, o, batch, heads, group, sq, sk, d, block_q, block_k, causal,
+    # scale, stream
+    "flash_attention_f32": [_P] * 4 + [_I] * 9 + [_F, _P],
+    "flash_attention_bf16": [_P] * 4 + [_I] * 9 + [_F, _P],
 }
 
 
@@ -142,12 +146,17 @@ def check_launch(name: str, err: int) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed: error {err} ({text})")
 
 
-def check_operands(name: str, *ts: torch.Tensor) -> None:
-    """The kernels take contiguous fp32 tensors on one device."""
+def check_operands(name: str, *ts: torch.Tensor,
+                   dtypes: tuple = (torch.float32,)) -> None:
+    """The kernels take contiguous tensors of one of ``dtypes``, all of
+    one dtype and on one device."""
     dev = ts[0].device
     for t in ts:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: kernel takes float32, got {t.dtype}")
+        if t.dtype not in dtypes:
+            names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+            raise TypeError(f"{name}: kernel takes {names}, got {t.dtype}")
+        if t.dtype != ts[0].dtype:
+            raise TypeError(f"{name}: operands of {ts[0].dtype} and {t.dtype}")
         if t.device != dev:
             raise ValueError(f"{name}: operands on {dev} and {t.device}")
         if not t.is_contiguous():

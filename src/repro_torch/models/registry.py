@@ -1,4 +1,11 @@
-"""The CNN registry: one front door per family, as in the JAX package.
+"""The front doors, as in the JAX package: ``get_api`` for the LM families
+and ``get_cnn_api`` for the CNN families.
+
+    api = get_api(cfg)                         # LM serving, on the card
+    params = api.init(cfg, torch.Generator("cuda").manual_seed(0))
+    state = api.make_serve_state(cfg, batch, max_len)
+    logits, state = api.prefill(params, {"tokens": toks}, state, cfg)
+    logits, state = api.decode(params, state, {"tokens": tok}, pos, cfg)
 
     api = get_cnn_api("mobilenet_v2")          # on the card ("cuda")
     cfg = api.make_config()                    # 224x224, 1000 classes
@@ -6,9 +13,10 @@
     kp = api.plan(cfg, Fraction(3))            # per-node ImplPlan table
     logits = api.apply(params, x, cfg, plan=kp)   # rate-matched kernels
 
-``get_cnn_api(family, device=None)`` resolves ``None`` to ``"cuda"`` and
-raises where CUDA is absent: the port's entry points run on the card
-unless the caller asks for the CPU (``device="cpu"``, as the tests do),
+``get_api(cfg, device=None)`` and ``get_cnn_api(family, device=None)``
+resolve ``None`` to ``"cuda"`` and raise where CUDA is absent: the port's
+entry points run on the card unless the caller asks for the CPU
+(``device="cpu"``, as the tests do),
 where every kernel runs its plain PyTorch version.  There is no silent
 CPU path.
 """
@@ -22,7 +30,7 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 
 from repro_torch.core.graph import plan_graph
-from repro_torch.models import mobilenet, resnet
+from repro_torch.models import lm, mobilenet, resnet
 
 
 def resolve_device(device=None) -> torch.device:
@@ -42,6 +50,47 @@ def _not_yet(what: str, item: str) -> Callable:
             f"{what} is not ported yet (ROADMAP: {item})"
         )
     return missing
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelAPI:
+    """The LM families' uniform surface (the JAX package's ``ModelAPI``)."""
+
+    init: Callable                    # (cfg, generator) -> params on device
+    loss_fn: Callable                 # not ported yet: raises
+    make_serve_state: Callable        # (cfg, batch, max_len) -> caches
+    prefill: Callable                 # (params, batch, state, cfg)
+    decode: Callable                  # (params, state, batch, pos, cfg)
+
+
+_NOT_PORTED_FAMILIES = {"ssm": "SSM path", "hybrid": "SSM path",
+                        "encdec": "encdec and vlm families",
+                        "vlm": "encdec and vlm families"}
+
+
+def get_api(cfg, device=None) -> ModelAPI:
+    """The LM API for ``cfg``, its tensors on ``device`` (the card unless
+    the caller asks for the CPU).  ``batch["tokens"]`` may be any integer
+    array; it is moved to the device."""
+    if cfg.family in _NOT_PORTED_FAMILIES:
+        raise NotImplementedError(
+            f"the {cfg.family} family is not ported yet (ROADMAP Queue 1: "
+            f"{_NOT_PORTED_FAMILIES[cfg.family]})")
+    if cfg.family != "lm":
+        raise KeyError(f"unknown family {cfg.family!r}")
+    dev = resolve_device(device)
+
+    def tokens(batch):
+        return torch.as_tensor(batch["tokens"]).to(dev, torch.long)
+
+    return ModelAPI(
+        init=lambda cfg, generator: lm.init(cfg, generator, dev),
+        loss_fn=_not_yet("loss_fn", "training and infrastructure"),
+        make_serve_state=lambda cfg, b, ml: lm.init_cache(cfg, b, ml, device=dev),
+        prefill=lambda p, batch, st, cfg: lm.prefill(p, tokens(batch), cfg, st),
+        decode=lambda p, st, batch, pos, cfg: lm.decode_step(
+            p, st, tokens(batch), pos, cfg),
+    )
 
 
 @dataclasses.dataclass(frozen=True)

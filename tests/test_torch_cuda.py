@@ -7,7 +7,10 @@ fixture).  On a machine with an H100 and the CUDA toolkit:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 The first test builds the kernels with nvcc.  fp32 against fp32 in
-another summation order is held at 1e-4 of the output's scale.
+another summation order is held at 1e-4 of the output's scale.  The flash
+kernel is held element by element, |y - plain| <= rtol x |plain| + atol:
+bf16 outputs, computed in f32 and rounded once each side, at 2^-7 and
+1e-4; f32 at 1e-4 and 1e-5.
 """
 from fractions import Fraction
 
@@ -18,13 +21,18 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core.dse import select_ours  # noqa: E402
 from repro_torch.core.tiles import select_tile_for_impl  # noqa: E402
+from repro_torch.configs.registry import get_config, reduced  # noqa: E402
 from repro_torch.kernels import dw_conv, fcu_matmul, kpu_conv  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
 from repro_torch.models.registry import get_cnn_api  # noqa: E402
+from repro_torch.nn.embeddings import unembed  # noqa: E402
 from repro_torch.models.topology import conv_spec, dense_spec  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
 TOL = 1e-4
+FLASH_TOL = {torch.bfloat16: (2.0 ** -7, 1e-4), torch.float32: (1e-4, 1e-5)}
 
 
 @pytest.fixture
@@ -44,6 +52,12 @@ def _close(got, want):
     torch.cuda.synchronize()
     scale = max(1.0, want.abs().max().item())
     assert (got - want).abs().max().item() <= TOL * scale
+
+
+def _close_elementwise(got, want, rtol, atol):
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    assert bool((diff <= rtol * want.float().abs() + atol).all())
 
 
 def _launched(fn, call):
@@ -147,3 +161,72 @@ def test_rate_matched_slice_on_card_matches_cpu(card, family):
     want = cpu.apply(params, x, cfg, plan=kp)
     assert sorted(executed) == sorted(n for n, ip in kp.items() if ip.has_kernel)
     _close(got.cpu(), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize(
+    "h,hkv,sq,sk,d,causal",
+    [
+        (28, 4, 512, 512, 128, True),    # qwen2-7b's heads: group 7
+        (28, 4, 1000, 1000, 128, True),  # ragged: no block divides 1000
+        (7, 1, 130, 130, 128, False),    # group 7, non-causal, ragged
+        (8, 8, 200, 200, 64, True),      # group 1: flash_attention_p's contract
+        (4, 4, 64, 300, 64, False),      # more keys than queries
+        (4, 2, 9, 9, 16, True),          # below one block (reduced qwen2)
+        (6, 3, 77, 77, 32, False),
+    ],
+)
+def test_flash_kernel_matches_plain(card, dtype, h, hkv, sq, sk, d, causal):
+    q = _rand((2, h, sq, d), sq + d).to(card, dtype)
+    k = _rand((2, hkv, sk, d), sk).to(card, dtype)
+    v = _rand((2, hkv, sk, d), sk + 1).to(card, dtype)
+    want = fa.flash_attention_plain(q, k, v, causal=causal)
+    for block_q, block_k in {fa.flash_blocks(2 * h, sq), (16, 64), (64, 16)}:
+        y = _launched(fa.flash_attention, lambda: fa.flash_attention(
+            q, k, v, causal=causal, block_q=block_q, block_k=block_k))
+        assert y.dtype == dtype and y.shape == q.shape
+        _close_elementwise(y, want, *FLASH_TOL[dtype])
+
+
+def test_flash_launches_count_only_launches(card):
+    q, kv = torch.ones(1, 2, 8, 16), torch.ones(1, 1, 8, 16)
+    before = fa.flash_attention.launches
+    fa.flash_attention(q, kv, kv, block_q=16, block_k=16)    # CPU: plain version
+    with pytest.raises(ValueError):
+        fa.flash_attention(q.to(card), kv.to(card), kv.to(card), block_q=8,
+                           block_k=16)
+    assert fa.flash_attention.launches == before
+    fa.flash_attention(q.to(card), kv.to(card), kv.to(card), block_q=16, block_k=16)
+    assert fa.flash_attention.launches == before + 1
+
+
+def test_unembed_on_card_matches_the_f32_product(card):
+    """bf16 operands, f32 logits: the card's f32-output product against
+    the product of f32 copies (a bf16 product is exact in f32)."""
+    table = _rand((20_000, 256), 1, 0.02).to(card, torch.bfloat16)
+    x = _rand((3, 1, 256), 2).to(card, torch.bfloat16)
+    got = unembed(table, x)
+    assert got.dtype == torch.float32 and got.shape == (3, 1, 20_000)
+    _close(got, (x.float() @ table.float().t()))
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def test_reduced_qwen2_prefill_on_card_matches_cpu(card):
+    cfg = reduced(get_config("qwen2-7b"), layers=2, d_model=64, vocab=128)
+    params = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 128, (2, 37)))
+    want, want_cache = lm.prefill(params, toks, cfg, lm.init_cache(cfg, 2, 48))
+    before = fa.flash_attention.launches
+    got, cache = lm.prefill(_to(params, card), toks.to(card), cfg,
+                            lm.init_cache(cfg, 2, 48, device=card))
+    assert fa.flash_attention.launches == before + cfg.n_layers
+    _close(got.cpu(), want)
+    for g, w in zip(cache, want_cache):
+        _close(g.cpu(), w)

@@ -15,7 +15,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import _build, dw_conv, fcu_matmul, kpu_conv  # noqa: E402
+from repro_torch.kernels import _build, dw_conv, fcu_matmul, flash_attention, kpu_conv  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -51,7 +51,8 @@ def test_entry_point_needs_cuda_by_default(monkeypatch):
     assert registry.get_cnn_api("resnet18", device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("which", ["fcu_matmul", "kpu_conv", "dw_conv"])
+@pytest.mark.parametrize("which", ["fcu_matmul", "kpu_conv", "dw_conv",
+                                   "flash_attention"])
 def test_cuda_request_without_build_raises(which, monkeypatch, tmp_path):
     """A CUDA request reaches the launch path, which needs the nvcc build:
     with no toolkit and no built library it raises, and the plain
@@ -61,13 +62,18 @@ def test_cuda_request_without_build_raises(which, monkeypatch, tmp_path):
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     _build.library.cache_clear()
-    mod = {"fcu_matmul": fcu_matmul, "kpu_conv": kpu_conv, "dw_conv": dw_conv}[which]
+    mod = {"fcu_matmul": fcu_matmul, "kpu_conv": kpu_conv, "dw_conv": dw_conv,
+           "flash_attention": flash_attention}[which]
     fn = getattr(mod, which)
     before = fn.launches
     try:
         with pytest.raises(RuntimeError, match="nvcc not found"):
             if which == "fcu_matmul":
                 fn(torch.ones(4, 8), torch.ones(8, 8), bm=4, bk=8, bn=8)
+            elif which == "flash_attention":
+                fn(torch.ones(1, 2, 8, 16, dtype=torch.bfloat16),
+                   *[torch.ones(1, 1, 8, 16, dtype=torch.bfloat16)] * 2,
+                   block_q=16, block_k=16)
             elif which == "kpu_conv":
                 fn(torch.ones(1, 4, 4, 8), torch.ones(3, 3, 8, 8), stride=1,
                    bm=16, bci=8, bco=8)
@@ -98,3 +104,19 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="whole output rows"):
         dw_conv.dw_conv(torch.ones(1, 4, 4, 8), torch.ones(3, 3, 8), stride=1,
                         bm=3, bc=8)
+    flash = flash_attention.flash_attention
+    q, kv = torch.ones(1, 4, 8, 16), torch.ones(1, 2, 8, 16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash(q.half(), kv.half(), kv.half(), block_q=16, block_k=16)
+    with pytest.raises(TypeError, match="operands of"):
+        flash(q, kv.bfloat16(), kv.bfloat16(), block_q=16, block_k=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash(q.transpose(1, 2).contiguous().transpose(1, 2), kv, kv,
+              block_q=16, block_k=16)
+    with pytest.raises(ValueError, match="KV heads"):
+        flash(torch.ones(1, 3, 8, 16), kv, kv, block_q=16, block_k=16)
+    with pytest.raises(ValueError, match="head dim"):
+        flash(torch.ones(1, 4, 8, 48), *[torch.ones(1, 2, 8, 48)] * 2,
+              block_q=16, block_k=16)
+    with pytest.raises(ValueError, match="blocks"):
+        flash(q, kv, kv, block_q=128, block_k=16)
