@@ -15,24 +15,26 @@ printing JSON lines:
 3. kernels — every kernel against its plain PyTorch version on the card
    at every shape its main path gives it (MobileNetV2 and ResNet-18 at
    224x224, batch 8, the rate-3 plan's tiles; qwen2-7b's prefill
-   attention at the served prompt lengths) plus odd-size extras; each
-   with its time, the plain version's, the library call's
-   (``torch.matmul`` / ``F.conv2d`` with TF32 off, and
-   ``F.scaled_dot_product_attention``) and the roofline bound;
+   attention and mamba2's and zamba2's SSD scans at the served prompt
+   lengths) plus odd-size extras; each with its time, the plain
+   version's, the library call's (``torch.matmul`` / ``F.conv2d`` with
+   TF32 off, and ``F.scaled_dot_product_attention``; none for the SSD)
+   and the roofline bound;
 4. slice — MobileNetV2, then ResNet-18, at 224x224: 4 requests of 8
    frames through ``api.apply(params, x, cfg, plan=kp)``, launch counts
    set to 0 just before and read just after, executed tile == plan on
    every arithmetic node, logits held against the plain path on the card;
    one more forward pass under ``torch.profiler`` gives the device time
    by kernel and the device's busy share of the batch latency;
-5. lm — qwen2-7b at full width and depth (bf16 KV cache: the config's
-   int8 cache is not ported), random weights from a seeded CUDA
-   generator: the token engine serves 4 prompts of 512-2048 tokens on 2
-   slots, 16 new tokens each, launch counts set to 0 just before and
-   read just after (the flash kernel once per layer per prefill); then
-   each prompt's prefill logits on the kernel against the same prefill on
-   the kernel's plain version, and one prefill and one decode step under
-   ``torch.profiler``;
+5. lm, ssm, hybrid — qwen2-7b (bf16 KV cache: the config's int8 cache is
+   not ported), then mamba2-780m, then zamba2-1.2b, each at full width
+   and depth with random weights from a seeded CUDA generator: the token
+   engine serves 4 prompts of 512-2048 tokens on 2 slots, 16 new tokens
+   each, launch counts set to 0 just before and read just after (the
+   flash kernel once per attention layer or site, the SSD kernel once
+   per Mamba2 layer, per prefill); then each prompt's prefill logits on
+   the kernels against the same prefill on their plain versions, and
+   one prefill and one decode step under ``torch.profiler``;
 6. the ``kernels`` line, the card line, and the final ``ok`` line.
 
 Any failure raises: the script then exits non-zero and prints no result.
@@ -54,15 +56,26 @@ RATE = Fraction(3)
 # fp32 against fp32 with another summation order: max |kernel - plain|
 # must stay within TOL x max(1, max |plain|); bf16 outputs, each rounded
 # once, within BF16_TOL x the same scale (the LM logits, the library
-# yardstick).  The flash kernel is held element by element instead,
-# |kernel - plain| <= rtol x |plain| + atol: both sides compute in f32, so
-# a bf16 output differs by at most one rounding each side (2^-7 relative),
-# while a late row's typical |o| (about 0.05 over 1000 keys) lies far
-# below any fraction of the largest |o|.
-FLASH_TOL = {"bfloat16": (2.0 ** -7, 1e-4), "float32": (1e-4, 1e-5)}
+# yardstick).  The flash and SSD kernels are held element by element
+# instead, |kernel - plain| <= rtol x |plain| + atol + rms x rms(plain).
+# Flash: both sides compute in f32, so a bf16 output differs by at most
+# one rounding each side (2^-7 relative), while a late row's typical |o|
+# (about 0.05 over 1000 keys) lies far below any fraction of the largest
+# |o|.  SSD: the JAX kernel test's 2e-4 (tests/kernels/test_ssd_chunk.py),
+# scaled by the element and by the output's RMS.
+FLASH_TOL = {"bfloat16": (2.0 ** -7, 1e-4, 0.0), "float32": (1e-4, 1e-5, 0.0)}
+SSD_TOL = (2e-4, 0.0, 2e-4)
 TOL = 1e-4
 BF16_TOL = 3e-2
-# The LM phase: qwen2-7b prompts (tokens), new tokens each, engine shape.
+# Why the SSM phases hold their prefill logits on an f32 copy of the
+# weights: in a deep bf16 stack a difference of a few parts in 10^6 in
+# one layer's f32 SSD output flips bf16 roundings, and the flips compound
+# through the residual stream, so bf16 logits cannot tell the kernel from
+# another summation order of the same sums.  The run records the bf16
+# difference beside that of the plain path's other order
+# (``nn.ssm.ssd_chunked``) and holds the f32 copy at TOL.
+SSM_CHECK = "f32 copy of the weights at TOL; bf16 recorded, not gated"
+# The serving phases: prompts (tokens), new tokens each, engine shape.
 PROMPT_LENS = (512, 1000, 1536, 2048)
 MAX_NEW = 16
 SLOTS = 2
@@ -76,15 +89,19 @@ KERNELS = {
                 "src/repro/kernels/dw_conv/dw_conv.py:41"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/attention/flash_attention.py:89"),
+    "ssd_chunk": ("src/repro_torch/kernels/csrc/ssd_chunk.cu",
+                  "src/repro/kernels/ssd_chunk/ssd_chunk.py:82"),
 }
+NO_LIBRARY = {"ssd_chunk": "no single PyTorch call computes the SSD chunked scan"}
 KIND_KERNEL = {"conv": "kpu_conv", "dwconv": "dw_conv",
                "pointwise": "fcu_matmul", "dense": "fcu_matmul"}
 # The CUDA function each kernel launches (csrc/*.cu), as the profiler names it.
 DEVICE_FN = {"fcu_matmul": ("fcu_kernel",), "kpu_conv": ("kpu_kernel",),
              "dw_conv": ("dw_kernel",)}
-# The LM path's device time: the flash kernel, cuBLAS's products, the rest.
-LM_DEVICE_FN = {"flash_attention": ("flash_kernel",),
-                "matmul": ("gemm", "gemv", "xmma", "cutlass", "splitK", "nvjet")}
+# The serving paths' device time: the flash and SSD kernels, cuBLAS's
+# products, the rest.
+SERVE_DEVICE_FN = {"flash_attention": ("flash_kernel",), "ssd_chunk": ("ssd_kernel",),
+                   "matmul": ("gemm", "gemv", "xmma", "cutlass", "splitK", "nvjet")}
 BOUND = ("max(flops / peak of the operands' type on the H100 SXM (67 TFLOP/s "
          "fp32 CUDA cores, 989 TFLOP/s bf16 tensor cores); bytes / 3.35 TB/s "
          "HBM), each input read once, each output written once")
@@ -128,39 +145,52 @@ class KernelBench:
 
     def case(self, kernel, label, fn, plain, library, flops, nbytes, timed=True,
              tol=TOL, peak=None, elementwise=None):
-        """``elementwise=(rtol, atol)`` holds the kernel to |y - plain| <=
-        rtol x |plain| + atol everywhere instead of ``tol`` x the scale;
-        the library call keeps the scale rule."""
+        """``fn`` and ``plain`` return a tensor or a tuple of tensors, each
+        held against its counterpart.  ``elementwise=(rtol, atol, rms)``
+        holds the kernel to |y - plain| <= rtol x |plain| + atol + rms x
+        rms(plain) everywhere instead of ``tol`` x the scale.  ``library``
+        is None where no PyTorch call computes the function; else it is
+        held at ``tol`` x the scale."""
         torch = self.torch
-        y = fn()
-        ref = plain()
-        lib = library()
+        ys, refs = fn(), plain()
+        lib = library() if library is not None else None
         torch.cuda.synchronize()
-        require(bool(torch.isfinite(y).all()), f"{label}: non-finite output")
-        scale = max(1.0, ref.abs().max().item())
-        diff = (y.float() - ref.float()).abs()
-        err = diff.max().item()
-        lib_err = (lib.float() - ref.float()).abs().max().item()
+        ys = ys if isinstance(ys, tuple) else (ys,)
+        refs = refs if isinstance(refs, tuple) else (refs,)
+        err, scale, worst = 0.0, 1.0, 0.0
+        for y, ref in zip(ys, refs):
+            require(bool(torch.isfinite(y).all()), f"{label}: non-finite output")
+            ref = ref.float()
+            diff = (y.float() - ref).abs()
+            err = max(err, diff.max().item())
+            scale = max(scale, ref.abs().max().item())
+            if elementwise is not None:
+                rtol, atol, rms = elementwise
+                limit = rtol * ref.abs() + atol + rms * ref.square().mean().sqrt()
+                worst = max(worst, (diff / limit).max().item())
         row = {"node": label, "kernel": kernel, "max_abs_err": err,
                "rel_err": err / scale, "tolerance": tol}
         if elementwise is None:
             require(err <= tol * scale,
                     f"{label}: kernel vs plain max|err| {err} > {tol} x {scale}")
         else:
-            rtol, atol = elementwise
-            worst = (diff / (rtol * ref.float().abs() + atol)).max().item()
             require(worst <= 1.0,
                     f"{label}: kernel vs plain |err| up to {worst} x the limit "
-                    f"{rtol} x |plain| + {atol}")
-            row.update(tolerance={"rtol": rtol, "atol": atol}, worst_of_limit=worst)
-        require(lib_err <= tol * scale,
-                f"{label}: library call vs plain max|err| {lib_err} > {tol} x {scale}")
+                    f"{elementwise[0]} x |plain| + {elementwise[1]} + "
+                    f"{elementwise[2]} x rms(plain)")
+            row.update(tolerance={"rtol": elementwise[0], "atol": elementwise[1],
+                                  "rms": elementwise[2]}, worst_of_limit=worst)
+        if lib is not None:
+            lib_err = (lib.float() - refs[0].float()).abs().max().item()
+            require(lib_err <= tol * scale,
+                    f"{label}: library call vs plain max|err| {lib_err} > {tol} x {scale}")
         if timed:
             t_ops = flops / (peak or self.hw.peak_fp32_flops) * 1e3
             t_bytes = nbytes / self.hw.hbm_bw * 1e3
             row.update(
                 ms=cuda_ms(torch, fn), plain_ms=cuda_ms(torch, plain),
-                library_ms=cuda_ms(torch, library), bound_ms=max(t_ops, t_bytes),
+                library_ms=cuda_ms(torch, library) if library is not None else None,
+                bound_ms=max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
                 ops_ms=t_ops, bytes_ms=t_bytes,
             )
@@ -411,10 +441,10 @@ def run_slice(torch, family, kernels_mod, gen, bench):
 
 
 def bench_flash(torch, bench, gen):
-    """The flash kernel at the LM path's prefill shapes (qwen2-7b's heads,
-    bf16, each served prompt length), then extras off that path (f32,
-    group 1, non-causal, d = 64, a length below one block; checked, not
-    timed)."""
+    """The flash kernel at the LM paths' prefill shapes (qwen2-7b's heads
+    and zamba2's shared-attention heads, bf16, each served prompt length),
+    then extras off those paths (f32, group 1 at d 128, non-causal, GQA
+    at d = 64, a length below one block; checked, not timed)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -440,12 +470,68 @@ def bench_flash(torch, bench, gen):
 
     for s in PROMPT_LENS:
         case(f"qwen2-7b/prefill{s}", 28, 4, s, 128, torch.bfloat16)
+    for s in PROMPT_LENS:   # zamba2's shared-attention sites: MHA at d 64
+        case(f"zamba2-1.2b/prefill{s}", 32, 32, s, 64, torch.bfloat16)
     case("extra/f32-s512", 28, 4, 512, 128, torch.float32, timed=False)
     case("extra/group1-s1024", 8, 8, 1024, 128, torch.bfloat16, timed=False)
     case("extra/noncausal-s512", 28, 4, 512, 128, torch.bfloat16, causal=False,
          timed=False)
     case("extra/d64-s768", 16, 4, 768, 64, torch.bfloat16, timed=False)
     case("extra/ragged-s9", 28, 4, 9, 128, torch.bfloat16, timed=False)
+
+
+def bench_ssd(torch, bench, gen):
+    """The SSD kernel at the SSM path's prefill shapes (mamba2's 48 heads
+    at N 128 and zamba2's 64 heads at N 64, each served prompt length
+    padded to the chunk of 128), inputs drawn as the models make them
+    (silu of the conv, dt from the dt_bias range, a = -(1..H)); then
+    extras off that path (two groups, chunks 16 and 64, one chunk, two
+    rows of the batch; checked, not timed).  There is no library call."""
+    import math
+
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ssd_chunk as sc
+
+    def case(label, b, l, h, p, g, n, chunk, timed=True):
+        def draw(*shape):
+            return torch.randn(shape, generator=gen).cuda()
+
+        u = torch.rand((h,), generator=gen) * (math.log(0.1) - math.log(0.001))
+        dt0 = torch.exp(u + math.log(0.001))
+        dt_bias = (dt0 + torch.log(-torch.expm1(-dt0))).cuda()
+        x, bb, cc = F.silu(draw(b, l, h, p)), F.silu(draw(b, l, g, n)), F.silu(draw(b, l, g, n))
+        dt = F.softplus(draw(b, l, h) + dt_bias)
+        a = -torch.arange(1, h + 1, dtype=torch.float32, device="cuda")
+        nc, q = l // chunk, chunk
+        flops = b * h * nc * (q * (q + 1) // 2 * (n + p) * 2 + 2 * q * n * p * 2)
+        nbytes = 4 * (2 * x.numel() + dt.numel() + a.numel() + 2 * bb.numel() + b * h * p * n)
+        bench.case(
+            "ssd_chunk", label,
+            lambda: sc.ssd_chunk(x, dt, a, bb, cc, chunk=chunk),
+            lambda: sc.ssd_chunk_plain(x, dt, a, bb, cc, chunk=chunk),
+            None, flops, nbytes, timed=timed, elementwise=SSD_TOL,
+        )
+
+    for s in PROMPT_LENS:
+        padded = -(-s // 128) * 128
+        case(f"mamba2-780m/prefill{s}", 1, padded, 48, 64, 1, 128, 128)
+    for s in PROMPT_LENS:
+        padded = -(-s // 128) * 128
+        case(f"zamba2-1.2b/prefill{s}", 1, padded, 64, 64, 1, 64, 128)
+    case("extra/g2-h8", 1, 512, 8, 64, 2, 128, 128, timed=False)
+    case("extra/chunk16", 1, 256, 8, 64, 1, 128, 16, timed=False)
+    case("extra/chunk64", 1, 512, 16, 64, 1, 128, 64, timed=False)
+    case("extra/one-chunk", 1, 128, 48, 64, 1, 128, 128, timed=False)
+    case("extra/b2", 2, 384, 8, 64, 2, 64, 128, timed=False)
+
+
+def _cast(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: _cast(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cast(v, dtype) for v in tree]
+    return tree.to(dtype)
 
 
 def _param_bytes(tree) -> int:
@@ -456,27 +542,35 @@ def _param_bytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
-def run_lm(torch, kernels_mod):
-    """qwen2-7b served by the token engine on the card; returns the launch
-    counts of the serve run."""
+def run_serve(torch, kernels_mod, phase, cfg, mod, per_prefill, plain_routes,
+              f32_check=False, other_order=None):
+    """``cfg`` served by the token engine on the card at full width and
+    depth, random weights from a seeded CUDA generator: 4 prompts on 2
+    slots, 16 new tokens each (smoke-size traffic), launch counts set to
+    0 just before and read just after, each kernel launched exactly
+    ``per_prefill[kernel]`` times a prefill; then each prompt's prefill
+    logits on the kernels against the same prefill on their plain
+    versions (``plain_routes``, keyword arguments of ``mod.prefill``),
+    and one prefill and one decode step under ``torch.profiler``.
+
+    The served dtype's logits are held at BF16_TOL of their scale, or,
+    with ``f32_check``, recorded beside the plain path with another
+    summation order (``other_order``) and held instead on an f32 copy of
+    the same weights at TOL (see SSM_CHECK).  Returns the launch counts
+    of the serve run."""
     import numpy as np
 
     from repro_torch.configs.base import param_count
-    from repro_torch.configs.registry import get_config
-    from repro_torch.kernels.flash_attention import flash_attention_plain
-    from repro_torch.models import lm
     from repro_torch.models.registry import get_api
     from repro_torch.serving.engine import Engine, Request
 
-    cfg = dataclasses.replace(get_config("qwen2-7b"), kv_quant=False)
     api = get_api(cfg)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = api.init(cfg, torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
-    emit({"phase": "lm_build", "model": cfg.name, "kv_cache": "bf16",
-          "layers": cfg.n_layers, "d_model": cfg.d_model, "heads": cfg.n_heads,
-          "kv_heads": cfg.n_kv, "params": param_count(cfg),
+    emit({"phase": f"{phase}_build", "model": cfg.name, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "params": param_count(cfg),
           "param_bytes": _param_bytes(params), "init_s": time.perf_counter() - t0,
           "max_memory_allocated": torch.cuda.max_memory_allocated()})
 
@@ -505,11 +599,11 @@ def run_lm(torch, kernels_mod):
         steps.append((ms, admitted, active | admitted))
     serve_s = time.perf_counter() - t_start
     counts = read_counts(kernels_mod)
-    want = cfg.n_layers * len(reqs)
-    require(counts["flash_attention"] == want,
-            f"lm: flash launches {counts['flash_attention']} != layers x prefills {want}")
+    want = {k: per_prefill.get(k, 0) * len(reqs) for k in KERNELS}
+    require(counts == want,
+            f"{phase}: launches {counts} != per prefill {per_prefill} x {len(reqs)}")
     require(all(r.done and len(r.out) == MAX_NEW for r in reqs),
-            f"lm: requests ended with {[len(r.out) for r in reqs]} tokens")
+            f"{phase}: requests ended with {[len(r.out) for r in reqs]} tokens")
     decode_steps = [ms for ms, adm, _ in steps if not adm]
     per_request = []
     for r in reqs:
@@ -520,51 +614,70 @@ def run_lm(torch, kernels_mod):
             "decode_step_ms_median": statistics.median(mine),
             "decode_tokens_per_s": (len(r.out) - 1) / (r.t_done - r.t_first),
         })
-    emit({"phase": "lm_serve", "model": cfg.name, "slots": SLOTS, "max_len": MAX_LEN,
-          "requests": per_request, "launches": counts, "serve_s": serve_s,
+    emit({"phase": f"{phase}_serve", "model": cfg.name, "traffic": "smoke-size",
+          "slots": SLOTS, "max_len": MAX_LEN, "requests": per_request,
+          "launches": counts, "serve_s": serve_s,
           "tokens_per_s": sum(len(r.out) for r in reqs) / serve_s,
           "engine_steps": len(steps), "decode_step_ms_median": statistics.median(decode_steps),
           "max_memory_allocated": torch.cuda.max_memory_allocated()})
 
-    def plain(q, k, v):
-        return flash_attention_plain(q, k, v, causal=True)
-
+    # The prefill check: kernels against plain versions, at the served
+    # dtype; with ``f32_check`` also on an f32 copy of the same weights.
+    checks = [("served", cfg, params)]
+    if f32_check:
+        cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+        checks.append(("f32", cfg32, _cast(params, torch.float32)))
     agree, rows = 0, []
     for r, p in zip(reqs, prompts):
         toks = torch.as_tensor(p, dtype=torch.long, device="cuda")[None]
-        out = {}
-        for route, flash in (("kernel", None), ("plain", plain)):
-            cache = lm.init_cache(cfg, 1, MAX_LEN, device="cuda")
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            logits, _ = lm.prefill(params, toks, cfg, cache, flash=flash)
-            torch.cuda.synchronize()
-            out[route] = (logits, (time.perf_counter() - t0) * 1e3)
-        got, want_ = out["kernel"][0], out["plain"][0]
-        require(tuple(got.shape) == (1, 1, cfg.vocab) and got.dtype == torch.float32,
-                f"lm: logits {tuple(got.shape)} {got.dtype}")
-        require(bool(torch.isfinite(got).all()), "lm: non-finite prefill logits")
-        scale = max(1.0, want_.abs().max().item())
-        err = (got - want_).abs().max().item()
-        require(err <= BF16_TOL * scale,
-                f"lm/prefill{len(p)}: logits vs plain path max|err| {err} > "
-                f"{BF16_TOL} x {scale}")
-        same = int(got.argmax()) == int(want_.argmax())
-        agree += same
-        rows.append({"prompt_tokens": len(p), "prefill_ms": out["kernel"][1],
-                     "plain_prefill_ms": out["plain"][1], "logits_max_abs_err": err,
-                     "logits_scale": scale, "greedy_agrees": same,
-                     "served_first_token_agrees": r.out[0] == int(got.argmax())})
-    emit({"phase": "lm_prefill_check", "tolerance": BF16_TOL, "prompts": rows,
-          "greedy_agree_share": agree / len(reqs)})
+        row = {"prompt_tokens": len(p)}
+        for name, c, prm in checks:
+            routes = [("kernel", {}), ("plain", plain_routes)]
+            if name == "served" and other_order:
+                routes.append(("plain_other_order", other_order))
+            out = {}
+            for route, kw in routes:
+                state = api.make_serve_state(c, 1, MAX_LEN)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, _ = mod.prefill(prm, toks, c, state, **kw)
+                torch.cuda.synchronize()
+                out[route] = (logits, (time.perf_counter() - t0) * 1e3)
+            got, want_ = out["kernel"][0], out["plain"][0]
+            require(tuple(got.shape) == (1, 1, c.vocab) and got.dtype == torch.float32,
+                    f"{phase}: logits {tuple(got.shape)} {got.dtype}")
+            require(bool(torch.isfinite(got).all()), f"{phase}: non-finite prefill logits")
+            scale = max(1.0, want_.abs().max().item())
+            err = (got - want_).abs().max().item()
+            tol = TOL if name == "f32" else (None if f32_check else BF16_TOL)
+            if tol is not None:
+                require(err <= tol * scale,
+                        f"{phase}/prefill{len(p)} ({name}): logits vs plain path "
+                        f"max|err| {err} > {tol} x {scale}")
+            same = int(got.argmax()) == int(want_.argmax())
+            row[name] = {"dtype": c.param_dtype, "tolerance": tol,
+                         "prefill_ms": out["kernel"][1], "plain_prefill_ms": out["plain"][1],
+                         "logits_max_abs_err": err, "logits_scale": scale,
+                         "greedy_agrees": same}
+            if "plain_other_order" in out:
+                row[name]["plain_vs_other_order_max_abs_err"] = (
+                    out["plain_other_order"][0] - want_).abs().max().item()
+            if name == "served":
+                agree += same
+                row[name]["served_first_token_agrees"] = r.out[0] == int(got.argmax())
+        rows.append(row)
+    emit({"phase": f"{phase}_prefill_check", "prompts": rows,
+          "gate": SSM_CHECK if f32_check else f"{cfg.param_dtype} at BF16_TOL",
+          "plain_routes": sorted(plain_routes), "greedy_agree_share": agree / len(reqs)})
+    del checks
 
     toks = torch.as_tensor(prompts[-1], dtype=torch.long, device="cuda")[None]
-    cache = lm.init_cache(cfg, 1, MAX_LEN, device="cuda")
+    state = api.make_serve_state(cfg, 1, MAX_LEN)
     pool = eng.state
     pos = np.asarray([len(p) + MAX_NEW for p in prompts[-SLOTS:]])
     step_toks = torch.zeros((SLOTS, 1), dtype=torch.long, device="cuda")
-    calls = {"prefill": lambda: lm.prefill(params, toks, cfg, cache),
-             "decode": lambda: lm.decode_step(params, pool, step_toks, pos, cfg)}
+    calls = {"prefill": lambda: mod.prefill(params, toks, cfg, state),
+             "decode": lambda: mod.decode_step(params, pool, step_toks, pos, cfg)}
     profile = {"prefill_tokens": len(prompts[-1]), "decode_slots": SLOTS,
                "decode_positions": pos.tolist()}
     for name, fn in calls.items():
@@ -574,14 +687,50 @@ def run_lm(torch, kernels_mod):
             fn()
             torch.cuda.synchronize()
             host_ms.append((time.perf_counter() - t0) * 1e3)
-        device_ms, wall, top = device_ms_by_kernel(torch, fn, LM_DEVICE_FN)
+        device_ms, wall, top = device_ms_by_kernel(torch, fn, SERVE_DEVICE_FN)
         profile[name] = {
             "ms": statistics.median(host_ms), "profiled_wall_ms": wall,
             "device_ms": device_ms,
             "device_busy_share": sum(device_ms.values()) / statistics.median(host_ms),
             "top_device_fns": top}
-    emit({"phase": "lm_profile", **profile})
+    emit({"phase": f"{phase}_profile", **profile})
     return counts
+
+
+def run_lm_paths(torch, kernels_mod):
+    """The three served models, each through ``run_serve``: qwen2-7b (bf16
+    KV cache: the config's int8 cache is not ported; the flash kernel
+    once per layer per prefill), mamba2-780m (the SSD kernel once per
+    layer) and zamba2-1.2b (the SSD kernel once per Mamba2 layer, the
+    flash kernel once per shared-attention site).  Returns the summed
+    launch counts."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_plain
+    from repro_torch.models import hybrid, lm, mamba
+    from repro_torch.nn.ssm import ssd_chunked
+
+    def flash_plain(q, k, v):
+        return flash_attention_plain(q, k, v, causal=True)
+
+    qwen2 = dataclasses.replace(get_config("qwen2-7b"), kv_quant=False)
+    mamba2, zamba2 = get_config("mamba2-780m"), get_config("zamba2-1.2b")
+    paths = [
+        ("lm", qwen2, lm, {"flash_attention": qwen2.n_layers}, {"flash": flash_plain}, {}),
+        ("ssm", mamba2, mamba, {"ssd_chunk": mamba2.n_layers}, {"ssd": ssd_chunk_plain},
+         {"f32_check": True, "other_order": {"ssd": ssd_chunked}}),
+        ("hybrid", zamba2, hybrid,
+         {"ssd_chunk": zamba2.n_layers, "flash_attention": hybrid.n_sites(zamba2)},
+         {"ssd": ssd_chunk_plain, "flash": flash_plain},
+         {"f32_check": True, "other_order": {"ssd": ssd_chunked, "flash": flash_plain}}),
+    ]
+    total = {k: 0 for k in KERNELS}
+    for phase, cfg, mod, per_prefill, plain_routes, kw in paths:
+        for k, v in run_serve(torch, kernels_mod, phase, cfg, mod, per_prefill,
+                              plain_routes, **kw).items():
+            total[k] += v
+        torch.cuda.empty_cache()
+    return total
 
 
 def main() -> int:
@@ -599,6 +748,7 @@ def main() -> int:
         return 1
     from repro_torch.core.hw import H100_SXM
     from repro_torch.kernels import _build, dw_conv, fcu_matmul, flash_attention, kpu_conv
+    from repro_torch.kernels import ssd_chunk
     from repro_torch.models.registry import get_cnn_api
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -617,26 +767,28 @@ def main() -> int:
           "library": os.path.relpath(lib._name, root)})
 
     kernels_mod = {"fcu_matmul": fcu_matmul, "kpu_conv": kpu_conv, "dw_conv": dw_conv,
-                   "flash_attention": flash_attention}
+                   "flash_attention": flash_attention, "ssd_chunk": ssd_chunk}
     gen = torch.Generator().manual_seed(2026)
     bench = KernelBench(torch, H100_SXM)
     emit({"phase": "kernels", "tolerance": TOL, "bound": BOUND,
           "tolerance_of": "max|kernel - plain| <= tolerance x max(1, max|plain|)",
-          "flash_tolerance": FLASH_TOL,
-          "flash_tolerance_of": "|kernel - plain| <= rtol x |plain| + atol"})
+          "flash_tolerance": FLASH_TOL, "ssd_tolerance": SSD_TOL,
+          "flash_ssd_tolerance_of":
+              "|kernel - plain| <= rtol x |plain| + atol + rms x rms(plain)"})
     for family in ("mobilenet_v2", "resnet18"):
         api = get_cnn_api(family)
         cfg = api.make_config()
         bench_nodes(torch, bench, family, api.plan(cfg, RATE), api.graph(cfg), gen)
     bench_extras(torch, bench, gen)
     bench_flash(torch, bench, gen)
+    bench_ssd(torch, bench, torch.Generator().manual_seed(2027))
 
     launches = {k: 0 for k in KERNELS}
     for family in ("mobilenet_v2", "resnet18"):
         counts = run_slice(torch, family, kernels_mod, gen, bench)
         for k, v in counts.items():
             launches[k] += v
-    for k, v in run_lm(torch, kernels_mod).items():
+    for k, v in run_lm_paths(torch, kernels_mod).items():
         launches[k] += v
     require(all(launches.values()), f"a kernel never launched on the main path: {launches}")
 
@@ -646,7 +798,7 @@ def main() -> int:
         timed = [r for r in rows if "ms" in r]
         ops = sum(r["ops_ms"] for r in timed)
         nbytes = sum(r["bytes_ms"] for r in timed)
-        out.append({
+        row = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -654,9 +806,12 @@ def main() -> int:
             "plain_ms": sum(r["plain_ms"] for r in timed),
             "bound_ms": sum(r["bound_ms"] for r in timed),
             "bound_by": "operations" if ops >= nbytes else "bytes",
-            "library_ms": sum(r["library_ms"] for r in timed),
+            "library_ms": None if name in NO_LIBRARY else sum(r["library_ms"] for r in timed),
             "shapes": len(timed),
-        })
+        }
+        if name in NO_LIBRARY:
+            row["library_note"] = NO_LIBRARY[name]
+        out.append(row)
     emit({"kernels": out})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

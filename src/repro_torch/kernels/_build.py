@@ -10,7 +10,8 @@ The ptxas report (registers, shared memory, spills per kernel) is kept
 beside it as ``nvcc.log``.  A failed compile raises with nvcc's output.
 
 The kernel modules (``fcu_matmul``, ``kpu_conv``, ``dw_conv``,
-``flash_attention``) import this module and none of each other.
+``flash_attention``, ``ssd_chunk``) import this module and none of each
+other.
 """
 from __future__ import annotations
 
@@ -50,6 +51,8 @@ SIGNATURES = {
     # scale, stream
     "flash_attention_f32": [_P] * 4 + [_I] * 9 + [_F, _P],
     "flash_attention_bf16": [_P] * 4 + [_I] * 9 + [_F, _P],
+    # x, dt, a, b, c, y, state, batch, L, H, G, P, N, chunk, p_block, stream
+    "ssd_chunk_f32": [_P] * 7 + [_I] * 8 + [_P],
 }
 
 

@@ -91,20 +91,31 @@ def _to_torch(a, device) -> torch.Tensor:
     return torch.from_numpy(a.copy()).to(device)
 
 
+def unstack_layers(stacked, n_layers: int, device=None) -> list:
+    """A reference tree of stacked ``[L, ...]`` arrays (numpy) as ``n_layers``
+    per-layer dicts of tensors on ``device``."""
+    def layer(tree, i):
+        if isinstance(tree, dict):
+            return {k: layer(v, i) for k, v in tree.items()}
+        return _to_torch(np.asarray(tree)[i], device)
+
+    return [layer(stacked, i) for i in range(n_layers)]
+
+
+def tree_to_torch(tree, device=None):
+    """A reference tree of numpy arrays as the same tree of tensors."""
+    if isinstance(tree, dict):
+        return {k: tree_to_torch(v, device) for k, v in tree.items()}
+    return _to_torch(tree, device)
+
+
 def params_from_reference(ref: dict, cfg: ModelConfig, device=None) -> dict:
     """The JAX package's param tree (``lm.init``: stacked ``[L, ...]``
     blocks, as numpy arrays) as the port's per-layer dicts."""
     check_supported(cfg)
     out = {name: _to_torch(ref[name], device)
            for name in ("embed", "unembed", "final_norm") if name in ref}
-    stacked = ref["blocks_dense"]
-
-    def layer(tree, i):
-        if isinstance(tree, dict):
-            return {k: layer(v, i) for k, v in tree.items()}
-        return _to_torch(np.asarray(tree)[i], device)
-
-    out["blocks"] = [layer(stacked, i) for i in range(cfg.n_layers)]
+    out["blocks"] = unstack_layers(ref["blocks_dense"], cfg.n_layers, device)
     return out
 
 
@@ -168,6 +179,25 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, cache: Cache,
     return _head(params, x[:, -1:], cfg), cache
 
 
+def decode_positions(pos, b: int, s: int, smax: int, device):
+    """A decode step's ``pos`` (the current length: one int for every row,
+    or one per row on the host, as the engine's slots give it), checked
+    against a cache of ``smax`` positions -> ``(cache_len, positions
+    [b, s])``: an int or a [b] tensor on ``device``."""
+    pos = np.asarray(pos.cpu() if torch.is_tensor(pos) else pos, dtype=np.int64)
+    if pos.ndim > 1 or (pos.ndim == 1 and pos.shape != (b,)):
+        raise ValueError(f"decode_step: positions of shape {pos.shape} for {b} rows")
+    if pos.min() < 0 or pos.max() + s > smax:
+        raise ValueError(f"decode_step: positions {pos.tolist()} (+{s}) outside "
+                         f"the cache's {smax} positions")
+    steps = torch.arange(s, device=device)
+    if pos.ndim == 0:
+        cache_len = int(pos)
+        return cache_len, (cache_len + steps).expand(b, s)
+    cache_len = torch.as_tensor(pos, device=device)
+    return cache_len, cache_len[:, None] + steps
+
+
 def decode_step(params: dict, cache: Cache, tokens: torch.Tensor, pos,
                 cfg: ModelConfig) -> Tuple[torch.Tensor, Cache]:
     """tokens [B, 1] at ``pos``: the current length, one int for every row
@@ -175,20 +205,8 @@ def decode_step(params: dict, cache: Cache, tokens: torch.Tensor, pos,
     the cache -> (f32 logits [B, 1, V], caches)."""
     check_supported(cfg)
     b, s = tokens.shape
-    smax = cache[0].shape[2]
-    pos = np.asarray(pos.cpu() if torch.is_tensor(pos) else pos, dtype=np.int64)
-    if pos.ndim > 1 or (pos.ndim == 1 and pos.shape != (b,)):
-        raise ValueError(f"decode_step: positions of shape {pos.shape} for {b} rows")
-    if pos.min() < 0 or pos.max() + s > smax:
-        raise ValueError(f"decode_step: positions {pos.tolist()} (+{s}) outside "
-                         f"the cache's {smax} positions")
-    steps = torch.arange(s, device=tokens.device)
-    if pos.ndim == 0:
-        cache_len = int(pos)
-        positions = (cache_len + steps).expand(b, s)
-    else:
-        cache_len = torch.as_tensor(pos, device=tokens.device)
-        positions = cache_len[:, None] + steps
+    cache_len, positions = decode_positions(pos, b, s, cache[0].shape[2],
+                                            tokens.device)
     x = embed(params["embed"], tokens)
     x, cache = _serve_pass(params, x, positions, cache, cache_len, cfg)
     return _head(params, x, cfg), cache

@@ -30,7 +30,7 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 
 from repro_torch.core.graph import plan_graph
-from repro_torch.models import lm, mobilenet, resnet
+from repro_torch.models import hybrid, lm, mamba, mobilenet, resnet
 
 
 def resolve_device(device=None) -> torch.device:
@@ -58,37 +58,44 @@ class ModelAPI:
 
     init: Callable                    # (cfg, generator) -> params on device
     loss_fn: Callable                 # not ported yet: raises
-    make_serve_state: Callable        # (cfg, batch, max_len) -> caches
+    make_serve_state: Callable        # (cfg, batch, max_len) -> caches / state
     prefill: Callable                 # (params, batch, state, cfg)
     decode: Callable                  # (params, state, batch, pos, cfg)
 
 
-_NOT_PORTED_FAMILIES = {"ssm": "SSM path", "hybrid": "SSM path",
-                        "encdec": "encdec and vlm families",
+# family -> (model module, its serve-state constructor (cfg, batch, max_len, device))
+_LM_FAMILIES: Dict[str, Tuple[Any, Callable]] = {
+    "lm": (lm, lambda cfg, b, ml, dev: lm.init_cache(cfg, b, ml, device=dev)),
+    "ssm": (mamba, lambda cfg, b, ml, dev: mamba.init_state(cfg, b, device=dev)),
+    "hybrid": (hybrid, lambda cfg, b, ml, dev: hybrid.init_state(cfg, b, ml, device=dev)),
+}
+_NOT_PORTED_FAMILIES = {"encdec": "encdec and vlm families",
                         "vlm": "encdec and vlm families"}
 
 
 def get_api(cfg, device=None) -> ModelAPI:
-    """The LM API for ``cfg``, its tensors on ``device`` (the card unless
-    the caller asks for the CPU).  ``batch["tokens"]`` may be any integer
-    array; it is moved to the device."""
+    """The LM API for ``cfg`` (families lm, ssm and hybrid), its tensors on
+    ``device`` (the card unless the caller asks for the CPU).
+    ``batch["tokens"]`` may be any integer array; it is moved to the
+    device."""
     if cfg.family in _NOT_PORTED_FAMILIES:
         raise NotImplementedError(
             f"the {cfg.family} family is not ported yet (ROADMAP Queue 1: "
             f"{_NOT_PORTED_FAMILIES[cfg.family]})")
-    if cfg.family != "lm":
+    if cfg.family not in _LM_FAMILIES:
         raise KeyError(f"unknown family {cfg.family!r}")
+    mod, make_state = _LM_FAMILIES[cfg.family]
     dev = resolve_device(device)
 
     def tokens(batch):
         return torch.as_tensor(batch["tokens"]).to(dev, torch.long)
 
     return ModelAPI(
-        init=lambda cfg, generator: lm.init(cfg, generator, dev),
+        init=lambda cfg, generator: mod.init(cfg, generator, dev),
         loss_fn=_not_yet("loss_fn", "training and infrastructure"),
-        make_serve_state=lambda cfg, b, ml: lm.init_cache(cfg, b, ml, device=dev),
-        prefill=lambda p, batch, st, cfg: lm.prefill(p, tokens(batch), cfg, st),
-        decode=lambda p, st, batch, pos, cfg: lm.decode_step(
+        make_serve_state=lambda cfg, b, ml: make_state(cfg, b, ml, dev),
+        prefill=lambda p, batch, st, cfg: mod.prefill(p, tokens(batch), cfg, st),
+        decode=lambda p, st, batch, pos, cfg: mod.decode_step(
             p, st, tokens(batch), pos, cfg),
     )
 

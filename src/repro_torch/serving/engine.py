@@ -1,11 +1,11 @@
-"""Batched serving engine: continuous batching over a slotted KV cache;
-the port's copy of the JAX package's ``serving/engine.py``.
+"""Batched serving engine: continuous batching over a slotted KV cache or
+SSM state; the port's copy of the JAX package's ``serving/engine.py``.
 
 Same admission (a request enters only when a slot is free: Eq. 9's
 capacity check), same greedy sampling, per-slot positions and retirement
 rule, and one batched decode for the whole pool (idle slots are masked by
 their own cache length).  Each admitted request is prefilled alone into a
-one-row cache, which is then written into its slot of the pool.  There is
+one-row state, which is then written into its slot of the pool.  There is
 no ``jit``: PyTorch runs eagerly.
 """
 from __future__ import annotations
@@ -33,11 +33,28 @@ class Request:
     t_done: Optional[float] = None
 
 
+def _write_slot(pool, one, slot: int) -> None:
+    """Write a one-row serve state into row ``slot`` of the pool, tensor by
+    tensor through any nesting of tuples and dicts (the JAX engine's tree
+    map), cast to the pool's dtype: stacked caches and states carry the
+    batch at dim 1; leaves of fewer than 2 dims carry no batch and stay
+    as they are."""
+    if isinstance(pool, dict):
+        for key in pool:
+            _write_slot(pool[key], one[key], slot)
+    elif isinstance(pool, tuple):
+        for p, o in zip(pool, one):
+            _write_slot(p, o, slot)
+    elif pool.dim() >= 2:
+        pool[:, slot] = one[:, 0].to(pool.dtype)
+
+
 class Engine:
     """``Engine(cfg, params, slots=, max_len=, eos=, device=)``: ``params``
-    live on ``device`` (the card unless the caller asks for the CPU).  A
-    prompt that does not fit ``max_len`` raises ``ValueError`` at its
-    prefill (the JAX engine's cache write would clamp instead)."""
+    live on ``device`` (the card unless the caller asks for the CPU).  With
+    a KV cache (families lm and hybrid), a prompt that does not fit
+    ``max_len`` raises ``ValueError`` at its prefill (the JAX engine's
+    cache write would clamp instead)."""
 
     def __init__(
         self,
@@ -98,9 +115,7 @@ class Engine:
             tok = int(torch.argmax(logits[0, -1]))
             req.out.append(tok)
             req.t_first = time.perf_counter()
-            # the stacked caches carry the batch at dim 1
-            for pool, one in zip(self.state, state1):
-                pool[:, slot] = one[:, 0]
+            _write_slot(self.state, state1, slot)
             self.pos[slot] = len(req.prompt)
             self.active[slot] = req
 

@@ -10,7 +10,10 @@ The first test builds the kernels with nvcc.  fp32 against fp32 in
 another summation order is held at 1e-4 of the output's scale.  The flash
 kernel is held element by element, |y - plain| <= rtol x |plain| + atol:
 bf16 outputs, computed in f32 and rounded once each side, at 2^-7 and
-1e-4; f32 at 1e-4 and 1e-5.
+1e-4; f32 at 1e-4 and 1e-5.  The SSD kernel is held element by element
+against its plain version at the JAX kernel test's 2e-4, scaled by the
+element and by the output's RMS: |y - plain| <= 2e-4 x |plain| + 2e-4 x
+rms(plain).
 """
 from fractions import Fraction
 
@@ -24,7 +27,8 @@ from repro_torch.core.tiles import select_tile_for_impl  # noqa: E402
 from repro_torch.configs.registry import get_config, reduced  # noqa: E402
 from repro_torch.kernels import dw_conv, fcu_matmul, kpu_conv  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
-from repro_torch.models import lm  # noqa: E402
+from repro_torch.kernels import ssd_chunk as sc  # noqa: E402
+from repro_torch.models import hybrid, lm, mamba  # noqa: E402
 from repro_torch.models.registry import get_cnn_api  # noqa: E402
 from repro_torch.nn.embeddings import unembed  # noqa: E402
 from repro_torch.models.topology import conv_spec, dense_spec  # noqa: E402
@@ -33,6 +37,7 @@ pytestmark = pytest.mark.cuda
 
 TOL = 1e-4
 FLASH_TOL = {torch.bfloat16: (2.0 ** -7, 1e-4), torch.float32: (1e-4, 1e-5)}
+SSD_TOL = 2e-4
 
 
 @pytest.fixture
@@ -58,6 +63,13 @@ def _close_elementwise(got, want, rtol, atol):
     torch.cuda.synchronize()
     diff = (got.float() - want.float()).abs()
     assert bool((diff <= rtol * want.float().abs() + atol).all())
+
+
+def _close_rms(got, want, tol=SSD_TOL):
+    torch.cuda.synchronize()
+    want = want.float()
+    limit = tol * want.abs() + tol * want.square().mean().sqrt()
+    assert bool(((got.float() - want).abs() <= limit).all())
 
 
 def _launched(fn, call):
@@ -230,3 +242,70 @@ def test_reduced_qwen2_prefill_on_card_matches_cpu(card):
     _close(got.cpu(), want)
     for g, w in zip(cache, want_cache):
         _close(g.cpu(), w)
+
+
+def _ssd_inputs(b, l, h, p, g, n, seed, model_decay):
+    """The JAX kernel test's distributions, or (``model_decay``) the
+    model's: a = -(1..H) and dt from its dt_bias range, so that a_cum
+    reaches hundreds below zero within a chunk."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, l, h, p)) * 0.5
+    if model_decay:
+        dt = np.log1p(np.exp(rng.standard_normal((b, l, h)) - 4.0))
+        a = -np.arange(1, h + 1)
+    else:
+        dt = np.log1p(np.exp(rng.standard_normal((b, l, h))))
+        a = -np.exp(rng.standard_normal(h))
+    bb = rng.standard_normal((b, l, g, n)) * 0.3
+    cc = rng.standard_normal((b, l, g, n)) * 0.3
+    return [torch.from_numpy(np.asarray(t, np.float32)) for t in (x, dt, a, bb, cc)]
+
+
+@pytest.mark.parametrize(
+    "b,l,h,p,g,n,chunk,model_decay",
+    [
+        (1, 256, 48, 64, 1, 128, 128, True),   # mamba2's heads, 2 chunks
+        (1, 256, 64, 64, 1, 64, 128, True),    # zamba2's heads
+        (2, 64, 8, 16, 2, 16, 16, False),      # two groups, two rows of the batch
+        (1, 128, 8, 64, 1, 128, 128, False),   # one chunk only
+        (1, 192, 8, 64, 2, 128, 64, True),     # chunk 64: one score tile
+        (2, 96, 4, 8, 1, 24, 32, False),       # P below a slice, N not 16k
+        (1, 40, 3, 40, 1, 20, 8, False),       # P not a slice multiple, chunk 8
+    ],
+)
+def test_ssd_kernel_matches_plain(card, b, l, h, p, g, n, chunk, model_decay):
+    x, dt, a, bb, cc = (t.to(card) for t in _ssd_inputs(b, l, h, p, g, n, l + h,
+                                                          model_decay))
+    want_y, want_s = sc.ssd_chunk_plain(x, dt, a, bb, cc, chunk=chunk)
+    y, s = _launched(sc.ssd_chunk, lambda: sc.ssd_chunk(x, dt, a, bb, cc, chunk=chunk))
+    assert y.shape == x.shape and s.shape == (b, h, p, n)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(s).all())
+    _close_rms(y, want_y)
+    _close_rms(s, want_s)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-1.2b"])
+def test_reduced_ssm_prefill_on_card_matches_cpu(card, arch):
+    """A reduced mamba2 / zamba2 prefill (f32) on the card against the
+    same prefill on the CPU's plain versions: one SSD launch per layer,
+    one flash launch per shared-attention site."""
+    cfg = reduced(get_config(arch), layers=4, d_model=64, vocab=128)
+    mod = mamba if arch == "mamba2-780m" else hybrid
+
+    def state(device):
+        if mod is mamba:
+            return mamba.init_state(cfg, 2, device)
+        return hybrid.init_state(cfg, 2, 48, device=device)
+
+    params = mod.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 128, (2, 37)))
+    want, want_state = mod.prefill(params, toks, cfg, state("cpu"))
+    ssd0, flash0 = sc.ssd_chunk.launches, fa.flash_attention.launches
+    got, got_state = mod.prefill(_to(params, card), toks.to(card), cfg, state(card))
+    assert sc.ssd_chunk.launches == ssd0 + cfg.n_layers
+    sites = hybrid.n_sites(cfg) if mod is hybrid else 0
+    assert fa.flash_attention.launches == flash0 + sites
+    _close_rms(got.cpu(), want)
+    leaves = (lambda st: list(st) if mod is mamba else [*st["ssm"], *st["kv"]])
+    for g, w in zip(leaves(got_state), leaves(want_state)):
+        _close_rms(g.cpu(), w)

@@ -16,6 +16,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import _build, dw_conv, fcu_matmul, flash_attention, kpu_conv  # noqa: E402
+from repro_torch.kernels import ssd_chunk  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -52,7 +53,7 @@ def test_entry_point_needs_cuda_by_default(monkeypatch):
 
 
 @pytest.mark.parametrize("which", ["fcu_matmul", "kpu_conv", "dw_conv",
-                                   "flash_attention"])
+                                   "flash_attention", "ssd_chunk"])
 def test_cuda_request_without_build_raises(which, monkeypatch, tmp_path):
     """A CUDA request reaches the launch path, which needs the nvcc build:
     with no toolkit and no built library it raises, and the plain
@@ -63,7 +64,7 @@ def test_cuda_request_without_build_raises(which, monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     _build.library.cache_clear()
     mod = {"fcu_matmul": fcu_matmul, "kpu_conv": kpu_conv, "dw_conv": dw_conv,
-           "flash_attention": flash_attention}[which]
+           "flash_attention": flash_attention, "ssd_chunk": ssd_chunk}[which]
     fn = getattr(mod, which)
     before = fn.launches
     try:
@@ -74,6 +75,9 @@ def test_cuda_request_without_build_raises(which, monkeypatch, tmp_path):
                 fn(torch.ones(1, 2, 8, 16, dtype=torch.bfloat16),
                    *[torch.ones(1, 1, 8, 16, dtype=torch.bfloat16)] * 2,
                    block_q=16, block_k=16)
+            elif which == "ssd_chunk":
+                fn(torch.ones(1, 16, 2, 16), torch.ones(1, 16, 2), -torch.ones(2),
+                   *[torch.ones(1, 16, 1, 16)] * 2, chunk=16)
             elif which == "kpu_conv":
                 fn(torch.ones(1, 4, 4, 8), torch.ones(3, 3, 8, 8), stride=1,
                    bm=16, bci=8, bco=8)
