@@ -71,10 +71,16 @@ BF16_TOL = 3e-2
 # weights: in a deep bf16 stack a difference of a few parts in 10^6 in
 # one layer's f32 SSD output flips bf16 roundings, and the flips compound
 # through the residual stream, so bf16 logits cannot tell the kernel from
-# another summation order of the same sums.  The run records the bf16
-# difference beside that of the plain path's other order
-# (``nn.ssm.ssd_chunked``) and holds the f32 copy at TOL.
-SSM_CHECK = "f32 copy of the weights at TOL; bf16 recorded, not gated"
+# another summation order of the same sums.  The f32 copy is held at TOL.
+# The served bf16 logits are held too, to catch a gross fault on the
+# served dtype: within SSM_BF16_FACTOR x the gap measured on an H100
+# between the plain path's two SSD forms (the streaming scan against
+# ``nn.ssm.ssd_chunked``), as a share of the logits' scale, the largest
+# over the four prompts (PERF.md records the run).
+SSM_BF16_WITNESS = {"mamba2-780m": 0.0456, "zamba2-1.2b": 0.0351}
+SSM_BF16_FACTOR = 3
+SSM_CHECK = (f"f32 copy of the weights at TOL; bf16 within {SSM_BF16_FACTOR} x "
+             "the plain path's measured other-order gap")
 # The serving phases: prompts (tokens), new tokens each, engine shape.
 PROMPT_LENS = (512, 1000, 1536, 2048)
 MAX_NEW = 16
@@ -503,8 +509,10 @@ def bench_ssd(torch, bench, gen):
         x, bb, cc = F.silu(draw(b, l, h, p)), F.silu(draw(b, l, g, n)), F.silu(draw(b, l, g, n))
         dt = F.softplus(draw(b, l, h) + dt_bias)
         a = -torch.arange(1, h + 1, dtype=torch.float32, device="cuda")
-        nc, q = l // chunk, chunk
-        flops = b * h * nc * (q * (q + 1) // 2 * (n + p) * 2 + 2 * q * n * p * 2)
+        # The scores C.B^T depend on the group only; the diagonal output
+        # and the state's two products are per head.
+        nc, tri = l // chunk, chunk * (chunk + 1) // 2
+        flops = b * nc * (g * tri * n * 2 + h * (tri * p * 2 + 2 * chunk * n * p * 2))
         nbytes = 4 * (2 * x.numel() + dt.numel() + a.numel() + 2 * bb.numel() + b * h * p * n)
         bench.case(
             "ssd_chunk", label,
@@ -543,7 +551,7 @@ def _param_bytes(tree) -> int:
 
 
 def run_serve(torch, kernels_mod, phase, cfg, mod, per_prefill, plain_routes,
-              f32_check=False, other_order=None):
+              served_tol=BF16_TOL, f32_check=False):
     """``cfg`` served by the token engine on the card at full width and
     depth, random weights from a seeded CUDA generator: 4 prompts on 2
     slots, 16 new tokens each (smoke-size traffic), launch counts set to
@@ -553,11 +561,10 @@ def run_serve(torch, kernels_mod, phase, cfg, mod, per_prefill, plain_routes,
     versions (``plain_routes``, keyword arguments of ``mod.prefill``),
     and one prefill and one decode step under ``torch.profiler``.
 
-    The served dtype's logits are held at BF16_TOL of their scale, or,
-    with ``f32_check``, recorded beside the plain path with another
-    summation order (``other_order``) and held instead on an f32 copy of
-    the same weights at TOL (see SSM_CHECK).  Returns the launch counts
-    of the serve run."""
+    The served dtype's logits are held at ``served_tol`` of their scale
+    and, with ``f32_check``, an f32 copy of the same weights at TOL (see
+    SSM_CHECK).  Each route is run once at each length before the prefill
+    that is timed.  Returns the launch counts of the serve run."""
     import numpy as np
 
     from repro_torch.configs.base import param_count
@@ -632,16 +639,14 @@ def run_serve(torch, kernels_mod, phase, cfg, mod, per_prefill, plain_routes,
         toks = torch.as_tensor(p, dtype=torch.long, device="cuda")[None]
         row = {"prompt_tokens": len(p)}
         for name, c, prm in checks:
-            routes = [("kernel", {}), ("plain", plain_routes)]
-            if name == "served" and other_order:
-                routes.append(("plain_other_order", other_order))
             out = {}
-            for route, kw in routes:
-                state = api.make_serve_state(c, 1, MAX_LEN)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                logits, _ = mod.prefill(prm, toks, c, state, **kw)
-                torch.cuda.synchronize()
+            for route, kw in (("kernel", {}), ("plain", plain_routes)):
+                for _ in range(2):          # warm at this length, then time
+                    state = api.make_serve_state(c, 1, MAX_LEN)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    logits, _ = mod.prefill(prm, toks, c, state, **kw)
+                    torch.cuda.synchronize()
                 out[route] = (logits, (time.perf_counter() - t0) * 1e3)
             got, want_ = out["kernel"][0], out["plain"][0]
             require(tuple(got.shape) == (1, 1, c.vocab) and got.dtype == torch.float32,
@@ -649,19 +654,15 @@ def run_serve(torch, kernels_mod, phase, cfg, mod, per_prefill, plain_routes,
             require(bool(torch.isfinite(got).all()), f"{phase}: non-finite prefill logits")
             scale = max(1.0, want_.abs().max().item())
             err = (got - want_).abs().max().item()
-            tol = TOL if name == "f32" else (None if f32_check else BF16_TOL)
-            if tol is not None:
-                require(err <= tol * scale,
-                        f"{phase}/prefill{len(p)} ({name}): logits vs plain path "
-                        f"max|err| {err} > {tol} x {scale}")
+            tol = TOL if name == "f32" else served_tol
+            require(err <= tol * scale,
+                    f"{phase}/prefill{len(p)} ({name}): logits vs plain path "
+                    f"max|err| {err} > {tol} x {scale}")
             same = int(got.argmax()) == int(want_.argmax())
             row[name] = {"dtype": c.param_dtype, "tolerance": tol,
                          "prefill_ms": out["kernel"][1], "plain_prefill_ms": out["plain"][1],
                          "logits_max_abs_err": err, "logits_scale": scale,
                          "greedy_agrees": same}
-            if "plain_other_order" in out:
-                row[name]["plain_vs_other_order_max_abs_err"] = (
-                    out["plain_other_order"][0] - want_).abs().max().item()
             if name == "served":
                 agree += same
                 row[name]["served_first_token_agrees"] = r.out[0] == int(got.argmax())
@@ -708,21 +709,23 @@ def run_lm_paths(torch, kernels_mod):
     from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.kernels.ssd_chunk import ssd_chunk_plain
     from repro_torch.models import hybrid, lm, mamba
-    from repro_torch.nn.ssm import ssd_chunked
 
     def flash_plain(q, k, v):
         return flash_attention_plain(q, k, v, causal=True)
 
     qwen2 = dataclasses.replace(get_config("qwen2-7b"), kv_quant=False)
     mamba2, zamba2 = get_config("mamba2-780m"), get_config("zamba2-1.2b")
+
+    def ssm_check(cfg):
+        return {"served_tol": SSM_BF16_FACTOR * SSM_BF16_WITNESS[cfg.name], "f32_check": True}
+
     paths = [
         ("lm", qwen2, lm, {"flash_attention": qwen2.n_layers}, {"flash": flash_plain}, {}),
         ("ssm", mamba2, mamba, {"ssd_chunk": mamba2.n_layers}, {"ssd": ssd_chunk_plain},
-         {"f32_check": True, "other_order": {"ssd": ssd_chunked}}),
+         ssm_check(mamba2)),
         ("hybrid", zamba2, hybrid,
          {"ssd_chunk": zamba2.n_layers, "flash_attention": hybrid.n_sites(zamba2)},
-         {"ssd": ssd_chunk_plain, "flash": flash_plain},
-         {"f32_check": True, "other_order": {"ssd": ssd_chunked, "flash": flash_plain}}),
+         {"ssd": ssd_chunk_plain, "flash": flash_plain}, ssm_check(zamba2)),
     ]
     total = {k: 0 for k in KERNELS}
     for phase, cfg, mod, per_prefill, plain_routes, kw in paths:

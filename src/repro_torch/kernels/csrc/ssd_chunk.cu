@@ -31,11 +31,14 @@
 // step by 16 (ty) and columns by 16 (tx), so each pair of floats it reads
 // from shared memory feeds several FMAs (4 x 8 in the scores).
 //
-// Bound on an H100: at mamba2's shapes (Q 128, N 128, P 64) a chunk of one
-// head takes about 7.4 MFLOP for 0.2 MB of operands, far above the ridge,
-// so the scan is bound by operations: about 0.084 ms at 67 TFLOP/s f32 for
-// a 2048-token prefill's 48 heads.  This simple design runs on the CUDA
-// cores with one block per SM (up to 199 KB of shared memory).  Left for a
+// Bound on an H100: at mamba2's shapes (Q 128, N 128, P 64, one group) a
+// chunk takes about 2.1 MFLOP of C.B^T scores per group (they depend on
+// the group only) and 5.3 MFLOP per head for the diagonal output and the
+// state's two products: about 4.07 GFLOP for a 2048-token prefill's 48
+// heads, against about 54 MB of operands, far above the ridge.  So the
+// scan is bound by operations, about 0.061 ms at 67 TFLOP/s f32.  This
+// simple design forms the scores again in every block (once per head and
+// head-dim slice), and runs on the CUDA cores with one block per SM (up to 199 KB of shared memory).  Left for a
 // later change: the three products on tensor cores (3xTF32 to keep f32
 // accuracy, or wgmma), B/C/x staged by TMA into a ring that overlaps the
 // next chunk's loads, and the scores shared between slices of a head
