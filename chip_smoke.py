@@ -11,7 +11,9 @@ printing JSON lines:
 1. device — torch / CUDA versions; TF32 is turned off for matmuls and
    cuDNN convolutions (the yardsticks below), and the card's name and
    power limit are printed as ``nvidia-smi`` gives them;
-2. build — the kernels' nvcc build (``repro_torch.kernels._build``);
+2. build — the kernels' nvcc build (``repro_torch.kernels._build``), and
+   ptxas's registers and spills for each instance of the bf16 flash
+   kernel (``flash_kernel_wgmma``) from the build's ``nvcc.log``;
 3. kernels — every kernel against its plain PyTorch version on the card
    at every shape its main path gives it (MobileNetV2 and ResNet-18 at
    224x224, batch 8, the rate-3 plan's tiles; qwen2-7b's prefill
@@ -93,7 +95,9 @@ KERNELS = {
                  "src/repro/kernels/kpu_conv/kpu_conv.py:79"),
     "dw_conv": ("src/repro_torch/kernels/csrc/dw_conv.cu",
                 "src/repro/kernels/dw_conv/dw_conv.py:41"),
-    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+    # the bf16 kernel, the served one (f32, off the timed path, runs
+    # csrc/flash_attention.cu)
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
                         "src/repro/kernels/attention/flash_attention.py:89"),
     "ssd_chunk": ("src/repro_torch/kernels/csrc/ssd_chunk.cu",
                   "src/repro/kernels/ssd_chunk/ssd_chunk.py:82"),
@@ -105,7 +109,8 @@ KIND_KERNEL = {"conv": "kpu_conv", "dwconv": "dw_conv",
 DEVICE_FN = {"fcu_matmul": ("fcu_kernel",), "kpu_conv": ("kpu_kernel",),
              "dw_conv": ("dw_kernel",)}
 # The serving paths' device time: the flash and SSD kernels, cuBLAS's
-# products, the rest.
+# products, the rest.  Both flash kernels' names contain "flash_kernel"
+# (flash_kernel, flash_kernel_wgmma), and the flash class is matched first.
 SERVE_DEVICE_FN = {"flash_attention": ("flash_kernel",), "ssd_chunk": ("ssd_kernel",),
                    "matmul": ("gemm", "gemv", "xmma", "cutlass", "splitK", "nvjet")}
 BOUND = ("max(flops / peak of the operands' type on the H100 SXM (67 TFLOP/s "
@@ -150,13 +155,13 @@ class KernelBench:
         self.rows = []
 
     def case(self, kernel, label, fn, plain, library, flops, nbytes, timed=True,
-             tol=TOL, peak=None, elementwise=None):
+             tol=TOL, peak=None, elementwise=None, info=None):
         """``fn`` and ``plain`` return a tensor or a tuple of tensors, each
         held against its counterpart.  ``elementwise=(rtol, atol, rms)``
         holds the kernel to |y - plain| <= rtol x |plain| + atol + rms x
         rms(plain) everywhere instead of ``tol`` x the scale.  ``library``
         is None where no PyTorch call computes the function; else it is
-        held at ``tol`` x the scale."""
+        held at ``tol`` x the scale.  ``info`` is copied into the row."""
         torch = self.torch
         ys, refs = fn(), plain()
         lib = library() if library is not None else None
@@ -174,7 +179,7 @@ class KernelBench:
                 rtol, atol, rms = elementwise
                 limit = rtol * ref.abs() + atol + rms * ref.square().mean().sqrt()
                 worst = max(worst, (diff / limit).max().item())
-        row = {"node": label, "kernel": kernel, "max_abs_err": err,
+        row = {"node": label, "kernel": kernel, **(info or {}), "max_abs_err": err,
                "rel_err": err / scale, "tolerance": tol}
         if elementwise is None:
             require(err <= tol * scale,
@@ -332,6 +337,40 @@ def bench_extras(torch, bench, gen):
     )
 
 
+def ptxas_report(lib_path, kernel="flash_kernel_wgmma"):
+    """Registers, stack and spills ptxas reported for each instance of
+    ``kernel`` (its template arguments from the mangled name), read from
+    the build's ``nvcc.log``."""
+    import re
+
+    log = os.path.join(os.path.dirname(lib_path), "nvcc.log")
+    rows, cur = [], None
+    with open(log) as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                cur = None
+                if kernel in m.group(1):
+                    args = re.search(r"I((?:Li\d+E)+)E", m.group(1))
+                    cur = {"template": [int(a) for a in re.findall(r"\d+", args.group(1))]
+                           if args else []}
+                    rows.append(cur)
+                continue
+            if cur is None:
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+            if m:
+                cur.update(stack=int(m[1]), spill_stores=int(m[2]), spill_loads=int(m[3]))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m[1])
+            if "C7512" in line or "setmaxnreg ignored" in line:
+                cur["warning"] = line.strip()[:160]
+    require(rows, f"no {kernel} in {log}")
+    return rows
+
+
 def device_ms_by_kernel(torch, fn, classes=DEVICE_FN):
     """One call of ``fn`` under ``torch.profiler``: device ms summed per
     class of device function (``classes``: name -> substrings of the
@@ -450,7 +489,8 @@ def bench_flash(torch, bench, gen):
     """The flash kernel at the LM paths' prefill shapes (qwen2-7b's heads
     and zamba2's shared-attention heads, bf16, each served prompt length),
     then extras off those paths (f32, group 1 at d 128, non-causal, GQA
-    at d = 64, a length below one block; checked, not timed)."""
+    at d = 64, a length below one block; checked, not timed), then the
+    bf16 kernel's time at every pair of blocks at the main-path shapes."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -459,7 +499,7 @@ def bench_flash(torch, bench, gen):
         q, k, v = (torch.randn((1, n, s, d), generator=gen).to("cuda", dtype)
                    for n in (h, hkv, hkv))
         kx, vx = (t.repeat_interleave(h // hkv, dim=1) for t in (k, v))
-        block_q, block_k = fa.flash_blocks(h, s)
+        block_q, block_k = fa.flash_blocks(h, s, dtype)
         pairs = s * (s + 1) // 2 if causal else s * s
         bf16 = dtype == torch.bfloat16
         bench.case(
@@ -472,6 +512,7 @@ def bench_flash(torch, bench, gen):
             timed=timed, tol=BF16_TOL if bf16 else TOL,
             elementwise=FLASH_TOL[str(dtype).removeprefix("torch.")],
             peak=bench.hw.peak_bf16_flops if bf16 else bench.hw.peak_fp32_flops,
+            info={"design": fa.DESIGN[dtype], "block_q": block_q, "block_k": block_k},
         )
 
     for s in PROMPT_LENS:
@@ -484,6 +525,23 @@ def bench_flash(torch, bench, gen):
          timed=False)
     case("extra/d64-s768", 16, 4, 768, 64, torch.bfloat16, timed=False)
     case("extra/ragged-s9", 28, 4, 9, 128, torch.bfloat16, timed=False)
+
+    # Every pair of blocks the bf16 kernel takes, at each main-path shape:
+    # the data behind the rule flash_blocks keeps (not in the kernels line).
+    blocks = fa.BLOCKS[torch.bfloat16]
+    sweep = {}
+    for name, h, hkv, d in (("qwen2-7b", 28, 4, 128), ("zamba2-1.2b", 32, 32, 64)):
+        for s in PROMPT_LENS:
+            q, k, v = (torch.randn((1, n, s, d), generator=gen).to("cuda", torch.bfloat16)
+                       for n in (h, hkv, hkv))
+            sweep[f"{name}/prefill{s}"] = {
+                "rule": "x".join(map(str, fa.flash_blocks(h, s, torch.bfloat16))),
+                **{f"{bq}x{bk}": cuda_ms(torch, lambda: fa.flash_attention(
+                    q, k, v, block_q=bq, block_k=bk)) for bq in blocks for bk in blocks}}
+    emit({"phase": "flash_block_sweep", "ms": sweep,
+          "summed": {p: sum(r[p] for r in sweep.values()) for p in next(iter(sweep.values()))
+                     if p != "rule"},
+          "rule_summed": sum(r[r["rule"]] for r in sweep.values())})
 
 
 def bench_ssd(torch, bench, gen):
@@ -768,6 +826,12 @@ def main() -> int:
     lib = _build.library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": os.path.relpath(lib._name, root)})
+    emit({"phase": "ptxas", "kernel": "flash_kernel_wgmma",
+          "template": "<head dim, block_k, consumer warpgroups>",
+          "registers_note": "with 2 consumer warpgroups, registers at entry; "
+                            "setmaxnreg then gives the consumers 232 and the "
+                            "producer warpgroup 40",
+          "instances": ptxas_report(lib._name)})
 
     kernels_mod = {"fcu_matmul": fcu_matmul, "kpu_conv": kpu_conv, "dw_conv": dw_conv,
                    "flash_attention": flash_attention, "ssd_chunk": ssd_chunk}

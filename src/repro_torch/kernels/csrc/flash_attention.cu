@@ -1,5 +1,8 @@
 // Blockwise attention o = softmax(q k^T / sqrt(d), causal mask) v with an
-// online-softmax state, for grouped-query heads and any sequence length.
+// online-softmax state, for grouped-query heads and any sequence length,
+// in f32 on the CUDA cores.  The bf16 route is flash_attention_sm90.cu
+// (wgmma); f32 stays here because wgmma takes no f32 operand, and TF32
+// (its 10-bit mantissa) would break the f32 route's 1e-4 gate.
 //
 // Replaces the Pallas TPU kernel kernels/attention/flash_attention.py::
 // flash_attention_p (body _flash_kernel): grid (batch*heads, q blocks,
@@ -8,8 +11,7 @@
 // on Hopper, so here one block owns a (head, query tile) pair and walks the
 // key/value tiles itself, staging each through shared memory; the state
 // stays in registers.  The arithmetic is the Pallas body's: scores
-// q.k * scale in f32, masked to -1e30, m/l/acc in f32, p kept in f32
-// against v read as f32, l clamped at 1e-30, the output cast to q's type.
+// q.k * scale in f32, masked to -1e30, m/l/acc in f32, l clamped at 1e-30.
 //
 // Differences of contract, none of which changes a result:
 //   * GQA: k/v hold heads/group heads; query head h reads kv head h/group
@@ -23,19 +25,12 @@
 //     but there every score is -1e30, so p = exp(-1e30 - m) = 0 and
 //     alpha = exp(m - m) = 1: the state comes out bit-identical.
 //
-// Bound on an H100: causal attention over S tokens does about S/2 flops per
-// byte of q, k, v and o in bf16 (GQA shrinks k and v), so prompts of a few
-// hundred tokens are bound by bytes and longer ones by operations (the
-// ridge is about 295 flops a byte on bf16 tensor cores).  This simple
-// design runs on the CUDA cores in f32: 256 threads as a 16 x 16 grid,
-// each holding a <=4 x 4 tile of scores (rows ty + 16i, columns tx + 16j)
-// and the matching <=4 x d/16 tile of the output, so each pair of staged
-// floats it reads from shared memory feeds four FMAs; row max and sum go
-// through warp shuffles over the 16 threads of a row.  Query tiles run
-// heaviest first (the last tiles see the most keys).
-// Left for a later change: wgmma on bf16 tiles staged by TMA, a
-// multi-stage ring of k/v tiles, warp specialisation.
-#include <cuda_bf16.h>
+// Design: 256 threads as a 16 x 16 grid, each holding a <=4 x 4 tile of
+// scores (rows ty + 16i, columns tx + 16j) and the matching <=4 x d/16
+// tile of the output, so each pair of staged floats it reads from shared
+// memory feeds four FMAs; row max and sum go through warp shuffles over
+// the 16 threads of a row.  Query tiles run heaviest first (the last tiles
+// see the most keys).  It is off the timed path: the f32 checks run it.
 #include <cuda_runtime.h>
 
 #include "tile_gemm.cuh"
@@ -45,15 +40,6 @@ namespace {
 constexpr float kNeg = -1e30f;
 constexpr int kTX = 16, kTY = 16;  // threads along keys / head dim, and rows
 constexpr int kMaxR = 4;           // rows (columns) of a thread's score tile
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 // Reductions over the 16 threads of one score row: lanes tx = 0..15 of a
 // half warp (threadIdx.y fixes the half).
@@ -70,10 +56,10 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kTX* kTY)
-    flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int heads,
+    flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int heads,
                  int group, int sq, int sk, int bq, int bk, int causal,
                  float scale) {
   constexpr int NC = D / kTX;  // output columns a thread holds
@@ -91,14 +77,14 @@ __global__ void __launch_bounds__(kTX* kTY)
   const long long bh = blockIdx.x;  // b * heads + h
   const long long kvh = (bh / heads) * (heads / group) + (bh % heads) / group;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * bq;
-  const T* qg = q + bh * sq * D;
-  const T* kg = k + kvh * sk * D;
-  const T* vg = v + kvh * sk * D;
+  const float* qg = q + bh * sq * D;
+  const float* kg = k + kvh * sk * D;
+  const float* vg = v + kvh * sk * D;
 
   for (int i = tid; i < bq * D; i += nthr) {
     const int r = i / D, c = i % D;
     qs[r * LD + c] =
-        q0 + r < sq ? to_f32(qg[static_cast<long long>(q0 + r) * D + c]) : 0.f;
+        q0 + r < sq ? qg[static_cast<long long>(q0 + r) * D + c] : 0.f;
   }
 
   float m[kMaxR], l[kMaxR], acc[kMaxR][NC];
@@ -117,8 +103,8 @@ __global__ void __launch_bounds__(kTX* kTY)
       const int r = i / D, c = i % D;
       const bool live = k0 + r < sk;
       const long long off = static_cast<long long>(k0 + r) * D + c;
-      ks[r * LD + c] = live ? to_f32(kg[off]) : 0.f;
-      vs[r * D + c] = live ? to_f32(vg[off]) : 0.f;
+      ks[r * LD + c] = live ? kg[off] : 0.f;
+      vs[r * D + c] = live ? vg[off] : 0.f;
     }
     __syncthreads();
 
@@ -192,29 +178,28 @@ __global__ void __launch_bounds__(kTX* kTY)
     const int row = q0 + ty + kTY * i;
     if (row >= sq) continue;
     const float lc = fmaxf(l[i], 1e-30f);
-    T* dst = o + (bh * sq + row) * D;
+    float* dst = o + (bh * sq + row) * D;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) store(dst + tx + kTX * c, acc[i][c] / lc);
+    for (int c = 0; c < NC; ++c) dst[tx + kTX * c] = acc[i][c] / lc;
   }
 }
 
-template <typename T, int D>
-int launch_d(const T* q, const T* k, const T* v, T* o, int batch, int heads,
-             int group, int sq, int sk, int bq, int bk, int causal,
-             float scale, cudaStream_t stream) {
+template <int D>
+int launch_d(const float* q, const float* k, const float* v, float* o,
+             int batch, int heads, int group, int sq, int sk, int bq, int bk,
+             int causal, float scale, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (static_cast<size_t>(bq + bk) * (D + 1) +
                        static_cast<size_t>(bk) * D +
                        static_cast<size_t>(bq) * (bk + 1));
   dim3 grid(static_cast<unsigned>(batch) * heads, (sq + bq - 1) / bq);
-  return rt::launch(flash_kernel<T, D>, grid, dim3(kTX, kTY), smem, stream, q,
+  return rt::launch(flash_kernel<D>, grid, dim3(kTX, kTY), smem, stream, q,
                     k, v, o, heads, group, sq, sk, bq, bk, causal, scale);
 }
 
-template <typename T>
-int launch(const T* q, const T* k, const T* v, T* o, int batch, int heads,
-           int group, int sq, int sk, int d, int bq, int bk, int causal,
-           float scale, cudaStream_t stream) {
+int launch(const float* q, const float* k, const float* v, float* o,
+           int batch, int heads, int group, int sq, int sk, int d, int bq,
+           int bk, int causal, float scale, cudaStream_t stream) {
   const bool tile_ok = bq % kTY == 0 && bk % kTX == 0 && bq >= kTY &&
                        bk >= kTX && bq <= kTY * kMaxR && bk <= kTX * kMaxR;
   if (!tile_ok || batch < 1 || group < 1 || heads % group || sq < 1 ||
@@ -222,17 +207,17 @@ int launch(const T* q, const T* k, const T* v, T* o, int batch, int heads,
     return static_cast<int>(cudaErrorInvalidValue);
   switch (d) {
     case 16:
-      return launch_d<T, 16>(q, k, v, o, batch, heads, group, sq, sk, bq, bk,
-                             causal, scale, stream);
+      return launch_d<16>(q, k, v, o, batch, heads, group, sq, sk, bq, bk,
+                          causal, scale, stream);
     case 32:
-      return launch_d<T, 32>(q, k, v, o, batch, heads, group, sq, sk, bq, bk,
-                             causal, scale, stream);
+      return launch_d<32>(q, k, v, o, batch, heads, group, sq, sk, bq, bk,
+                          causal, scale, stream);
     case 64:
-      return launch_d<T, 64>(q, k, v, o, batch, heads, group, sq, sk, bq, bk,
-                             causal, scale, stream);
+      return launch_d<64>(q, k, v, o, batch, heads, group, sq, sk, bq, bk,
+                          causal, scale, stream);
     case 128:
-      return launch_d<T, 128>(q, k, v, o, batch, heads, group, sq, sk, bq, bk,
-                              causal, scale, stream);
+      return launch_d<128>(q, k, v, o, batch, heads, group, sq, sk, bq, bk,
+                           causal, scale, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -245,16 +230,6 @@ extern "C" int flash_attention_f32(const float* q, const float* k,
                                    int heads, int group, int sq, int sk, int d,
                                    int bq, int bk, int causal, float scale,
                                    cudaStream_t stream) {
-  return launch(q, k, v, o, batch, heads, group, sq, sk, d, bq, bk, causal,
-                scale, stream);
-}
-
-extern "C" int flash_attention_bf16(const __nv_bfloat16* q,
-                                    const __nv_bfloat16* k,
-                                    const __nv_bfloat16* v, __nv_bfloat16* o,
-                                    int batch, int heads, int group, int sq,
-                                    int sk, int d, int bq, int bk, int causal,
-                                    float scale, cudaStream_t stream) {
   return launch(q, k, v, o, batch, heads, group, sq, sk, d, bq, bk, causal,
                 scale, stream);
 }

@@ -2,14 +2,16 @@
 
 Replaces the Pallas TPU kernel ``kernels/attention/flash_attention.py::
 flash_attention_p`` (body ``_flash_kernel``; adapters
-``kernels/attention/ops.py``) with the CUDA kernel
-``csrc/flash_attention.cu``: one block per (head, query tile) walks the
-key/value tiles through shared memory with the online-softmax state
-(m, l, acc) in f32 registers.  At prefill lengths it is bound by
-operations (989 TFLOP/s on bf16 tensor cores); this first design runs on
-the CUDA cores in f32, and wgmma on TMA-staged tiles is left for a later
-change.  The kernel also takes grouped KV heads (``group`` query heads
-per KV head) and lengths that no block divides.
+``kernels/attention/ops.py``) with two CUDA kernels, one block per (head,
+query tile) walking the key/value tiles with the online-softmax state
+(m, l, acc) in f32 registers.  bf16, the served dtype, runs
+``csrc/flash_attention_sm90.cu``: both products on wgmma over tiles that
+TMA stages, P in two bf16 terms so that it keeps the reference's f32
+precision.  f32 runs ``csrc/flash_attention.cu`` on the CUDA cores
+(wgmma has no f32 operand).  At prefill lengths the function is bound by
+operations (989 TFLOP/s on bf16 tensor cores).  Both kernels also take
+grouped KV heads (``group`` query heads per KV head) and lengths that no
+block divides.
 
 ``flash_attention_plain`` is the same function in plain PyTorch (KV
 repeated per group, f32 scores and softmax); the wrapper runs it only for
@@ -27,8 +29,12 @@ from repro_torch.core.hw import H100_SXM
 from repro_torch.core.tiles import TileChoice
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (16, 32, 64, 128)   # the kernel's instantiations
-BLOCKS = (16, 32, 64)           # block_q / block_k: a 16 x 16 thread grid, <= 4 x 4 each
+HEAD_DIMS = (16, 32, 64, 128)   # the kernels' instantiations
+# block_q / block_k each kernel takes: f32, a 16 x 16 thread grid of <= 4 x 4
+# tiles; bf16, one or two warpgroups of 64 query rows and wgmma's 64- or
+# 128-key tiles.
+BLOCKS = {torch.float32: (16, 32, 64), torch.bfloat16: (64, 128)}
+DESIGN = {torch.float32: "cuda-core", torch.bfloat16: "wgmma"}
 _NEG = -1e30
 _ENTRY = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
 
@@ -49,16 +55,17 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.matmul(torch.softmax(s, dim=-1), v).to(q.dtype)
 
 
-def flash_blocks(bh: int, sq: int) -> Tuple[int, int]:
-    """The card's (block_q, block_k) for ``bh`` heads of ``sq`` queries:
-    the widest key tile, and the widest query tile that still launches a
-    block for every SM (tall tiles reuse each staged key tile more).  Any
-    pair from ``BLOCKS`` stages at most half of the shared memory a block
-    may use, even at d = 128."""
-    for block_q in reversed(BLOCKS):
+def flash_blocks(bh: int, sq: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """The card's (block_q, block_k) for ``bh`` heads of ``sq`` queries in
+    ``dtype``: the widest key tile, and the widest query tile that still
+    launches a block for every SM (tall tiles reuse each staged key tile
+    more).  Every pair of ``BLOCKS[dtype]`` fits a block's shared memory,
+    even at d = 128."""
+    blocks = BLOCKS[dtype]
+    for block_q in reversed(blocks):
         if bh * -(-sq // block_q) >= H100_SXM.sms:
             break
-    return block_q, BLOCKS[-1]
+    return block_q, blocks[-1]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -76,11 +83,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "KV heads dividing the query heads, non-empty lengths")
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
-    if block_q not in BLOCKS or block_k not in BLOCKS:
-        raise ValueError(f"flash_attention: blocks (block_q={block_q}, "
-                         f"block_k={block_k}) must be in {BLOCKS}")
     _build.check_operands("flash_attention", q, k, v,
                           dtypes=(torch.float32, torch.bfloat16))
+    blocks = BLOCKS[q.dtype]
+    if block_q not in blocks or block_k not in blocks:
+        raise ValueError(f"flash_attention: blocks (block_q={block_q}, "
+                         f"block_k={block_k}) must be in {blocks} for {q.dtype}")
     if not _build.on_card(q):
         return flash_attention_plain(q, k, v, causal=causal)
     lib = _build.library()
@@ -115,7 +123,8 @@ def attention_impl(
         if tile is not None:
             block_q, block_k = tile.bm, tile.bk
         else:
-            block_q, block_k = flash_blocks(q.shape[0] * q.shape[1], q.shape[2])
+            block_q, block_k = flash_blocks(q.shape[0] * q.shape[1], q.shape[2],
+                                            q.dtype)
         y = flash_attention(q, k, v, causal=causal, block_q=block_q,
                             block_k=block_k)
         if record is not None:

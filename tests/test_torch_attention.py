@@ -102,14 +102,67 @@ def test_attention_impl_tile_record_protocol():
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bh,sq", [(28, 512), (28, 2048), (28, 100), (1, 9), (8, 64)])
-def test_flash_blocks_fill_the_card(bh, sq):
-    block_q, block_k = flash_blocks(bh, sq)
-    assert block_q in BLOCKS and block_k == max(BLOCKS)
+def test_flash_blocks_fill_the_card(bh, sq, dtype):
+    blocks = BLOCKS[dtype]
+    block_q, block_k = flash_blocks(bh, sq, dtype)
+    assert block_q in blocks and block_k == max(blocks)
     # the widest query tile that still gives every SM a block
-    wider = [b for b in BLOCKS if b > block_q]
+    wider = [b for b in blocks if b > block_q]
     assert all(bh * -(-sq // b) < H100_SXM.sms for b in wider)
-    assert block_q == BLOCKS[0] or bh * -(-sq // block_q) >= H100_SXM.sms
+    assert block_q == blocks[0] or bh * -(-sq // block_q) >= H100_SXM.sms
+
+
+def _split_p_flash(q, k, v, *, causal, block_k=128, terms=2):
+    """The bf16 kernel's arithmetic in plain PyTorch: f32 scores of bf16 q
+    and k (exact products, f32 sums), online softmax over ``block_k``-key
+    tiles, and P against bf16 v as ``p_hi + p_lo`` (``terms=2``) or one
+    bf16 rounding of p (``terms=1``), into an f32 accumulator."""
+    group = q.shape[1] // k.shape[1]
+    k, v = (a.repeat_interleave(group, dim=1).float() for a in (k, v))
+    q = q.float()
+    sq, sk, d = q.shape[2], k.shape[2], q.shape[3]
+    m = torch.full((*q.shape[:3], 1), -1e30)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(q)
+    rows = torch.arange(sq)[:, None]
+    for k0 in range(0, sk, block_k):
+        kt, vt = k[:, :, k0:k0 + block_k], v[:, :, k0:k0 + block_k]
+        s = torch.matmul(q, kt.transpose(-1, -2)) * (1.0 / d ** 0.5)
+        if causal:
+            s = torch.where(torch.arange(k0, k0 + kt.shape[2])[None, :] > rows, -1e30, s)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        p_hi = p.bfloat16().float()
+        pv = torch.matmul(p_hi, vt)
+        if terms == 2:
+            pv = pv + torch.matmul((p - p_hi).bfloat16().float(), vt)
+        acc = acc * alpha + pv
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).bfloat16()
+
+
+def test_split_p_keeps_the_reference_within_the_bf16_gate():
+    """P in two bf16 terms (the wgmma kernel's design) holds every element
+    within 2^-7 |plain| + 1e-4 of ``flash_attention_plain`` at a reduced
+    qwen2 shape (group 7, d 128); one bf16 rounding of P, as SDPA and
+    FlashAttention do, leaves that limit on the same mixed-sign v."""
+    rng = np.random.default_rng(14)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, h, 300, 128)).astype(np.float32))
+               .bfloat16() for h in (7, 1, 1))
+    assert bool((v < 0).any()) and bool((v > 0).any())
+    want = flash_attention(q, k, v, causal=True, block_q=64, block_k=128).float()
+    limit = 2.0 ** -7 * want.abs() + 1e-4
+
+    def worst(terms):
+        got = _split_p_flash(q, k, v, causal=True, terms=terms).float()
+        return ((got - want).abs() / limit).max().item()
+
+    assert worst(2) <= 1.0
+    assert worst(1) > 1.0
 
 
 # -- layers -------------------------------------------------------------------

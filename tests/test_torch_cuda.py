@@ -9,11 +9,11 @@ fixture).  On a machine with an H100 and the CUDA toolkit:
 The first test builds the kernels with nvcc.  fp32 against fp32 in
 another summation order is held at 1e-4 of the output's scale.  The flash
 kernel is held element by element, |y - plain| <= rtol x |plain| + atol:
-bf16 outputs, computed in f32 and rounded once each side, at 2^-7 and
-1e-4; f32 at 1e-4 and 1e-5.  The SSD kernel is held element by element
-against its plain version at the JAX kernel test's 2e-4, scaled by the
-element and by the output's RMS: |y - plain| <= 2e-4 x |plain| + 2e-4 x
-rms(plain).
+bf16 outputs, computed in f32 (P in two bf16 terms on the card) and
+rounded once each side, at 2^-7 and 1e-4; f32 at 1e-4 and 1e-5.  The SSD
+kernel is held element by element against its plain version at the JAX
+kernel test's 2e-4, scaled by the element and by the output's RMS:
+|y - plain| <= 2e-4 x |plain| + 2e-4 x rms(plain).
 """
 from fractions import Fraction
 
@@ -186,14 +186,19 @@ def test_rate_matched_slice_on_card_matches_cpu(card, family):
         (4, 4, 64, 300, 64, False),      # more keys than queries
         (4, 2, 9, 9, 16, True),          # below one block (reduced qwen2)
         (6, 3, 77, 77, 32, False),
+        (28, 4, 2048, 2048, 128, True),  # qwen2-7b's full heads, longest prompt
+        (32, 32, 1543, 1543, 64, True),  # zamba2's heads, ragged 1536 + 7
     ],
 )
 def test_flash_kernel_matches_plain(card, dtype, h, hkv, sq, sk, d, causal):
+    """Every pair of blocks the dtype's kernel takes: bf16 (wgmma) 64 or
+    128 query rows by 64 or 128 keys; f32 (CUDA cores) tall and wide."""
     q = _rand((2, h, sq, d), sq + d).to(card, dtype)
     k = _rand((2, hkv, sk, d), sk).to(card, dtype)
     v = _rand((2, hkv, sk, d), sk + 1).to(card, dtype)
     want = fa.flash_attention_plain(q, k, v, causal=causal)
-    for block_q, block_k in {fa.flash_blocks(2 * h, sq), (16, 64), (64, 16)}:
+    pairs = {(64, 64), (128, 64), (64, 128)} if dtype == torch.bfloat16 else {(16, 64), (64, 16)}
+    for block_q, block_k in pairs | {fa.flash_blocks(2 * h, sq, dtype)}:
         y = _launched(fa.flash_attention, lambda: fa.flash_attention(
             q, k, v, causal=causal, block_q=block_q, block_k=block_k))
         assert y.dtype == dtype and y.shape == q.shape
@@ -201,15 +206,22 @@ def test_flash_kernel_matches_plain(card, dtype, h, hkv, sq, sk, d, causal):
 
 
 def test_flash_launches_count_only_launches(card):
+    """CPU tensors run the plain version, and a block the dtype's kernel
+    does not take raises before any launch; neither is counted."""
     q, kv = torch.ones(1, 2, 8, 16), torch.ones(1, 1, 8, 16)
     before = fa.flash_attention.launches
     fa.flash_attention(q, kv, kv, block_q=16, block_k=16)    # CPU: plain version
     with pytest.raises(ValueError):
         fa.flash_attention(q.to(card), kv.to(card), kv.to(card), block_q=8,
                            block_k=16)
+    qb, kvb = (t.to(card, torch.bfloat16) for t in (q, kv))
+    with pytest.raises(ValueError):     # the f32 kernel's block, not wgmma's
+        fa.flash_attention(qb, kvb, kvb, block_q=16, block_k=64)
     assert fa.flash_attention.launches == before
     fa.flash_attention(q.to(card), kv.to(card), kv.to(card), block_q=16, block_k=16)
     assert fa.flash_attention.launches == before + 1
+    fa.flash_attention(qb, kvb, kvb, block_q=64, block_k=64)
+    assert fa.flash_attention.launches == before + 2
 
 
 def test_unembed_on_card_matches_the_f32_product(card):

@@ -74,7 +74,7 @@ def test_cuda_request_without_build_raises(which, monkeypatch, tmp_path):
             elif which == "flash_attention":
                 fn(torch.ones(1, 2, 8, 16, dtype=torch.bfloat16),
                    *[torch.ones(1, 1, 8, 16, dtype=torch.bfloat16)] * 2,
-                   block_q=16, block_k=16)
+                   block_q=64, block_k=64)
             elif which == "ssd_chunk":
                 fn(torch.ones(1, 16, 2, 16), torch.ones(1, 16, 2), -torch.ones(2),
                    *[torch.ones(1, 16, 1, 16)] * 2, chunk=16)
