@@ -13,7 +13,9 @@ printing JSON lines:
    power limit are printed as ``nvidia-smi`` gives them;
 2. build — the kernels' nvcc build (``repro_torch.kernels._build``), and
    ptxas's registers and spills for each instance of the bf16 flash
-   kernel (``flash_kernel_wgmma``) from the build's ``nvcc.log``;
+   kernel (``flash_kernel_wgmma``) and of the FCU and KPU tensor-core
+   kernels (``fcu_kernel``, ``kpu_kernel``, which must not spill) from the
+   build's ``nvcc.log``;
 3. kernels — every kernel against its plain PyTorch version on the card
    at every shape its main path gives it (MobileNetV2 and ResNet-18 at
    224x224, batch 8, the rate-3 plan's tiles; qwen2-7b's prefill
@@ -21,7 +23,9 @@ printing JSON lines:
    lengths) plus odd-size extras; each with its time, the plain
    version's, the library call's (``torch.matmul`` / ``F.conv2d`` with
    TF32 off, and ``F.scaled_dot_product_attention``; none for the SSD)
-   and the roofline bound;
+   and the roofline bound (``BOUND``); FCU and KPU rows name the cluster
+   split the kernel's plan takes; and the FCU wrapper's host µs a call
+   beside ``torch.matmul``'s;
 4. slice — MobileNetV2, then ResNet-18, at 224x224: 4 requests of 8
    frames through ``api.apply(params, x, cfg, plan=kp)``, launch counts
    set to 0 just before and read just after, executed tile == plan on
@@ -113,9 +117,17 @@ DEVICE_FN = {"fcu_matmul": ("fcu_kernel",), "kpu_conv": ("kpu_kernel",),
 # (flash_kernel, flash_kernel_wgmma), and the flash class is matched first.
 SERVE_DEVICE_FN = {"flash_attention": ("flash_kernel",), "ssd_chunk": ("ssd_kernel",),
                    "matmul": ("gemm", "gemv", "xmma", "cutlass", "splitK", "nvjet")}
-BOUND = ("max(flops / peak of the operands' type on the H100 SXM (67 TFLOP/s "
-         "fp32 CUDA cores, 989 TFLOP/s bf16 tensor cores); bytes / 3.35 TB/s "
-         "HBM), each input read once, each output written once")
+# The FCU and KPU run 3xTF32 on the tensor cores: each product three times
+# in TF32 at 495 TFLOP/s, i.e. 165 TFLOP/s of work at the gate's fp32
+# accuracy.  Their rows keep the 67 TFLOP/s CUDA-core bound beside it
+# (``bound_ms_fp32``) for one more PR.
+TF32_TERMS = 3
+MMA_KERNELS = ("fcu_matmul", "kpu_conv")
+BOUND = ("max(flops / peak of the route on the H100 SXM (67 TFLOP/s fp32 CUDA "
+         "cores; 989 TFLOP/s bf16 tensor cores; FCU and KPU: 3xTF32, 3 x flops "
+         "at 495 TFLOP/s TF32 = 165 TFLOP/s of fp32-accurate work, the 67 "
+         "TFLOP/s CUDA-core bound beside it as bound_ms_fp32); bytes / 3.35 "
+         "TB/s HBM), each input read once, each output written once")
 
 
 def emit(obj) -> None:
@@ -205,6 +217,8 @@ class KernelBench:
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
                 ops_ms=t_ops, bytes_ms=t_bytes,
             )
+            if kernel in MMA_KERNELS:
+                row["bound_ms_fp32"] = max(flops / self.hw.peak_fp32_flops * 1e3, t_bytes)
         self.rows.append(row)
         emit(row)
 
@@ -215,6 +229,7 @@ def bench_nodes(torch, bench, family, plan, graph, gen):
 
     from repro_torch.kernels import _build, dw_conv, fcu_matmul, kpu_conv
 
+    mma_peak = bench.hw.peak_tf32_flops / TF32_TERMS
     for name, ip in plan.items():
         if not ip.has_kernel:
             continue
@@ -228,12 +243,15 @@ def bench_nodes(torch, bench, family, plan, graph, gen):
             x2 = x.reshape(-1, s.d_in)
             w = torch.randn((s.d_in, s.d_out), generator=gen).cuda() / s.d_in ** 0.5
             bm = fcu_matmul._pick_bm(x2.shape[0], t.bm)
+            split = fcu_matmul.cluster_split(x2.shape[0], s.d_in, s.d_out, bm=bm,
+                                             bk=t.bk, bn=t.bn)
             bench.case(
                 kernel, label,
                 lambda: fcu_matmul.fcu_matmul(x2, w, bm=bm, bk=t.bk, bn=t.bn),
                 lambda: fcu_matmul.fcu_matmul_plain(x2, w),
                 lambda: torch.matmul(x2, w),
                 2 * macs, 4 * (x2.numel() + w.numel() + out_elems),
+                peak=mma_peak, info={"split": split},
             )
             continue
         kh, kw = s.kernel
@@ -245,6 +263,8 @@ def bench_nodes(torch, bench, family, plan, graph, gen):
             w = torch.randn((kh, kw, s.d_in, s.d_out), generator=gen).cuda()
             w = w / (kh * kw * s.d_in) ** 0.5
             w_oihw = w.permute(3, 2, 0, 1)
+            split = kpu_conv.cluster_split(x.shape, w.shape, stride=stride, bm=t.bm,
+                                           bci=t.bk, bco=t.bn)
             bench.case(
                 kernel, label,
                 lambda: kpu_conv.kpu_conv(x, w, stride=stride, bm=t.bm,
@@ -252,6 +272,7 @@ def bench_nodes(torch, bench, family, plan, graph, gen):
                 lambda: kpu_conv.kpu_conv_plain(x, w, stride),
                 lambda: F.conv2d(xp, w_oihw, stride=stride).permute(0, 2, 3, 1),
                 2 * macs, 4 * (x.numel() + w.numel() + out_elems),
+                peak=mma_peak, info={"split": split},
             )
         else:
             w = torch.randn((kh, kw, s.d_in), generator=gen).cuda() / (kh * kw) ** 0.5
@@ -314,8 +335,8 @@ def bench_extras(torch, bench, gen):
             lambda: torch.matmul(x, w),
             0, 0, timed=False,
         )
-    # one-row tiles whose block has fewer threads (16) than the staged
-    # slice is wide (32 weight columns; 24 input features)
+    # one-row tiles: one live row of a 64-row wgmma atom; bn = 4 padded to
+    # the wgmma width 8
     x = torch.randn((1, 2, 2, 3), generator=gen).cuda()
     w = torch.randn((3, 3, 3, 32), generator=gen).cuda() / 27 ** 0.5
     bench.case(
@@ -337,7 +358,30 @@ def bench_extras(torch, bench, gen):
     )
 
 
-def ptxas_report(lib_path, kernel="flash_kernel_wgmma"):
+def wrapper_host_us(torch, calls=2000):
+    """Host µs a call of the FCU wrapper (checks, output allocation,
+    ctypes launch with the kernel's host-side plan) and of ``torch.matmul``, on an [8, 64] x
+    [64, 8] product so small that the host, not the card, sets the pace:
+    the floor under a kernel row's time where launches run back to
+    back.  The launches here are outside every counted window."""
+    from repro_torch.kernels import fcu_matmul
+
+    x = torch.randn((8, 64), device="cuda")
+    w = torch.randn((64, 8), device="cuda")
+    out = {}
+    for name, fn in (("fcu_matmul", lambda: fcu_matmul.fcu_matmul(x, w, bm=8, bk=64, bn=8)),
+                     ("torch.matmul", lambda: torch.matmul(x, w))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        out[name] = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+    emit({"phase": "wrapper_host_us", "shape": [8, 64, 8], "calls": calls, **out})
+
+
+def ptxas_report(lib_path, kernel):
     """Registers, stack and spills ptxas reported for each instance of
     ``kernel`` (its template arguments from the mangled name), read from
     the build's ``nvcc.log``."""
@@ -831,7 +875,15 @@ def main() -> int:
           "registers_note": "with 2 consumer warpgroups, registers at entry; "
                             "setmaxnreg then gives the consumers 232 and the "
                             "producer warpgroup 40",
-          "instances": ptxas_report(lib._name)})
+          "instances": ptxas_report(lib._name, "flash_kernel_wgmma")})
+    for kernel in ("fcu_kernel", "kpu_kernel"):
+        rows = ptxas_report(lib._name, kernel)
+        emit({"phase": "ptxas", "kernel": kernel,
+              "template": "<wgmma width BN, 64-row atoms a consumer warpgroup, "
+                          "consumer warpgroups>",
+              "instances": rows})
+        require(all(r.get("spill_stores", 1) == 0 and r.get("spill_loads", 1) == 0
+                    for r in rows), f"{kernel}: ptxas reports spills")
 
     kernels_mod = {"fcu_matmul": fcu_matmul, "kpu_conv": kpu_conv, "dw_conv": dw_conv,
                    "flash_attention": flash_attention, "ssd_chunk": ssd_chunk}
@@ -847,6 +899,7 @@ def main() -> int:
         cfg = api.make_config()
         bench_nodes(torch, bench, family, api.plan(cfg, RATE), api.graph(cfg), gen)
     bench_extras(torch, bench, gen)
+    wrapper_host_us(torch)
     bench_flash(torch, bench, gen)
     bench_ssd(torch, bench, torch.Generator().manual_seed(2027))
 
@@ -876,6 +929,8 @@ def main() -> int:
             "library_ms": None if name in NO_LIBRARY else sum(r["library_ms"] for r in timed),
             "shapes": len(timed),
         }
+        if name in MMA_KERNELS:
+            row["bound_ms_fp32"] = sum(r["bound_ms_fp32"] for r in timed)
         if name in NO_LIBRARY:
             row["library_note"] = NO_LIBRARY[name]
         out.append(row)

@@ -22,7 +22,10 @@ Two selection paths share the constraints:
     re-checked here as ``tpu_tiles.py`` does).
 
 Where the TPU rule aligns to 128 lanes and fits VMEM, this one fits the
-limits the kernels (``kernels/csrc/*.cu``) actually have:
+limits of the CUDA-core FCU / KPU block the kernels first had (since
+replaced by the tensor-core block of ``kernels/csrc/tile_mma.cuh``, which
+takes every tile this rule gives; a rule sized for that block is still
+to come) and of ``dw_conv.cu``:
 
   * alignment: a tile dimension is a multiple of 32 (a warp) where the
     channel count divides by 32, else of 8 where it divides by 8, else
@@ -45,7 +48,9 @@ from .dse import LayerImpl
 from .hw import H100_SXM
 from .rate import divisors
 
-# The CUDA kernels' own limits (kernels/csrc/tile_gemm.cuh, dw_conv.cu).
+# The limits of the planner's block model: the CUDA-core FCU / KPU block
+# the kernels first had (replaced by kernels/csrc/tile_mma.cuh), and
+# dw_conv.cu.
 THREADS = 256          # threads of one k-group (the tile's thread grid)
 MAX_THREADS = 512      # threads a block, k-groups included
 MAX_GROUPS = 64        # k-groups a block (blockDim.z)

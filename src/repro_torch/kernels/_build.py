@@ -26,9 +26,6 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.hw import H100_SXM
-from repro_torch.core.tiles import gemm_layout, gemm_smem_bytes
-
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -39,11 +36,13 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points (csrc/*.cu): pointers and the stream as c_void_p, ints as
 # c_int, floats as c_float; each returns the cudaError_t of its launch.
 SIGNATURES = {
-    # x, w, y, m, d_in, d_out, bm, bk, bn, tx, ty, tm, tn, g, stream
-    "fcu_matmul_f32": [_P, _P, _P] + [_I] * 11 + [_P],
+    # x, w, y, m, d_in, d_out, bm, bk, bn, split (0: the rule), stream
+    "fcu_matmul_f32": [_P, _P, _P] + [_I] * 7 + [_P],
     # x, w, y, n, h, w, d_in, ho, wo, d_out, kh, kw, stride, pad_t, pad_l,
-    # bm, bci, bco, tx, ty, tm, tn, g, stream
-    "kpu_conv_f32": [_P, _P, _P] + [_I] * 20 + [_P],
+    # bm, bci, bco, split (0: the rule), stream
+    "kpu_conv_f32": [_P, _P, _P] + [_I] * 16 + [_P],
+    # n, h, w, d_in, ho, wo, d_out, kh, kw, bm, bk, bn -> the rule's split
+    "mma_split": [_I] * 12,
     # x, w, y, n, h, w, c, ho, wo, kh, kw, stride, pad_t, pad_l, rows, bc,
     # stream
     "dw_conv_f32": [_P, _P, _P] + [_I] * 13 + [_P],
@@ -131,6 +130,15 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+def raw_stream(device: torch.device) -> int:
+    """The handle of PyTorch's current CUDA stream on ``device``, for a
+    launch, through torch's C getter: a fraction of
+    ``torch.cuda.current_stream``'s host cost, which matters for launches
+    of a few µs."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 def on_card(t) -> bool:
     """A kernel wrapper's dispatch: False for a CPU tensor (the wrapper
     then runs the kernel's plain version), True for a CUDA tensor (it
@@ -166,24 +174,26 @@ def check_operands(name: str, *ts: torch.Tensor,
             raise ValueError(f"{name}: operands must be contiguous")
 
 
-def check_gemm_tile(name: str, bm: int, bk: int, bn: int, d_in: int,
-                    d_out: int, *, conv: bool = False) -> tuple:
-    """Validate a (bm, bk, bn) block tile of the FCU / KPU kernels against
-    the dims and the kernels' limits; return its thread layout
-    ``(tx, ty, tm, tn, g)``."""
+def check_mma_tile(name: str, bm: int, bk: int, bn: int, d_in: int,
+                   d_out: int) -> None:
+    """Validate a (bm, bk, bn) block tile of the FCU / KPU kernels
+    (``csrc/tile_mma.cuh``) against the dims and the kernels' limits:
+    bm <= 512 rows in 64-row wgmma atoms, bn <= 256 padded to a power of
+    two of at least 8, and at most 128 f32 accumulators a consumer thread
+    beside one consumer warpgroup (bm <= 64), 64 beside two."""
     if bm < 1 or bk < 1 or bn < 1 or d_in % bk or d_out % bn:
         raise ValueError(
             f"{name}: tile (bm={bm}, bk={bk}, bn={bn}) must be positive and "
             f"divide (d_in={d_in}, d_out={d_out})"
         )
-    layout = gemm_layout(bm, bn, bk)
-    smem = gemm_smem_bytes(bm, bk, bn, conv=conv)
-    if smem > H100_SXM.smem_per_block:
+    atoms = 1 if bm <= 64 else 2 if bm <= 128 else 4 if bm <= 256 else 8
+    width = max(8, 1 << (bn - 1).bit_length())
+    per_thread = (atoms if atoms == 1 else atoms // 2) * width // 2
+    if bm > 512 or bn > 256 or per_thread > (128 if atoms == 1 else 64):
         raise ValueError(
-            f"{name}: tile (bm={bm}, bk={bk}, bn={bn}) stages {smem} B, over "
-            f"the {H100_SXM.smem_per_block} B a block may use"
+            f"{name}: tile (bm={bm}, bn={bn}) is past the kernel's block: "
+            f"bm <= 512, bn <= 256, {per_thread} accumulators a thread"
         )
-    return layout
 
 
 def same_pads(size: int, k: int, s: int):

@@ -3,104 +3,69 @@
 // Replaces the Pallas TPU kernel kernels/fcu_matmul/fcu_matmul.py::fcu_matmul_p
 // (body _fcu_kernel): grid (m/bm, d_out/bn, d_in/bk) with k innermost and an
 // f32 VMEM accumulator.  Here one block owns a (bm x bn) output tile of the
-// plan, loops over d_in in the planned bk steps itself (blocks run in no
-// order on Hopper, so the sequential k grid axis becomes that loop) and keeps
-// the accumulator in registers (tile_gemm.cuh); where the tile leaves few
-// threads, k-groups of threads share it (tile_gemm.cuh).
+// plan and walks d_in in the planned bk steps itself (blocks run in no order
+// on Hopper, so the sequential k grid axis becomes that loop), on the tensor
+// cores: the shared mainloop of tile_mma.cuh, as the KPU's case of a 1x1
+// kernel, stride 1 and no padding over one frame of m pixels.
 //
-// Bound on an H100: by the roofline, HBM bytes for MobileNetV2's narrow
-// projections (below the fp32 ridge of ~20 flops a byte) and fp32
-// operations for its wide expansions.  In practice the plan's narrow tiles
-// launch few blocks, and the CUDA-core FMA loop with its shared-memory
-// operand reads sets the time.  The design keeps a TM x TN register tile
-// per thread so each staged float feeds TM or TN FMAs, and k-groups put
-// more warps on a narrow tile.  Left for a later change: wgmma on
-// TMA-staged tiles (tf32/bf16), multi-stage cp.async pipelining,
-// vectorised staging.
+// Bound on an H100 SXM at its 700 W limit (NVIDIA's data sheet): the larger
+// of the product's bytes over 3.35 TB/s and its 2 m d_in d_out flops done
+// three times (3xTF32) over 495 TFLOP/s TF32, i.e. 165 TFLOP/s of
+// fp32-accurate work.  MobileNetV2's 1x1 layers do 16-480 flops a byte of
+// x, w and y, so every one of them is bound by bytes; at the plan's tiles
+// most launch few blocks, and latency and the per-launch cost set the time.
+// The design puts the products on wgmma (the 3xTF32 split keeps the 1e-4
+// gate, which one TF32 rounding misses), overlaps the copies with them
+// through a ring of cp.async slots, packs up to 64 / bm pixel tiles into one
+// 64-row atom where bm < 64 (the dense heads' bm = 1), and splits the bk
+// steps over a thread-block cluster where the tiles leave SMs idle.  Left
+// for later: TMA for the x tiles, persistent blocks that walk several
+// column tiles, and a Hopper tile rule in the planner sized for this block
+// (core/tiles.py still sizes bm for the CUDA-core block it replaced).
 #include <cuda_runtime.h>
 
-#include "tile_gemm.cuh"
+#include "tile_mma.cuh"
 
 namespace {
 
-template <int TM, int TN>
-__global__ void __launch_bounds__(rt::kMaxThreads)
+template <int BN, int MA, int NC>
+__global__ void __launch_bounds__(rt::kProducer * (NC + 1),
+                                  rt::mma_min_blocks(BN, MA, NC))
     fcu_kernel(const float* __restrict__ x, const float* __restrict__ w,
-               float* __restrict__ y, int m, int d_in, int d_out, int bm,
-               int bk, int bn) {
-  extern __shared__ float smem[];
-  const int TX = blockDim.x, TY = blockDim.y, G = blockDim.z;
-  const int tx = threadIdx.x, ty = threadIdx.y, g = threadIdx.z;
-  const int tid = (g * TY + ty) * TX + tx, nthr = TX * TY * G;
-  const int ldx = TM * TY + 1, ldw = TN * TX;
-  float* xs = smem;             // [bk][ldx]
-  float* ws = smem + bk * ldx;  // [bk][ldw]
-  const long long m0 = static_cast<long long>(blockIdx.x) * bm;
-  const int n0 = blockIdx.y * bn;
-  // staging lanes run along the contraction axis: a warp reads
-  // neighbouring features of a row
-  const int lanes = rt::staging_lanes(bk, nthr), rgroups = nthr / lanes;
-  const int lane = tid % lanes;
-
-  float acc[TM][TN];
-  rt::zero(acc);
-  for (int k0 = 0; k0 < d_in; k0 += bk) {
-    if (tid < rgroups * lanes) {
-      for (int r = tid / lanes; r < ldx - 1; r += rgroups) {
-        const long long row = m0 + r;
-        const bool live = r < bm && row < m;
-        const float* src = x + row * d_in + k0;
-        for (int kk = lane; kk < bk; kk += lanes)
-          xs[kk * ldx + r] = live ? src[kk] : 0.f;
-      }
-    }
-    rt::stage_weights(ws, w + static_cast<long long>(k0) * d_out + n0, d_out,
-                      bk, ldw, bn, tid, nthr);
-    __syncthreads();
-    rt::accumulate_step<TM, TN>(xs, ws, bk, ldx, ldw, tx, ty, TX, TY, g, G,
-                                acc);
-    __syncthreads();
-  }
-  rt::reduce_groups<TM, TN>(smem, tx, ty, TX, TY, g, G, acc);
-  if (g > 0) return;
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = ty + TY * i;
-    const long long row = m0 + r;
-    if (r >= bm || row >= m) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = tx + TX * j;
-      if (c < bn) y[row * d_out + n0 + c] = acc[i][j];
-    }
-  }
+               float* __restrict__ y, rt::MmaShape s, rt::MmaTile t) {
+  rt::mma_tile<BN, MA, NC>(x, w, y, s, t);
 }
 
 struct FcuLaunch {
   const float *x, *w;
   float* y;
-  int m, d_in, d_out, bm, bk, bn, tx, ty, tm, tn, g;
+  rt::MmaShape s;
+  rt::MmaLaunch l;
   cudaStream_t stream;
 
-  template <int TM, int TN>
+  template <int BN, int MA, int NC>
   int run() {
-    dim3 grid((m + bm - 1) / bm, d_out / bn);
-    dim3 block(tx, ty, g);
-    return rt::launch(fcu_kernel<TM, TN>, grid, block,
-                      rt::smem_bytes(bk, tx, ty, tm, tn, g, 0), stream, x, w,
-                      y, m, d_in, d_out, bm, bk, bn);
+    static bool opted[rt::kMaxDevices] = {};
+    const int err = rt::opt_in_smem(fcu_kernel<BN, MA, NC>, rt::kSmemBlock, opted);
+    if (err) return err;
+    return rt::launch_cluster(fcu_kernel<BN, MA, NC>, l.grid, l.block, l.smem,
+                              stream, l.split, x, w, y, s, l.t);
   }
 };
 
 }  // namespace
 
+// x [m, d_in], w [d_in, d_out], y [m, d_out], f32 and contiguous; the
+// plan's (bm, bk, bn) tile; `split` blocks a tile along a cluster (1: none,
+// 0: as the rule gives, which the wrapper passes).
 extern "C" int fcu_matmul_f32(const float* x, const float* w, float* y, int m,
                               int d_in, int d_out, int bm, int bk, int bn,
-                              int tx, int ty, int tm, int tn, int g,
-                              cudaStream_t stream) {
-  if (!rt::layout_ok(bm, bk, bn, tx, ty, tm, tn, g) || d_in % bk || d_out % bn)
+                              int split, cudaStream_t stream) {
+  const rt::MmaShape s{1, 1, m, d_in, 1, m, d_out, 1, 1, 1, 0, 0};
+  FcuLaunch f{x, w, y, s, {}, stream};
+  const bool x_ok = (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const bool w_ok = (reinterpret_cast<uintptr_t>(w) & 15) == 0;
+  if (m < 1 || !rt::plan_tile(s, bm, bk, bn, split, x_ok, w_ok, &f.l))
     return static_cast<int>(cudaErrorInvalidValue);
-  FcuLaunch f{x, w, y, m, d_in, d_out, bm, bk, bn, tx, ty, tm, tn, g, stream};
-  return rt::dispatch(tm, tn, f);
+  return rt::dispatch(f.l, f);
 }

@@ -33,7 +33,7 @@
 // see the most keys).  It is off the timed path: the f32 checks run it.
 #include <cuda_runtime.h>
 
-#include "tile_gemm.cuh"
+#include "sm90.cuh"
 
 namespace {
 

@@ -7,143 +7,92 @@
 // (dy, dx) tap, multiplies a strided [Ho, Wo, bci] window by w[dy, dx].  A
 // 224x224 frame does not fit one block's 227 KiB of shared memory, so this
 // kernel is an implicit GEMM tiled over output pixels instead: M = N*Ho*Wo
-// flattened pixels, one block per (bm pixels x bco output channels).  For
-// each planned input-channel tile bci and each tap it gathers the strided
-// window rows of its bm pixels into shared memory — only surviving windows
-// are read (the paper's §II-E stride pruning), and the asymmetric SAME
-// padding (ResNet conv1 at 224: (2, 3); MobileNetV2 conv1: (0, 1)) is
-// zero-fill in the index math, so no padded copy of the input is made —
-// then accumulates in registers (tile_gemm.cuh).  Each pixel row's window
-// origin is computed once per block, so staging a tap costs a bounds check
-// and a load per element.  d_in = 3 (conv1) is just a bci = 3 step.
+// flattened pixels, one block per (bm pixels x bco output channels), on
+// the tensor cores through the shared mainloop of tile_mma.cuh.  Its
+// producer gathers, per planned input-channel step bci and tap, the
+// strided window rows of the block's pixels with cp.async — only
+// surviving windows are read (the paper's §II-E stride pruning), and the
+// asymmetric SAME padding (ResNet conv1 at 224: (2, 3); MobileNetV2
+// conv1: (0, 1)) is zero-fill in the index math, so no padded copy of the
+// input is made.  d_in = 3 (conv1) is a bci = 3 step copied 4 bytes at a
+// time (its 12-byte rows allow no wider copy, nor a TMA tensor map, whose
+// strides must be multiples of 16 bytes); a row of its kw taps is one
+// step of kw x 3 channels, zero-padded to k8 steps.
 //
-// Bound on an H100: ResNet-18's 3x3 convs do 576-4608 MACs per pixel, far
-// above the card's fp32 ridge, so the CUDA-core FMA loop and its
-// shared-memory operand traffic bound it.  Left for a later change: wgmma
-// on TMA-staged (im2col) tiles, pipelined staging, and reusing one staged
-// halo across the kh*kw taps.
+// Bound on an H100 SXM at its 700 W limit (NVIDIA's data sheet):
+// ResNet-18's 3x3 convs do 576-4608 MACs a pixel, far above the ridge, so
+// the bound is their flops done three times (3xTF32) over 495 TFLOP/s TF32,
+// i.e. 165 TFLOP/s of fp32-accurate work.  The design puts the products on
+// wgmma with the 3xTF32 split (the 1e-4 gate forbids one TF32 rounding),
+// overlaps the gathers with them through a ring of cp.async slots, folds a
+// row of conv1's 3-channel taps into one step, and splits the (bci step,
+// tap) steps over a thread-block cluster where the tiles leave SMs idle.
+// The plan's narrow tiles (bco = 32 of up to 512 channels) make every
+// block gather its windows again for each tap and each column tile, so L2
+// traffic, not the tensor cores, sets the pace of the 3x3 convs.  Left for
+// later: staging one halo window per channel slab and reusing it across
+// the kh*kw taps, TMA im2col, persistent blocks, and a Hopper tile rule in
+// the planner sized for this block.
 #include <cuda_runtime.h>
 
-#include "tile_gemm.cuh"
+#include "tile_mma.cuh"
 
 namespace {
 
-struct ConvShape {
-  int n, h, w, d_in, ho, wo, d_out, kh, kw, stride, pad_t, pad_l;
-};
-
-template <int TM, int TN>
-__global__ void __launch_bounds__(rt::kMaxThreads)
-    kpu_kernel(const float* __restrict__ x, const float* __restrict__ wt,
-               float* __restrict__ y, ConvShape s, int bm, int bci, int bco) {
-  extern __shared__ float smem[];
-  const int TX = blockDim.x, TY = blockDim.y, G = blockDim.z;
-  const int tx = threadIdx.x, ty = threadIdx.y, g = threadIdx.z;
-  const int tid = (g * TY + ty) * TX + tx, nthr = TX * TY * G;
-  const int rows = TM * TY, ldx = rows + 1, ldw = TN * TX;
-  // per-row window origin, computed once: frame (-1 past the tile), and
-  // the input row / column of tap (0, 0) (negative inside the SAME pad)
-  int* rn = reinterpret_cast<int*>(smem);
-  int* riy = rn + rows;
-  int* rix = riy + rows;
-  float* xs = smem + 3 * rows;   // [bci][ldx]
-  float* ws = xs + bci * ldx;    // [bci][ldw]
-  const long long npix = static_cast<long long>(s.n) * s.ho * s.wo;
-  const long long m0 = static_cast<long long>(blockIdx.x) * bm;
-  const int co0 = blockIdx.y * bco;
-  const int lanes = rt::staging_lanes(bci, nthr), rgroups = nthr / lanes;
-  const int lane = tid % lanes;
-
-  for (int r = tid; r < rows; r += nthr) {
-    const long long p = m0 + r;
-    if (r < bm && p < npix) {
-      const int ox = static_cast<int>(p % s.wo);
-      const long long t = p / s.wo;
-      rn[r] = static_cast<int>(t / s.ho);
-      riy[r] = static_cast<int>(t % s.ho) * s.stride - s.pad_t;
-      rix[r] = ox * s.stride - s.pad_l;
-    } else {
-      rn[r] = -1;
-    }
-  }
-  __syncthreads();
-
-  float acc[TM][TN];
-  rt::zero(acc);
-  for (int ci0 = 0; ci0 < s.d_in; ci0 += bci) {
-    for (int dy = 0; dy < s.kh; ++dy) {
-      for (int dx = 0; dx < s.kw; ++dx) {
-        if (tid < rgroups * lanes) {
-          for (int r = tid / lanes; r < rows; r += rgroups) {
-            const int nn = rn[r], iy = riy[r] + dy, ix = rix[r] + dx;
-            const bool live = nn >= 0 && static_cast<unsigned>(iy) < s.h &&
-                              static_cast<unsigned>(ix) < s.w;
-            const float* src =
-                x + (static_cast<long long>(nn * s.h + iy) * s.w + ix) * s.d_in +
-                ci0;
-            for (int kk = lane; kk < bci; kk += lanes)
-              xs[kk * ldx + r] = live ? src[kk] : 0.f;
-          }
-        }
-        rt::stage_weights(
-            ws,
-            wt + (static_cast<long long>(dy * s.kw + dx) * s.d_in + ci0) *
-                     s.d_out + co0,
-            s.d_out, bci, ldw, bco, tid, nthr);
-        __syncthreads();
-        rt::accumulate_step<TM, TN>(xs, ws, bci, ldx, ldw, tx, ty, TX, TY, g,
-                                    G, acc);
-        __syncthreads();
-      }
-    }
-  }
-  rt::reduce_groups<TM, TN>(smem, tx, ty, TX, TY, g, G, acc);
-  if (g > 0) return;
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = ty + TY * i;
-    const long long p = m0 + r;
-    if (r >= bm || p >= npix) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = tx + TX * j;
-      if (c < bco) y[p * s.d_out + co0 + c] = acc[i][j];
-    }
-  }
+template <int BN, int MA, int NC>
+__global__ void __launch_bounds__(rt::kProducer * (NC + 1),
+                                  rt::mma_min_blocks(BN, MA, NC))
+    kpu_kernel(const float* __restrict__ x, const float* __restrict__ w,
+               float* __restrict__ y, rt::MmaShape s, rt::MmaTile t) {
+  rt::mma_tile<BN, MA, NC>(x, w, y, s, t);
 }
 
 struct KpuLaunch {
   const float *x, *w;
   float* y;
-  ConvShape s;
-  int bm, bci, bco, tx, ty, tm, tn, g;
+  rt::MmaShape s;
+  rt::MmaLaunch l;
   cudaStream_t stream;
 
-  template <int TM, int TN>
+  template <int BN, int MA, int NC>
   int run() {
-    const long long npix = static_cast<long long>(s.n) * s.ho * s.wo;
-    dim3 grid(static_cast<unsigned>((npix + bm - 1) / bm), s.d_out / bco);
-    dim3 block(tx, ty, g);
-    const size_t rows_bytes = 3 * sizeof(int) * static_cast<size_t>(tm) * ty;
-    return rt::launch(kpu_kernel<TM, TN>, grid, block,
-                      rt::smem_bytes(bci, tx, ty, tm, tn, g, rows_bytes),
-                      stream, x, w, y, s, bm, bci, bco);
+    static bool opted[rt::kMaxDevices] = {};
+    const int err = rt::opt_in_smem(kpu_kernel<BN, MA, NC>, rt::kSmemBlock, opted);
+    if (err) return err;
+    return rt::launch_cluster(kpu_kernel<BN, MA, NC>, l.grid, l.block, l.smem,
+                              stream, l.split, x, w, y, s, l.t);
   }
 };
 
 }  // namespace
 
+// x [n, h, w, d_in] NHWC, w [kh, kw, d_in, d_out] HWIO, y [n, ho, wo, d_out],
+// f32 and contiguous; SAME pads (pad_t, pad_l) before the frame; the plan's
+// (bm, bci, bco) tile; `split` blocks a tile along a cluster (1: none, 0: as
+// the rule gives, which the wrapper passes).
 extern "C" int kpu_conv_f32(const float* x, const float* w, float* y, int n,
                             int h, int wd, int d_in, int ho, int wo, int d_out,
                             int kh, int kw, int stride, int pad_t, int pad_l,
-                            int bm, int bci, int bco, int tx, int ty, int tm,
-                            int tn, int g, cudaStream_t stream) {
-  if (!rt::layout_ok(bm, bci, bco, tx, ty, tm, tn, g) || d_in % bci ||
-      d_out % bco)
+                            int bm, int bci, int bco, int split,
+                            cudaStream_t stream) {
+  const rt::MmaShape s{n, h, wd, d_in, ho, wo, d_out, kh, kw, stride, pad_t,
+                       pad_l};
+  KpuLaunch f{x, w, y, s, {}, stream};
+  const bool x_ok = (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const bool w_ok = (reinterpret_cast<uintptr_t>(w) & 15) == 0;
+  if (n < 1 || ho < 1 || wo < 1 ||
+      !rt::plan_tile(s, bm, bci, bco, split, x_ok, w_ok, &f.l))
     return static_cast<int>(cudaErrorInvalidValue);
-  KpuLaunch f{x,  w,   y,   {n, h, wd, d_in, ho, wo, d_out, kh, kw, stride,
-                              pad_t, pad_l},
-              bm, bci, bco, tx, ty, tm, tn, g, stream};
-  return rt::dispatch(tm, tn, f);
+  return rt::dispatch(f.l, f);
+}
+
+// The cluster split the rule gives the (bm, bk, bn) tile of a KPU call on
+// the current device: blocks a tile, 1 for none; 0 if the kernels do not
+// take the tile.  The FCU over m pixels is the case n = h = ho = 1,
+// w = wo = m of a 1x1 kernel.
+extern "C" int mma_split(int n, int h, int wd, int d_in, int ho, int wo,
+                         int d_out, int kh, int kw, int bm, int bk, int bn) {
+  const rt::MmaShape s{n, h, wd, d_in, ho, wo, d_out, kh, kw, 1, 0, 0};
+  rt::MmaLaunch l;
+  return rt::plan_tile(s, bm, bk, bn, 0, true, true, &l) ? l.split : 0;
 }

@@ -45,7 +45,7 @@
 // through a thread-block cluster.
 #include <cuda_runtime.h>
 
-#include "tile_gemm.cuh"
+#include "sm90.cuh"
 
 namespace {
 

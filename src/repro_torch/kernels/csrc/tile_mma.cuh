@@ -1,0 +1,757 @@
+// Block-tile product of the FCU (fcu_matmul.cu) and KPU (kpu_conv.cu)
+// kernels on Hopper's tensor cores, fp32-accurate through a 3xTF32 split.
+//
+// The problem is an implicit GEMM: M = N*Ho*Wo output pixels, N = d_out
+// channels, K = kh*kw*d_in.  The FCU is the KPU's case with a 1x1 kernel,
+// stride 1 and no padding (one frame of m pixels), so both run `mma_tile`
+// and differ only in the shape they pass.
+//
+// One block owns the plan's (bm x bn) output tile (or, where bm < 64, up
+// to 64 / bm of them, which share one 64-row wgmma atom) and walks its
+// share of the contraction in the plan's bk steps: (input-channel step,
+// tap) pairs.  Where the rows of x allow only 4-byte copies and one step
+// holds all d_in channels (conv1's 3), a row of kw taps is one step: its
+// (dx, ci) pairs lie contiguous in x's row and in w.  A ring slot holds a
+// `ks`-channel slab of one step (ks divides the step rounded up to 8
+// channels): the [rows][ks] window of x (rows padded so the consumers'
+// 8-byte reads hit distinct banks) and the [ks][bn] slice of w, both f32
+// as they lie in memory.
+//
+// Warp roles.  Warps 0 .. 4 NC - 1 are NC consumer warpgroups, each
+// owning MA 64-row wgmma atoms of the tile (ragged rows read as zero and
+// are never stored); the last warpgroup is the producer.  The producer
+// fills the ring with cp.async, 16 bytes a copy where the rows allow it
+// and 4 bytes otherwise, zero-filling (src-size 0) rows past the tile,
+// taps in the SAME padding, channels past the step and columns past bn,
+// from a per-row table of window origins made once per block; each of its
+// threads arrives on the slot's `full` mbarrier as its copies land.  The
+// consumers wait on `full`, split the slot's w into hi = rna_tf32(v) and
+// lo = rna_tf32(v - hi) in the K-major [bn][8] layout wgmma takes for a
+// tf32 B operand (tf32 has no transposed mode; k permuted to match the
+// reads of x), into one of two buffers by the item's parity, and meet at
+// a named barrier.  Each then reads its x values with one 8-byte shared
+// load per row pair, splits them in registers into A fragments and runs
+// three wgmma m64nBNk8 tf32 products per k8 step into one f32 accumulator,
+// the two lo terms first, then hi x hi; the next steps' loads overlap
+// these steps' products.  The slot goes back to the producer through its
+// `empty` mbarrier once the products have read it.  Beside two consumer
+// warpgroups, setmaxnreg moves the producer's spare registers to them, so
+// that two blocks fit an SM.
+//
+// Cluster split.  Where the plan's tiles leave fewer blocks than SMs,
+// `plan_tile` launches `split` blocks per tile as a thread-block cluster
+// along z (`split_rule`): rank r takes steps [r S / split, (r + 1) S /
+// split) of the S steps.  The ranks' partial tiles go to shared memory and each rank
+// sums a slice of the tile's rows over all ranks through distributed
+// shared memory in rank order (deterministic, no atomics).
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <algorithm>
+#include <initializer_list>
+
+#include "sm90.cuh"
+
+namespace rt {
+
+constexpr int kProducer = 128;  // threads of the producer warpgroup
+constexpr int kMaxStages = 8;
+constexpr int kMaxSplit = 8;    // blocks of a cluster (the portable limit)
+
+struct MmaShape {
+  int n, h, w, d_in, ho, wo, d_out, kh, kw, stride, pad_t, pad_l;
+};
+
+// The block's plan, made on the host by `plan_tile`.
+struct MmaTile {
+  int bm;           // the block's pixel rows: the plan's bm, or 64 / bm
+                    // of its tiles where bm < 64
+  int bk, bn;       // the plan's tile
+  int fold;         // a row of kw taps is one step (d_in = bk, not 4k)
+  int kdim;         // channels a step contracts: bk, or kw d_in folded
+  int bkp;          // kdim rounded up to a k8 step
+  int ks;           // channels a ring slot holds; divides bkp
+  int xs;           // floats between two staged rows of x
+  int stages;       // ring slots
+  int slot_bytes;   // bytes of one ring slot
+  int steps;        // steps of the contraction: d_in / bk x kh kw, or kh
+  int vec;          // 16-byte copies of x (else 4-byte)
+  int wvec;         // 16-byte copies of w (else 4-byte)
+};
+
+// ---- device helpers -----------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// Arrive on `bar` once this thread's earlier cp.async copies have landed
+// (one of the arrivals the barrier was made to expect).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Barrier `id` over `count` threads (the consumer warpgroups).
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Make this thread's shared-memory stores visible to wgmma's reads.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+template <int M, int N>
+__device__ __forceinline__ void pin(float (&r)[M][N]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) asm volatile("" : "+f"(r[i][j])::"memory");
+}
+template <int K, int M, int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[K][M][N]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) pin(r[k]);
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// The float at shared address `addr` of cluster block `rank`.
+__device__ __forceinline__ float ld_cluster(uint32_t addr, int rank) {
+  uint32_t remote;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(addr), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
+
+// D += A B, wgmma m64nNk8 tf32: A [64 x 8] in registers (a0 row g, k t;
+// a1 row g + 8, k t; a2 row g, k t + 4; a3 row g + 8, k t + 4 of the
+// warp's 16 rows, g = lane / 4, t = lane % 4), B [N x 8] K-major in
+// shared memory; D is the f32 fragment of the m64nN tile.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[4],
+                                           const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3"
+      "}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[8],
+                                           const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16],
+                                           const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32],
+                                           const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64],
+                                           const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[128],
+                                           const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// ---- the block ----------------------------------------------------------
+
+// k8 steps a consumer issues per commit group: 4 / MA beside one consumer
+// warpgroup, 2 / MA beside two (A fragments of 16 registers), at least 1.
+__host__ __device__ constexpr int mma_chunk(int ma, int nc) {
+  return (nc == 2 ? 2 : 4) / ma > 0 ? (nc == 2 ? 2 : 4) / ma : 1;
+}
+
+// Blocks an SM should hold at once (the kernels' __launch_bounds__): two
+// where the accumulators leave room.  Beside two consumer warpgroups that
+// caps a thread at 80 registers, and setmaxnreg then moves the producer's
+// spare ones to the consumers (kProducerRegs, kConsumerRegs).
+__host__ __device__ constexpr int mma_min_blocks(int bn, int ma, int nc) {
+  return nc == 2 ? (ma * bn <= (ma == 4 ? 32 : 64) ? 2 : 1) : (bn <= 64 ? 2 : 1);
+}
+// 56 x 128 + 88 x 256 <= 80 x 384: the registers two blocks an SM leave.
+constexpr int kProducerRegs = 56;
+constexpr int kConsumerRegs = 88;
+
+
+// Bytes of the per-row table of window origins (three ints a row).
+__host__ __device__ constexpr int table_bytes(int rows) {
+  return (12 * rows + 127) / 128 * 128;
+}
+
+// This thread's x values of `n` k8 steps (at most KC), as the A fragment
+// wants them: rows g and g + 8 of each of its atoms (`xa`: row g of the
+// first atom, at column 2t of the first step), where phys columns 2t,
+// 2t + 1 of a step hold logical k = t, t + 4.
+template <int KC, int MA>
+__device__ __forceinline__ void load_a(float (&f)[KC][MA][4], const float* xa,
+                                       int xs, int n) {
+#pragma unroll
+  for (int c = 0; c < KC; ++c) {
+    if (c >= n) break;
+#pragma unroll
+    for (int a = 0; a < MA; ++a) {
+      const float* p = xa + 8 * c + a * 64 * xs;
+      const float2 u = *reinterpret_cast<const float2*>(p);
+      const float2 v = *reinterpret_cast<const float2*>(p + 8 * xs);
+      f[c][a][0] = u.x;
+      f[c][a][1] = v.x;
+      f[c][a][2] = u.y;
+      f[c][a][3] = v.y;
+    }
+  }
+}
+
+// `n` k8 steps of a consumer warpgroup: split its x values into the A
+// fragments, then acc += x_lo w_hi + x_hi w_lo + x_hi w_hi for each step
+// (`bh`, `bl`: w's halves at the first step), one commit group.  The
+// caller retires the previous group first: wgmma reads A's registers
+// while it runs.
+template <int BN, int KC, int MA>
+__device__ __forceinline__ void mma_steps(float (&acc)[MA][BN / 2],
+                                          uint32_t (&ah)[KC][MA][4],
+                                          uint32_t (&al)[KC][MA][4],
+                                          const float (&f)[KC][MA][4], int n,
+                                          uint32_t bh, uint32_t bl) {
+#pragma unroll
+  for (int c = 0; c < KC; ++c)
+#pragma unroll
+    for (int a = 0; a < MA; ++a)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        ah[c][a][e] = tf32_rna(f[c][a][e]);
+        al[c][a][e] = tf32_rna(f[c][a][e] - __uint_as_float(ah[c][a][e]));
+      }
+  wgmma_fence();
+#pragma unroll
+  for (int c = 0; c < KC; ++c) {
+    if (c >= n) break;
+    // B [BN x 8] K-major without swizzle: 8-row x 16-byte core matrices,
+    // the two k halves 128 bytes apart, groups of 8 rows 256 bytes apart
+    const uint64_t dh = smem_desc(bh + c * BN * 32, 128, 256, 0);
+    const uint64_t dl = smem_desc(bl + c * BN * 32, 128, 256, 0);
+#pragma unroll
+    for (int a = 0; a < MA; ++a) {
+      wgmma_tf32(acc[a], al[c][a], dh);
+      wgmma_tf32(acc[a], ah[c][a], dl);
+      wgmma_tf32(acc[a], ah[c][a], dh);
+    }
+  }
+  wgmma_commit();
+}
+
+// y[p, n0 + c] for the block's tile (see the file's note).  BN: the
+// wgmma width (bn rounded up to a power of two, at least 8); MA: 64-row
+// atoms of each of the NC consumer warpgroups.
+template <int BN, int MA, int NC>
+__device__ __forceinline__ void mma_tile(const float* __restrict__ x,
+                                         const float* __restrict__ w,
+                                         float* __restrict__ y,
+                                         const MmaShape& s, const MmaTile& t) {
+  constexpr int ROWS = 64 * MA * NC;
+  extern __shared__ __align__(128) uint8_t smem[];
+  __shared__ uint64_t full[kMaxStages], empty[kMaxStages];
+  // per-row window origin: frame (-1 past the tile), and the input row
+  // and column of tap (0, 0) (negative inside the SAME padding)
+  int* rn = reinterpret_cast<int*>(smem);
+  int* riy = rn + ROWS;
+  int* rix = riy + ROWS;
+  uint8_t* ring = smem + table_bytes(ROWS);
+
+  const long long npix = static_cast<long long>(s.n) * s.ho * s.wo;
+  const long long m0 = static_cast<long long>(blockIdx.x) * t.bm;
+  const int n0 = blockIdx.y * t.bn;
+  const int split = gridDim.z, rank = blockIdx.z;
+  const int taps = t.fold ? s.kh : s.kh * s.kw;  // taps (rows) a step walks
+  const int per_step = t.bkp / t.ks;  // ring slots a bk step
+  const int first = rank * t.steps / split;
+  const int items = ((rank + 1) * t.steps / split - first) * per_step;
+
+  for (int r = threadIdx.x; r < ROWS; r += blockDim.x) {
+    const long long p = m0 + r;
+    if (r < t.bm && p < npix) {
+      const long long q = p / s.wo;
+      rn[r] = static_cast<int>(q / s.ho);
+      riy[r] = static_cast<int>(q % s.ho) * s.stride - s.pad_t;
+      rix[r] = static_cast<int>(p % s.wo) * s.stride - s.pad_l;
+    } else {
+      rn[r] = -1;
+    }
+  }
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < t.stages; ++i) {
+      mbar_init(&full[i], kProducer);
+      mbar_init(&empty[i], 4 * NC);  // lane 0 of every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* red = reinterpret_cast<float*>(ring);
+  // Cluster split: each rank's partial tile [ROWS][BN] is in its shared
+  // memory (over the ring, which every rank has finished reading); rank
+  // r sums rows [r bm / split, (r + 1) bm / split) over the ranks in rank
+  // order, then waits until no rank reads its partials any more.
+  auto reduce_cluster = [&]() {
+    cluster_sync();
+    const int r0 = rank * t.bm / split, r1 = (rank + 1) * t.bm / split;
+    const uint32_t red_addr = smem_u32(red);
+    for (int e = threadIdx.x; e < (r1 - r0) * BN; e += blockDim.x) {
+      const int row = r0 + e / BN, col = e % BN;
+      const long long p = m0 + row;
+      if (col >= t.bn || p >= npix) continue;
+      const uint32_t addr = red_addr + 4 * (row * BN + col);
+      float sum = ld_cluster(addr, 0);
+      for (int q = 1; q < split; ++q) sum += ld_cluster(addr, q);
+      y[p * s.d_out + n0 + col] = sum;
+    }
+    cluster_sync();
+  };
+
+  constexpr bool rebalance = NC == 2 && mma_min_blocks(BN, MA, NC) == 2;
+  if (warp >= 4 * NC) {
+    if constexpr (rebalance)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    const int pt = threadIdx.x - kProducer * NC;
+    const int width = t.vec ? 4 : 1;   // floats a copy of x
+    const int cpr = t.ks / width;      // copies a staged row
+    const int rpp = kProducer / cpr;   // rows a pass of the warpgroup
+    const int pr = pt / cpr, pc = (pt % cpr) * width;
+    const int wwidth = t.wvec ? 4 : 1;  // floats a copy of w
+    for (int it = 0; it < items; ++it) {
+      const int st = it % t.stages;
+      mbar_wait(&empty[st], ((it / t.stages) & 1) ^ 1);
+      const int q = first + it / per_step;      // bk step
+      const int kofs = (it % per_step) * t.ks;  // slot's offset in it
+      const int tap = q % taps;
+      const int dy = t.fold ? tap : tap / s.kw, dx = t.fold ? 0 : tap % s.kw;
+      // slot's first channel; folded, its first (dx, ci) pair, which lie
+      // contiguous in x's row and in w
+      const int ci0 = (q / taps) * t.kdim + kofs;
+      float* xs = reinterpret_cast<float*>(ring + st * t.slot_bytes);
+      if (pr < rpp) {
+        const bool kin = kofs + pc < t.kdim;
+        const int ex = t.fold ? (kofs + pc) / s.d_in : 0;  // folded tap
+        for (int r = pr; r < ROWS; r += rpp) {
+          const int nn = rn[r], iy = riy[r] + dy, ix = rix[r] + dx;
+          const bool live =
+              kin && nn >= 0 &&
+              static_cast<unsigned>(iy) < static_cast<unsigned>(s.h) &&
+              static_cast<unsigned>(ix + ex) < static_cast<unsigned>(s.w);
+          const float* src =
+              live ? x + (static_cast<long long>(nn * s.h + iy) * s.w + ix) *
+                             s.d_in + ci0 + pc
+                   : x;
+          if (t.vec)
+            cp_async16(xs + r * t.xs + pc, src, live ? 16 : 0);
+          else
+            cp_async4(xs + r * t.xs + pc, src, live ? 4 : 0);
+        }
+      }
+      // w[tap][ci0 + kk][n0 + n] as it lies, [ks][BN] (zero past bk, bn)
+      float* raw = xs + ROWS * t.xs;
+      const int tap_rows = t.fold ? s.kw * s.d_in : s.d_in;  // w rows a tap
+      const float* wsrc =
+          w + (static_cast<long long>(tap) * tap_rows + ci0) * s.d_out + n0;
+      for (int e = pt * wwidth; e < t.ks * BN; e += kProducer * wwidth) {
+        const int kk = e / BN, n = e % BN;
+        const bool live = kofs + kk < t.kdim && n < t.bn;
+        const float* src =
+            live ? wsrc + static_cast<long long>(kk) * s.d_out + n : w;
+        if (t.wvec)
+          cp_async16(raw + e, src, live ? 16 : 0);
+        else
+          cp_async4(raw + e, src, live ? 4 : 0);
+      }
+      cp_async_arrive(&full[st]);
+    }
+    cp_async_wait_all();
+    if (split > 1) {
+      cluster_sync();  // every rank has read its ring
+      reduce_cluster();
+    }
+    return;
+  }
+
+  if constexpr (rebalance)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  // Consumer warpgroup wg, warp wq in it; this thread holds rows g and
+  // g + 8 of the warp's 16 in each atom, columns 2 tq, 2 tq + 1 of each 8.
+  const int wg = warp / 4, wq = warp % 4, g = lane / 4, tq = lane % 4;
+  float acc[MA][BN / 2];
+#pragma unroll
+  for (int a = 0; a < MA; ++a)
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[a][i] = 0.f;
+  constexpr int KC = mma_chunk(MA, NC);
+  uint32_t ah[KC][MA][4], al[KC][MA][4];
+  float f[KC][MA][4];
+  const int nk = t.ks / 8;
+  const int row0 = 64 * MA * wg + 16 * wq + g;
+  // the consumers' two buffers of w's hi / lo halves (by item parity:
+  // one is written while the other may still be read by wgmma)
+  float* own = reinterpret_cast<float*>(ring + t.stages * t.slot_bytes);
+  for (int it = 0; it < items; ++it) {
+    const int st = it % t.stages;
+    mbar_wait(&full[st], (it / t.stages) & 1);
+    const float* xs = reinterpret_cast<const float*>(ring + st * t.slot_bytes);
+    const float* xa = xs + row0 * t.xs + 2 * tq;
+    // w as hi / lo into the consumers' buffer of the item's parity,
+    // [ks / 8][BN / 8][2][8][4] floats each: logical k j of a k8 step at
+    // phys kk = 2 (j % 4) + j / 4, as x is read
+    const float* raw = xs + ROWS * t.xs;
+    float* ph = own + (it & 1) * 2 * t.ks * BN;
+    float* pl = ph + t.ks * BN;
+    for (int e = threadIdx.x; e < t.ks * BN; e += kProducer * NC) {
+      const int kk = e / BN, n = e % BN;
+      const float v = raw[e];
+      const uint32_t hi = tf32_rna(v);
+      const uint32_t lo = tf32_rna(v - __uint_as_float(hi));
+      const int j = (kk % 8) / 2 + 4 * (kk % 2);
+      const int off = (kk / 8) * BN * 8 + ((n / 8) * 2 + j / 4) * 32 +
+                      (n % 8) * 4 + j % 4;
+      ph[off] = __uint_as_float(hi);
+      pl[off] = __uint_as_float(lo);
+    }
+    fence_proxy_async();
+    named_sync(1, kProducer * NC);  // every consumer's share is in
+    const uint32_t bh = smem_u32(ph);
+    const uint32_t bl = smem_u32(pl);
+    load_a(f, xa, t.xs, nk);
+    for (int j = 0; j < nk; j += KC) {
+      mma_steps<BN, KC, MA>(acc, ah, al, f, nk - j, bh + j * BN * 32,
+                            bl + j * BN * 32);
+      // the next steps' x loads overlap these steps' products
+      if (j + KC < nk) load_a(f, xa + 8 * (j + KC), t.xs, nk - j - KC);
+      wgmma_wait_all();
+      pin(ah);
+      pin(al);
+    }
+    pin(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+  }
+
+  if (split == 1) {
+#pragma unroll
+    for (int a = 0; a < MA; ++a)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = 64 * (MA * wg + a) + 16 * wq + g + 8 * h;
+        const long long p = m0 + row;
+        if (row >= t.bm || p >= npix) continue;
+        float* dst = y + p * s.d_out + n0;
+#pragma unroll
+        for (int i = 0; i < BN / 8; ++i) {
+          const int col = 8 * i + 2 * tq;
+          if (col < t.bn) dst[col] = acc[a][4 * i + 2 * h];
+          if (col + 1 < t.bn) dst[col + 1] = acc[a][4 * i + 2 * h + 1];
+        }
+      }
+    return;
+  }
+  cluster_sync();  // every rank has read its ring
+#pragma unroll
+  for (int a = 0; a < MA; ++a)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = 64 * (MA * wg + a) + 16 * wq + g + 8 * h;
+#pragma unroll
+      for (int i = 0; i < BN / 8; ++i) {
+        red[row * BN + 8 * i + 2 * tq] = acc[a][4 * i + 2 * h];
+        red[row * BN + 8 * i + 2 * tq + 1] = acc[a][4 * i + 2 * h + 1];
+      }
+    }
+  reduce_cluster();
+}
+
+// ---- host: the block's plan and launch ----------------------------------
+
+// Shared memory one block may take, less the static mbarriers; and the
+// share that leaves room for two blocks on an SM.
+constexpr int kSmemBlock = 232448 - 1024;
+constexpr int kSmemHalf = 232448 / 2 - 1024;
+
+inline int pow2_at_least(int v, int lo) {
+  int p = lo;
+  while (p < v) p *= 2;
+  return p;
+}
+
+// SMs of the current device (0 where it cannot be read), read once a device.
+inline int sm_count() {
+  static int sms[kMaxDevices] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) return 0;
+  if (!sms[dev] &&
+      cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    sms[dev] = 0;
+  return sms[dev];
+}
+
+// Blocks each tile's `steps` are split over: 1 where the launch's `blocks`
+// fill the `sms`, else a cluster of up to kMaxSplit (and up to two blocks
+// an SM), as few blocks as give each the fewest steps.  A split down to
+// one step a block is taken only where fewer than half the SMs have a
+// block: MobileNetV2's two-step expand rows at 72-96 blocks timed up to
+// 11 % slower split than not on an H100 (tools/cluster_split_times.py),
+// which does not tell the cluster's reduction from its launch's host cost.
+inline int split_rule(long long blocks, int steps, int sms) {
+  if (blocks >= sms) return 1;
+  const long long most = std::max<long long>(
+      1, std::min<long long>({kMaxSplit, steps, 2 * sms / blocks}));
+  const long long per = (steps + most - 1) / most;
+  if (per == 1 && 2 * blocks >= sms) return 1;
+  return static_cast<int>((steps + per - 1) / per);
+}
+
+// The launch of one FCU / KPU call: template arguments, grid and plan.
+struct MmaLaunch {
+  int bn_pad, ma, nc, split;
+  MmaTile t;
+  size_t smem;
+  dim3 grid, block;
+};
+
+// Plan the (bm, bk, bn) tile of `s`, split `split` ways along a cluster
+// (0: as `split_rule` gives); false if the kernels do not take it.
+// `x_ok`, `w_ok`: x, w are 16-byte aligned.
+inline bool plan_tile(const MmaShape& s, int bm, int bk, int bn, int split,
+                      bool x_ok, bool w_ok, MmaLaunch* l) {
+  if (bm < 1 || bm > 512 || bk < 1 || bn < 1 || bn > 256 || s.d_in % bk ||
+      s.d_out % bn || split < 0 || split > kMaxSplit)
+    return false;
+  // a block runs up to 64 / bm of the plan's pixel tiles where bm < 64:
+  // they share one 64-row wgmma atom
+  const long long npix = static_cast<long long>(s.n) * s.ho * s.wo;
+  const long long tiles = bm < 64 ? std::min<long long>(64 / bm, (npix + bm - 1) / bm) : 1;
+  const int rows_live = static_cast<int>(bm * tiles);
+  const int atoms = bm <= 64 ? 1 : bm <= 128 ? 2 : bm <= 256 ? 4 : 8;
+  l->nc = atoms == 1 ? 1 : 2;
+  l->ma = atoms / l->nc;
+  l->bn_pad = pow2_at_least(bn, 8);
+  // accumulators a consumer thread holds: 128 beside one warpgroup, 64
+  // beside two (384 threads leave at most 168 registers a thread)
+  if (l->ma * l->bn_pad / 2 > (l->nc == 1 ? 128 : 64)) return false;
+  const int rows = 64 * atoms;
+  MmaTile& t = l->t;
+  t.bm = rows_live;
+  t.bk = bk;
+  t.bn = bn;
+  const bool narrow = s.d_in % 4 || bk % 4;  // rows of 4-byte copies
+  t.vec = x_ok && !narrow;
+  t.fold = narrow && bk == s.d_in && s.kw > 1;
+  t.kdim = t.fold ? s.kw * s.d_in : bk;
+  t.bkp = (t.kdim + 7) / 8 * 8;
+  t.steps = t.fold ? s.kh : s.d_in / bk * s.kh * s.kw;
+  t.wvec = w_ok && s.d_out % 4 == 0 && bn % 4 == 0;
+  const long long tiles_m = (npix + rows_live - 1) / rows_live;
+  if (split == 0) split = split_rule(tiles_m * (s.d_out / bn), t.steps, sm_count());
+  if (split > t.steps) return false;
+  const int red = split > 1 ? rows * l->bn_pad * 4 : 0;
+  const int steps_per_block = (t.steps + split - 1) / split;
+  // the widest slot that leaves room for two blocks an SM, else for one
+  for (int budget : {kSmemHalf, kSmemBlock}) {
+    for (int ks : {32, 24, 16, 8}) {
+      if (t.bkp % ks) continue;
+      t.ks = ks;
+      t.xs = ks % 16 == 0 ? ks + 8 : ks;  // row pitch of 32 or 96 mod 128 B
+      // x and w as copied; beside the ring, the consumers' two buffers of
+      // w's hi and lo halves
+      t.slot_bytes = rows * t.xs * 4 + ks * l->bn_pad * 4;
+      const int own = 4 * ks * l->bn_pad * 4;
+      const int room = budget - table_bytes(rows) - own;
+      // a ring of up to 8 slots, no more than a block has items
+      const int items = steps_per_block * (t.bkp / ks);
+      int stages = room / t.slot_bytes;
+      if (stages > kMaxStages) stages = kMaxStages;
+      if (stages > items) stages = items;
+      if (stages < (items < 2 ? items : 2) || red > room + own) continue;
+      t.stages = stages;
+      const int ring = stages * t.slot_bytes + own;
+      l->smem = table_bytes(rows) + (ring > red ? ring : red);
+      l->split = split;
+      l->grid = dim3(static_cast<unsigned>(tiles_m), s.d_out / bn, split);
+      l->block = dim3(kProducer * (l->nc + 1));
+      return true;
+    }
+  }
+  return false;
+}
+
+// Run F::template run<BN, MA, NC>() for the plan's template arguments.
+template <int BN, typename F>
+int dispatch_atoms(const MmaLaunch& l, F& f) {
+  if (l.nc == 1) return f.template run<BN, 1, 1>();
+  if (l.ma == 1) {
+    if constexpr (BN <= 128) return f.template run<BN, 1, 2>();
+  } else if (l.ma == 2) {
+    if constexpr (BN <= 64) return f.template run<BN, 2, 2>();
+  } else {
+    if constexpr (BN <= 32) return f.template run<BN, 4, 2>();
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename F>
+int dispatch(const MmaLaunch& l, F& f) {
+  switch (l.bn_pad) {
+    case 8: return dispatch_atoms<8>(l, f);
+    case 16: return dispatch_atoms<16>(l, f);
+    case 32: return dispatch_atoms<32>(l, f);
+    case 64: return dispatch_atoms<64>(l, f);
+    case 128: return dispatch_atoms<128>(l, f);
+    case 256: return dispatch_atoms<256>(l, f);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace rt

@@ -76,7 +76,7 @@ def dw_conv(
     err = lib.dw_conv_f32(
         x.data_ptr(), w.data_ptr(), y.data_ptr(), n, h, wd, c, ho, wo, kh, kw,
         stride, pt, pl, bm // wo, bc,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        _build.raw_stream(x.device),
     )
     _build.check_launch("dw_conv", err)
     dw_conv.launches += 1

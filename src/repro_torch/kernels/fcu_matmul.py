@@ -3,11 +3,12 @@
 Replaces the Pallas TPU kernel ``kernels/fcu_matmul/fcu_matmul.py::
 fcu_matmul_p`` (adapters ``kernels/fcu_matmul/ops.py``) with the CUDA
 kernel ``csrc/fcu_matmul.cu``: one block per planned (bm x bn) output
-tile, looping over d_in in planned bk steps through shared memory with
-an f32 register accumulator.  Its roofline bound on an H100 is HBM
-bytes for narrow layers and fp32 operations for wide ones; at the plan's
-narrow tiles the CUDA-core FMA loop on few blocks sets its time.  wgmma
-on TMA-staged tiles is left for a later change.
+tile, walking d_in in planned bk steps on the tensor cores (wgmma tf32,
+three products per step so the result keeps f32 accuracy) fed by a
+cp.async ring (``csrc/tile_mma.cuh``).  Where the tiles leave SMs idle
+the kernel's plan splits the bk steps over a thread-block cluster
+(``cluster_split`` reads its choice).  Its bound on an H100 is HBM bytes
+for narrow layers and the 3xTF32 products at 495 TFLOP/s for wide ones.
 
 ``fcu_matmul_plain`` is the same function in plain PyTorch (f32
 accumulation); the wrapper runs it only for a tensor on the CPU.  For a
@@ -30,28 +31,38 @@ def fcu_matmul_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.float(), w.float()).to(x.dtype)
 
 
-def fcu_matmul(
-    x: torch.Tensor, w: torch.Tensor, *, bm: int, bk: int, bn: int
-) -> torch.Tensor:
+def fcu_matmul(x: torch.Tensor, w: torch.Tensor, *, bm: int, bk: int, bn: int
+               ) -> torch.Tensor:
     """``x [m, d_in] @ w [d_in, d_out]`` with the (bm, bk, bn) block tile."""
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"fcu_matmul: shapes {tuple(x.shape)} @ {tuple(w.shape)}")
     _build.check_operands("fcu_matmul", x, w)
-    m, d_in = x.shape
-    d_out = w.shape[1]
-    tx, ty, tm, tn, g = _build.check_gemm_tile("fcu_matmul", bm, bk, bn, d_in,
-                                               d_out)
+    _build.check_mma_tile("fcu_matmul", bm, bk, bn, x.shape[1], w.shape[1])
     if not _build.on_card(x):
         return fcu_matmul_plain(x, w)
+    return _launch(x, w, bm, bk, bn, 0)
+
+
+def _launch(x, w, bm: int, bk: int, bn: int, split: int) -> torch.Tensor:
+    """Launch the kernel on operands ``fcu_matmul`` has checked: ``split``
+    blocks a tile along a cluster, 0 for the kernel's rule (the card
+    tests and ``tools/cluster_split_times.py`` run 1 beside it)."""
     lib = _build.library()
+    (m, d_in), d_out = x.shape, w.shape[1]
     y = torch.empty((m, d_out), dtype=x.dtype, device=x.device)
     err = lib.fcu_matmul_f32(
         x.data_ptr(), w.data_ptr(), y.data_ptr(), m, d_in, d_out, bm, bk, bn,
-        tx, ty, tm, tn, g, torch.cuda.current_stream(x.device).cuda_stream,
+        split, _build.raw_stream(x.device),
     )
     _build.check_launch("fcu_matmul", err)
     fcu_matmul.launches += 1
     return y
+
+
+def cluster_split(m: int, d_in: int, d_out: int, *, bm: int, bk: int, bn: int) -> int:
+    """Blocks the kernel splits each (bm, bk, bn) tile's steps over on the
+    current card (1: none; 0: a tile it does not take)."""
+    return _build.library().mma_split(1, 1, m, d_in, 1, m, d_out, 1, 1, bm, bk, bn)
 
 
 fcu_matmul.launches = 0

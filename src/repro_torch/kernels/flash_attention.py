@@ -96,7 +96,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     err = getattr(lib, _ENTRY[q.dtype])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, h, h // hkv,
         sq, sk, d, block_q, block_k, int(causal), 1.0 / math.sqrt(d),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        _build.raw_stream(q.device),
     )
     _build.check_launch("flash_attention", err)
     flash_attention.launches += 1

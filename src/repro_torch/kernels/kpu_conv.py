@@ -4,10 +4,14 @@ Replaces the Pallas TPU kernel ``kernels/kpu_conv/kpu_conv.py::
 kpu_conv_p`` (adapter ``kernels/kpu_conv/ops.py::conv_impl``) with the
 CUDA kernel ``csrc/kpu_conv.cu``: an implicit GEMM over M = N*Ho*Wo
 output pixels, one block per planned (bm pixels x bco channels) tile,
-walking the planned input-channel tile bci and the kh*kw taps.  Only
+walking the planned input-channel tile bci and the kh*kw taps on the
+tensor cores (wgmma tf32, three products per step so the result keeps
+f32 accuracy) fed by a cp.async ring (``csrc/tile_mma.cuh``).  Only
 surviving strided windows are read, and the asymmetric SAME padding is
-zero-fill in the kernel's index math.  On an H100 the CUDA-core FMA loop
-bounds it; wgmma on TMA-staged tiles is left for a later change.
+zero-fill in the kernel's index math.  Where the tiles leave SMs idle
+the kernel's plan splits the (bci, tap) steps over a thread-block
+cluster (``cluster_split`` reads its choice).
+On an H100 the 3xTF32 products at 495 TFLOP/s bound it.
 
 ``kpu_conv_plain`` repeats the Pallas body's arithmetic in plain
 PyTorch: per (dy, dx) tap a strided window of the padded input times
@@ -47,24 +51,43 @@ def kpu_conv(
     if stride < 1:
         raise ValueError(f"kpu_conv: stride {stride}")
     _build.check_operands("kpu_conv", x, w)
-    n, h, wd, d_in = x.shape
-    kh, kw, _, d_out = w.shape
-    tx, ty, tm, tn, g = _build.check_gemm_tile("kpu_conv", bm, bci, bco, d_in,
-                                               d_out, conv=True)
+    _build.check_mma_tile("kpu_conv", bm, bci, bco, x.shape[3], w.shape[3])
     if not _build.on_card(x):
         return kpu_conv_plain(x, w, stride)
+    return _launch(x, w, stride, bm, bci, bco, 0)
+
+
+def _launch(x, w, stride: int, bm: int, bci: int, bco: int, split: int
+            ) -> torch.Tensor:
+    """Launch the kernel on operands ``kpu_conv`` has checked: ``split``
+    blocks a tile along a cluster, 0 for the kernel's rule (the card
+    tests and ``tools/cluster_split_times.py`` run 1 beside it)."""
+    lib = _build.library()
+    n, h, wd, d_in = x.shape
+    kh, kw, _, d_out = w.shape
     ho, (pt, _) = _build.same_pads(h, kh, stride)
     wo, (pl, _) = _build.same_pads(wd, kw, stride)
-    lib = _build.library()
     y = torch.empty((n, ho, wo, d_out), dtype=x.dtype, device=x.device)
     err = lib.kpu_conv_f32(
         x.data_ptr(), w.data_ptr(), y.data_ptr(), n, h, wd, d_in, ho, wo,
-        d_out, kh, kw, stride, pt, pl, bm, bci, bco, tx, ty, tm, tn, g,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        d_out, kh, kw, stride, pt, pl, bm, bci, bco, split,
+        _build.raw_stream(x.device),
     )
     _build.check_launch("kpu_conv", err)
     kpu_conv.launches += 1
     return y
+
+
+def cluster_split(x_shape, w_shape, *, stride: int, bm: int, bci: int, bco: int
+                  ) -> int:
+    """Blocks the kernel splits each (bm, bci, bco) tile's steps over on
+    the current card for NHWC ``x_shape`` and HWIO ``w_shape`` (1: none;
+    0: a tile it does not take)."""
+    n, h, wd, d_in = x_shape
+    kh, kw, _, d_out = w_shape
+    ho, wo = -(-h // stride), -(-wd // stride)
+    return _build.library().mma_split(n, h, wd, d_in, ho, wo, d_out, kh, kw,
+                                      bm, bci, bco)
 
 
 kpu_conv.launches = 0

@@ -113,7 +113,7 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     err = _build.library().ssd_chunk_f32(
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
         y.data_ptr(), state.data_ptr(), bsz, l, h, g, p, n, chunk, p_block,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        _build.raw_stream(x.device),
     )
     _build.check_launch("ssd_chunk", err)
     ssd_chunk.launches += 1

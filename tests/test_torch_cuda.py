@@ -25,7 +25,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.core.dse import select_ours  # noqa: E402
 from repro_torch.core.tiles import select_tile_for_impl  # noqa: E402
 from repro_torch.configs.registry import get_config, reduced  # noqa: E402
-from repro_torch.kernels import dw_conv, fcu_matmul, kpu_conv  # noqa: E402
+from repro_torch.kernels import _build, dw_conv, fcu_matmul, kpu_conv  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ssd_chunk as sc  # noqa: E402
 from repro_torch.models import hybrid, lm, mamba  # noqa: E402
@@ -136,15 +136,15 @@ def test_fcu_matmul_kernel_matches_plain(card, n, hw, d_in, d_out, rate):
 @pytest.mark.parametrize(
     "which",
     [
-        # 16 threads (8x1 tile, 2 k-groups) stage 32 weight columns
+        # one live row, 3-channel taps folded a row a step, a cluster of 3
         "kpu: x[1,2,2,3] w[3,3,3,32] s2 bm=1 bci=3 bco=32",
-        # 16 threads (1x1 tile, 16 k-groups) stage 24 input features
+        # one live row, bn = 4 padded to the wgmma width 8
         "fcu: x[1,24] w[24,4] bm=1 bk=24 bn=4",
     ],
 )
 def test_block_with_fewer_threads_than_staging_lanes(card, which):
-    """A one-row tile can leave a block fewer threads than a staged
-    slice is wide; every element must still reach shared memory."""
+    """A one-row tile fills one row of a 64-row wgmma atom: the other 63
+    read as zero and are never stored."""
     if which.startswith("kpu"):
         x = _rand((1, 2, 2, 3), 11).to(card)
         w = _rand((3, 3, 3, 32), 12, 0.2).to(card)
@@ -157,6 +157,184 @@ def test_block_with_fewer_threads_than_staging_lanes(card, which):
         y = _launched(fcu_matmul.fcu_matmul, lambda: fcu_matmul.fcu_matmul(
             x, w, bm=1, bk=24, bn=4))
         _close(y, fcu_matmul.fcu_matmul_plain(x, w))
+
+
+# Every distinct (kind, bm, bk, bn) tile of the two CNN main paths (224x224,
+# batch 8, the rate-3 plan), at the first node that plans it:
+# (label, m or (hw, k, stride), d_in, d_out, bm, bk, bn).
+MAIN_PATH_TILES = [
+    ("mbv2/b1_project", 100352, 32, 16, 512, 32, 8),
+    ("mbv2/b2_expand", 100352, 16, 96, 256, 16, 32),
+    ("mbv2/b2_project", 25088, 96, 24, 512, 96, 8),
+    ("mbv2/b3_expand", 25088, 24, 144, 512, 24, 16),
+    ("mbv2/b3_project", 25088, 144, 24, 512, 72, 8),
+    ("mbv2/b4_project", 6272, 144, 32, 224, 72, 32),
+    ("mbv2/b5_expand", 6272, 32, 192, 224, 32, 32),
+    ("mbv2/b5_project", 6272, 192, 32, 224, 96, 32),
+    ("mbv2/b7_project", 1568, 192, 64, 196, 64, 32),
+    ("mbv2/b8_expand", 1568, 64, 384, 196, 32, 32),
+    ("mbv2/b8_project", 1568, 384, 64, 196, 96, 32),
+    ("mbv2/b14_project", 392, 576, 160, 49, 32, 32),
+    ("mbv2/b17_project", 392, 960, 320, 49, 64, 32),
+    ("mbv2/conv_last", 392, 320, 1280, 49, 160, 32),
+    ("mbv2/fc", 8, 1280, 1000, 1, 32, 8),
+    ("mbv2/conv1", (224, 3, 2), 3, 32, 256, 3, 32),
+    ("resnet18/conv1", (224, 7, 2), 3, 64, 128, 3, 64),
+    ("resnet18/l1b1_conv1", (56, 3, 1), 64, 64, 256, 64, 32),
+    ("resnet18/l2b1_conv2", (28, 3, 1), 128, 128, 256, 128, 32),
+    ("resnet18/l3b1_conv1", (28, 3, 2), 128, 256, 196, 128, 32),
+    ("resnet18/l3b1_conv2", (14, 3, 1), 256, 256, 98, 256, 32),
+    ("resnet18/l4b1_conv1", (14, 3, 2), 256, 512, 49, 256, 32),
+]
+
+# Ragged tiles off the main path: bm 1 and 49 (a part of one 64-row atom),
+# bn 4 and 40 (padded to wgmma widths 8 and 64), bk 3 (conv1's 3-channel
+# rows: 4-byte copies, one zero-padded k8 step), 24, 72 and 160 (ring
+# slots of 24, 24 and 32 channels), and stride 2 at even and odd sizes.
+RAGGED_TILES = [
+    ("fcu bm1 bk160 bn40", 3, 160, 40, 1, 160, 40),
+    ("fcu bm49 bk72 bn4", 98, 144, 4, 49, 72, 4),
+    ("fcu bm49 bk24 bn40", 147, 24, 40, 49, 24, 40),
+    ("kpu 17x17 s2 bm49 bk24 bn40", (17, 3, 2), 24, 40, 49, 24, 40),
+    ("kpu 16x16 s2 bm49 bk72 bn4", (16, 3, 2), 144, 4, 49, 72, 4),
+    ("kpu 15x15 s2 bm1 bk3 bn40", (15, 3, 2), 3, 40, 1, 3, 40),
+    ("kpu 14x14 s2 bm49 bk160 bn8", (14, 1, 2), 320, 8, 49, 160, 8),
+    ("kpu 9x9 s2 bm49 bk3 bn4", (9, 7, 2), 3, 4, 49, 3, 4),
+]
+
+
+# Tiles the planner gives at rates other than 3 only (rates of
+# PLAN_RATES below): bn 24, 128, 144 and 200 (wgmma widths 32, 128 and
+# 256), bm 32 and 64 beside one consumer warpgroup, and bk 1 for a
+# 3-channel conv1 (4-byte copies, 27 steps).
+OTHER_RATE_TILES = [
+    ("fcu bm1 bk32 bn200", 8, 1280, 1000, 1, 32, 200),
+    ("fcu bm64 bk256 bn128", 6272, 256, 256, 64, 256, 128),
+    ("fcu bm32 bk24 bn144", 1568, 24, 144, 32, 24, 144),
+    ("fcu bm256 bk144 bn24", 6272, 144, 24, 256, 144, 24),
+    ("kpu 32x32 s2 bm256 bk1 bn32", (32, 3, 2), 3, 32, 256, 1, 32),
+    ("kpu 28x28 s2 bm49 bk128 bn128", (28, 3, 2), 128, 256, 49, 128, 128),
+    ("kpu 56x56 s2 bm64 bk64 bn128", (56, 3, 2), 64, 128, 64, 64, 128),
+]
+
+
+def _tile_case(card, shape, d_in, d_out, bm, bk, bn, seed, split=0):
+    """The FCU (``shape`` = m) or KPU (``shape`` = (hw, k, stride), batch
+    2 off the main path, 8 on it) at one tile, its steps split over
+    ``split`` blocks (0: the kernel's rule): (kernel, plain) outputs."""
+    if isinstance(shape, int):
+        x = _rand((shape, d_in), seed).to(card)
+        w = _rand((d_in, d_out), seed + 1, d_in ** -0.5).to(card)
+        _build.check_mma_tile("fcu_matmul", bm, bk, bn, d_in, d_out)
+        y = _launched(fcu_matmul.fcu_matmul, lambda: fcu_matmul._launch(
+            x, w, bm, bk, bn, split))
+        return y, fcu_matmul.fcu_matmul_plain(x, w)
+    hw, k, stride = shape
+    n = 8 if hw in (224, 56, 28, 14, 7) and bm > 1 else 2
+    x = _rand((n, hw, hw, d_in), seed).to(card)
+    w = _rand((k, k, d_in, d_out), seed + 1, (k * k * d_in) ** -0.5).to(card)
+    _build.check_mma_tile("kpu_conv", bm, bk, bn, d_in, d_out)
+    y = _launched(kpu_conv.kpu_conv, lambda: kpu_conv._launch(
+        x, w, stride, bm, bk, bn, split))
+    return y, kpu_conv.kpu_conv_plain(x, w, stride)
+
+
+def _split_of(shape, d_in, d_out, bm, bk, bn):
+    """The kernel's rule for ``_tile_case``'s call at this tile."""
+    if isinstance(shape, int):
+        return fcu_matmul.cluster_split(shape, d_in, d_out, bm=bm, bk=bk, bn=bn)
+    hw, k, stride = shape
+    n = 8 if hw in (224, 56, 28, 14, 7) and bm > 1 else 2
+    return kpu_conv.cluster_split((n, hw, hw, d_in), (k, k, d_in, d_out),
+                                  stride=stride, bm=bm, bci=bk, bco=bn)
+
+
+@pytest.mark.parametrize(
+    "label,shape,d_in,d_out,bm,bk,bn", MAIN_PATH_TILES + RAGGED_TILES + OTHER_RATE_TILES,
+    ids=[t[0] for t in MAIN_PATH_TILES + RAGGED_TILES + OTHER_RATE_TILES])
+def test_mma_kernels_match_plain_at_every_tile(card, label, shape, d_in, d_out,
+                                               bm, bk, bn):
+    """The 3xTF32 tensor-core FCU / KPU at each tile, with the cluster
+    split where the rule takes it and without, against the plain version
+    with TF32 off."""
+    for split in (0, 1):
+        y, want = _tile_case(card, shape, d_in, d_out, bm, bk, bn, d_in + bm, split)
+        assert y.shape == want.shape
+        _close(y, want)
+
+
+@pytest.mark.parametrize(
+    "shape,d_in,d_out,bm,bk,bn,split",
+    [
+        (1568, 576, 96, 196, 96, 32, 6),      # b12_project: 24 blocks, 6 steps
+        (392, 960, 160, 49, 32, 32, 6),       # b15_project: 40 blocks, 30 steps
+        (6272, 144, 32, 224, 72, 32, 2),      # b4_project: 28 blocks, 2 steps
+        (1568, 64, 384, 196, 32, 32, 1),      # b8_expand: 96 blocks, 2 steps
+        (392, 320, 1280, 49, 160, 32, 1),     # conv_last: 320 blocks fill the SMs
+        (8, 1280, 1000, 1, 32, 8, 2),         # fc: 8 one-row tiles a block, 125 blocks
+        ((56, 3, 1), 64, 64, 256, 64, 32, 1),     # resnet18 l1: 196 blocks
+        ((7, 3, 1), 512, 512, 49, 256, 32, 2),    # resnet18 l4: 128 blocks, 18 steps
+        ((1, 3, 1), 3, 32, 1, 3, 32, 3),  # 3-channel taps folded: 3 rows, not 9
+    ],
+)
+def test_cluster_split_rule(card, shape, d_in, d_out, bm, bk, bn, split):
+    """Where a call's blocks leave the H100's 132 SMs idle, the FCU / KPU
+    kernel splits each tile's steps over a cluster of up to 8 blocks (two
+    an SM at most), as few as give each the fewest steps; down to one
+    step a block only where fewer than half the SMs have a block."""
+    assert torch.cuda.get_device_properties(card).multi_processor_count == 132
+    assert _split_of(shape, d_in, d_out, bm, bk, bn) == split
+
+
+# The rates of the paper's MobileNetV2 sweep
+# (benchmarks/table2_mnv2_rates.py::PAPER_ROWS) and the others the repo
+# drives; tests/test_torch_kernels.py checks the same plans on the CPU.
+PLAN_RATES = [Fraction(1, 16), Fraction(3, 32), Fraction(1, 8), Fraction(3, 16),
+              Fraction(3, 8), Fraction(3, 4), Fraction(3, 2), Fraction(2),
+              Fraction(3), Fraction(6), Fraction(64)]
+
+
+@pytest.mark.parametrize("rate", PLAN_RATES, ids=str)
+@pytest.mark.parametrize(
+    "family", ["mobilenet_v1", "mobilenet_v2", "resnet18", "resnet34"])
+def test_planned_mma_tiles_plan_on_the_card(card, family, rate):
+    """The kernels' own host plan (``tile_mma.cuh::plan_tile``: the block,
+    its shared-memory ring and the cluster split) takes every FCU / KPU
+    tile the planner gives at 224x224, batch 8, at each rate."""
+    from repro_torch.core.graph import plan_graph
+
+    api = get_cnn_api(family, device="cpu")
+    gp = plan_graph(api.graph(api.make_config()), rate)
+    for name, ip in gp.kernel_plan().items():
+        s, t = gp.graph.spec(name), ip.tile
+        if t is None or s.kind == "dwconv":
+            continue
+        if s.kind == "conv":
+            split = kpu_conv.cluster_split(
+                (8, *s.in_hw, s.d_in), (*s.kernel, s.d_in, s.d_out),
+                stride=s.stride[0], bm=t.bm, bci=t.bk, bco=t.bn)
+        else:
+            m = 8 * s.in_hw[0] * s.in_hw[1]
+            split = fcu_matmul.cluster_split(
+                m, s.d_in, s.d_out, bm=fcu_matmul._pick_bm(m, t.bm), bk=t.bk,
+                bn=t.bn)
+        assert 1 <= split <= 8, (name, t)
+
+
+@pytest.mark.parametrize("label,shape,d_in,d_out,bm,bk,bn", [
+    ("mbv2/b12_project", 1568, 576, 96, 196, 96, 32),
+    ("resnet18/l4b2_conv1", (7, 3, 1), 512, 512, 49, 256, 32),
+])
+def test_mma_kernels_are_deterministic_with_the_cluster_split(card, label, shape,
+                                                              d_in, d_out, bm, bk, bn):
+    """Two launches give bit-identical outputs: the cluster's ranks sum
+    their partial tiles in rank order, with no atomics."""
+    assert _split_of(shape, d_in, d_out, bm, bk, bn) > 1
+    first, want = _tile_case(card, shape, d_in, d_out, bm, bk, bn, 7)
+    again, _ = _tile_case(card, shape, d_in, d_out, bm, bk, bn, 7)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    _close(first, want)
 
 
 @pytest.mark.parametrize("family", ["mobilenet_v2", "resnet18"])

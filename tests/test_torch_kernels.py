@@ -16,6 +16,7 @@ import pytest
 torch = pytest.importorskip("torch")
 jnp = pytest.importorskip("jax.numpy")
 
+from benchmarks.table2_mnv2_rates import PAPER_ROWS  # noqa: E402
 from repro.kernels.dw_conv import dw_conv as ref_dw_conv  # noqa: E402
 from repro.kernels.fcu_matmul import fcu_matmul as ref_fcu_matmul  # noqa: E402
 from repro.kernels.kpu_conv import kpu_conv as ref_kpu_conv  # noqa: E402
@@ -152,3 +153,44 @@ def test_uniform_tiles_match_reference(kind):
         got = pointwise_impl(rate=Fraction(2))(xt, torch.from_numpy(w))
         want = ref_fcu_matmul(jnp.asarray(x), jnp.asarray(w))
     _close(got.numpy(), want)
+
+
+PLAN_RATES = sorted({row[0] for row in PAPER_ROWS}
+                    | {Fraction(1, 16), Fraction(1, 8), Fraction(2), Fraction(3),
+                       Fraction(64)})
+
+
+@pytest.mark.parametrize("rate", PLAN_RATES, ids=str)
+@pytest.mark.parametrize(
+    "family", ["mobilenet_v1", "mobilenet_v2", "resnet18", "resnet34"])
+def test_planned_mma_tiles_fit_the_block(family, rate):
+    """Every FCU / KPU tile the planner gives, at each rate of the paper's
+    MobileNetV2 sweep and the rates the repo drives, is one the
+    tensor-core block takes (``check_mma_tile`` raises otherwise, on the
+    CPU as on the card); the FCU re-fits bm to a runtime m only downward."""
+    from repro_torch.core.graph import plan_graph
+    from repro_torch.kernels import _build
+    from repro_torch.models.registry import get_cnn_api
+
+    api = get_cnn_api(family, device="cpu")
+    gp = plan_graph(api.graph(api.make_config()), rate)
+    checked = 0
+    for name, ip in gp.kernel_plan().items():
+        spec = gp.graph.spec(name)
+        if ip.tile is None or spec.kind == "dwconv":
+            continue
+        t = ip.tile
+        _build.check_mma_tile(name, t.bm, t.bk, t.bn, spec.d_in, spec.d_out)
+        checked += 1
+    assert checked > 0
+
+
+@pytest.mark.parametrize("bm,bn", [(513, 8), (64, 512), (512, 64), (256, 128)])
+def test_mma_tile_past_the_block_raises(bm, bn):
+    """Tiles the tensor-core block cannot hold raise before any launch,
+    on the CPU as on the card."""
+    from repro_torch.kernels.fcu_matmul import fcu_matmul
+
+    x, w = torch.ones(bm, 32), torch.ones(32, bn)
+    with pytest.raises(ValueError, match="past the kernel's block"):
+        fcu_matmul(x, w, bm=bm, bk=32, bn=bn)
