@@ -13,25 +13,31 @@ printing JSON lines:
    power limit are printed as ``nvidia-smi`` gives them;
 2. build — the kernels' nvcc build (``repro_torch.kernels._build``), and
    ptxas's registers and spills for each instance of the bf16 flash
-   kernel (``flash_kernel_wgmma``) and of the FCU and KPU tensor-core
-   kernels (``fcu_kernel``, ``kpu_kernel``, which must not spill) from the
-   build's ``nvcc.log``;
+   kernel (``flash_kernel_wgmma``), of the FCU and KPU tensor-core kernels
+   (``fcu_kernel``, ``kpu_kernel``, f32 and bf16), of the depthwise
+   kernel (``dw_kernel``, f32 and bf16) and of the SSD
+   phases (``ssd_states``, ``ssd_pass``, ``ssd_output``) from the build's
+   ``nvcc.log``; no FCU, KPU or depthwise instance may spill;
 3. kernels — every kernel against its plain PyTorch version on the card
    at every shape its main path gives it (MobileNetV2 and ResNet-18 at
-   224x224, batch 8, the rate-3 plan's tiles; qwen2-7b's prefill
-   attention and mamba2's and zamba2's SSD scans at the served prompt
-   lengths) plus odd-size extras; each with its time, the plain
-   version's, the library call's (``torch.matmul`` / ``F.conv2d`` with
-   TF32 off, and ``F.scaled_dot_product_attention``; none for the SSD)
-   and the roofline bound (``BOUND``); FCU and KPU rows name the cluster
-   split the kernel's plan takes; and the FCU wrapper's host µs a call
-   beside ``torch.matmul``'s;
+   224x224, batch 8, the rate-3 plan's tiles, in f32 and again in bf16;
+   qwen2-7b's prefill attention and mamba2's and zamba2's SSD scans at
+   the served prompt lengths) plus odd-size extras (the SSD's also with
+   bf16 inputs); each with its time, the plain version's, the library
+   call's (``torch.matmul`` / ``F.conv2d`` with TF32 off, in the row's
+   dtype, and ``F.scaled_dot_product_attention``; none for the SSD) and
+   the roofline bound (``BOUND``); FCU and KPU rows name the cluster split
+   the kernel's plan takes; and the FCU wrapper's host µs a call beside
+   ``torch.matmul``'s;
 4. slice — MobileNetV2, then ResNet-18, at 224x224: 4 requests of 8
    frames through ``api.apply(params, x, cfg, plan=kp)``, launch counts
    set to 0 just before and read just after, executed tile == plan on
    every arithmetic node, logits held against the plain path on the card;
    one more forward pass under ``torch.profiler`` gives the device time
-   by kernel and the device's busy share of the batch latency;
+   by kernel and the device's busy share of the batch latency, and shows
+   every depthwise launch on the 16-byte vector instances; then each
+   family's forward in bf16 (``slice_bf16``: bf16 weights and frames),
+   held against the plain path in bf16, with its frames/s;
 5. lm, ssm, hybrid — qwen2-7b (bf16 KV cache: the config's int8 cache is
    not ported), then mamba2-780m, then zamba2-1.2b, each at full width
    and depth with random weights from a seeded CUDA generator: the token
@@ -50,6 +56,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -73,6 +80,12 @@ FLASH_TOL = {"bfloat16": (2.0 ** -7, 1e-4, 0.0), "float32": (1e-4, 1e-5, 0.0)}
 SSD_TOL = (2e-4, 0.0, 2e-4)
 TOL = 1e-4
 BF16_TOL = 3e-2
+# The bf16 routes of the CNN kernels, held at the JAX kernel tests' bf16
+# tolerances of the output's scale (tests/kernels/test_fcu_matmul.py,
+# test_kpu_conv.py, test_dw_conv.py); the SSD's bf16 y, rounded once from
+# f32 on each side, at 2^-7 |plain| + 2e-4 rms(plain).
+KERNEL_BF16_TOL = {"fcu_matmul": 2e-2, "kpu_conv": 3e-2, "dw_conv": 3e-2}
+SSD_BF16_TOL = (2.0 ** -7, 0.0, 2e-4)
 # Why the SSM phases hold their prefill logits on an f32 copy of the
 # weights: in a deep bf16 stack a difference of a few parts in 10^6 in
 # one layer's f32 SSD output flips bf16 roundings, and the flips compound
@@ -115,19 +128,24 @@ DEVICE_FN = {"fcu_matmul": ("fcu_kernel",), "kpu_conv": ("kpu_kernel",),
 # The serving paths' device time: the flash and SSD kernels, cuBLAS's
 # products, the rest.  Both flash kernels' names contain "flash_kernel"
 # (flash_kernel, flash_kernel_wgmma), and the flash class is matched first.
-SERVE_DEVICE_FN = {"flash_attention": ("flash_kernel",), "ssd_chunk": ("ssd_kernel",),
+SERVE_DEVICE_FN = {"flash_attention": ("flash_kernel",),
+                   "ssd_chunk": ("ssd_states", "ssd_pass", "ssd_output"),
                    "matmul": ("gemm", "gemv", "xmma", "cutlass", "splitK", "nvjet")}
-# The FCU and KPU run 3xTF32 on the tensor cores: each product three times
-# in TF32 at 495 TFLOP/s, i.e. 165 TFLOP/s of work at the gate's fp32
-# accuracy.  Their rows keep the 67 TFLOP/s CUDA-core bound beside it
-# (``bound_ms_fp32``) for one more PR.
+# The FCU and KPU (f32) and the SSD run 3xTF32 on the tensor cores: each
+# product three times in TF32 at 495 TFLOP/s, i.e. 165 TFLOP/s of work at
+# the gate's fp32 accuracy.  Their f32 rows keep the 67 TFLOP/s CUDA-core
+# bound beside it (``bound_ms_fp32``): the FCU's and KPU's for one more PR,
+# the SSD's (restated here) for one PR.
 TF32_TERMS = 3
-MMA_KERNELS = ("fcu_matmul", "kpu_conv")
+TF32_KERNELS = ("fcu_matmul", "kpu_conv", "ssd_chunk")
 BOUND = ("max(flops / peak of the route on the H100 SXM (67 TFLOP/s fp32 CUDA "
-         "cores; 989 TFLOP/s bf16 tensor cores; FCU and KPU: 3xTF32, 3 x flops "
-         "at 495 TFLOP/s TF32 = 165 TFLOP/s of fp32-accurate work, the 67 "
-         "TFLOP/s CUDA-core bound beside it as bound_ms_fp32); bytes / 3.35 "
-         "TB/s HBM), each input read once, each output written once")
+         "cores: depthwise, f32 flash; 989 TFLOP/s bf16 tensor cores: bf16 flash, "
+         "FCU and KPU; f32 FCU, KPU and SSD: 3xTF32, 3 x flops at 495 TFLOP/s "
+         "TF32 = 165 TFLOP/s of fp32-accurate work, the 67 TFLOP/s CUDA-core "
+         "bound beside it as bound_ms_fp32); bytes / 3.35 TB/s HBM at the "
+         "row's element size), each input read once, each output written once; "
+         "the SSD's f32 chunk-state workspace is not the function's and stays out "
+         "(workspace_bytes and bound_ms_with_workspace beside it)")
 
 
 def emit(obj) -> None:
@@ -217,41 +235,51 @@ class KernelBench:
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
                 ops_ms=t_ops, bytes_ms=t_bytes,
             )
-            if kernel in MMA_KERNELS:
+            if kernel in TF32_KERNELS and "route" not in row:
                 row["bound_ms_fp32"] = max(flops / self.hw.peak_fp32_flops * 1e3, t_bytes)
         self.rows.append(row)
         emit(row)
 
 
-def bench_nodes(torch, bench, family, plan, graph, gen):
-    """Every arithmetic node of ``family``'s main path, at its shapes."""
+def bench_nodes(torch, bench, family, plan, graph, gen, dtype=None):
+    """Every arithmetic node of ``family``'s main path, at its shapes; on
+    bf16 operands with ``dtype=torch.bfloat16`` (rows marked ``route``
+    "bf16", labelled ``.../bf16``, at the JAX tests' bf16 tolerances, the
+    bound at 2-byte elements and the FCU's and KPU's products at 989
+    TFLOP/s)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import _build, dw_conv, fcu_matmul, kpu_conv
 
-    mma_peak = bench.hw.peak_tf32_flops / TF32_TERMS
+    bf16 = dtype == torch.bfloat16
+    dtype = dtype or torch.float32
+    elem = dtype.itemsize
+    mma_peak = bench.hw.peak_bf16_flops if bf16 else bench.hw.peak_tf32_flops / TF32_TERMS
     for name, ip in plan.items():
         if not ip.has_kernel:
             continue
         s, t = graph.spec(name), ip.tile
         kernel = KIND_KERNEL[s.kind]
-        label = f"{family}/{name}"
-        x = torch.randn((BATCH, *s.in_hw, s.d_in), generator=gen).cuda()
+        label = f"{family}/{name}" + ("/bf16" if bf16 else "")
+        tol = KERNEL_BF16_TOL[kernel] if bf16 else TOL
+        info = {"route": "bf16"} if bf16 else {}
+        x = torch.randn((BATCH, *s.in_hw, s.d_in), generator=gen).to("cuda", dtype)
         macs = s.total_macs * BATCH
         out_elems = BATCH * s.out_hw[0] * s.out_hw[1] * s.d_out
         if s.kind in ("pointwise", "dense"):
             x2 = x.reshape(-1, s.d_in)
-            w = torch.randn((s.d_in, s.d_out), generator=gen).cuda() / s.d_in ** 0.5
+            w = (torch.randn((s.d_in, s.d_out), generator=gen) / s.d_in ** 0.5).to(
+                "cuda", dtype)
             bm = fcu_matmul._pick_bm(x2.shape[0], t.bm)
             split = fcu_matmul.cluster_split(x2.shape[0], s.d_in, s.d_out, bm=bm,
-                                             bk=t.bk, bn=t.bn)
+                                             bk=t.bk, bn=t.bn, dtype=dtype)
             bench.case(
                 kernel, label,
                 lambda: fcu_matmul.fcu_matmul(x2, w, bm=bm, bk=t.bk, bn=t.bn),
                 lambda: fcu_matmul.fcu_matmul_plain(x2, w),
                 lambda: torch.matmul(x2, w),
-                2 * macs, 4 * (x2.numel() + w.numel() + out_elems),
-                peak=mma_peak, info={"split": split},
+                2 * macs, elem * (x2.numel() + w.numel() + out_elems),
+                tol=tol, peak=mma_peak, info={**info, "split": split},
             )
             continue
         kh, kw = s.kernel
@@ -260,22 +288,23 @@ def bench_nodes(torch, bench, family, plan, graph, gen):
         _, (pl, pr) = _build.same_pads(s.in_hw[1], kw, stride)
         xp = F.pad(x, (0, 0, pl, pr, pt, pb)).permute(0, 3, 1, 2)
         if s.kind == "conv":
-            w = torch.randn((kh, kw, s.d_in, s.d_out), generator=gen).cuda()
-            w = w / (kh * kw * s.d_in) ** 0.5
+            w = torch.randn((kh, kw, s.d_in, s.d_out), generator=gen)
+            w = (w / (kh * kw * s.d_in) ** 0.5).to("cuda", dtype)
             w_oihw = w.permute(3, 2, 0, 1)
             split = kpu_conv.cluster_split(x.shape, w.shape, stride=stride, bm=t.bm,
-                                           bci=t.bk, bco=t.bn)
+                                           bci=t.bk, bco=t.bn, dtype=dtype)
             bench.case(
                 kernel, label,
                 lambda: kpu_conv.kpu_conv(x, w, stride=stride, bm=t.bm,
                                           bci=t.bk, bco=t.bn),
                 lambda: kpu_conv.kpu_conv_plain(x, w, stride),
                 lambda: F.conv2d(xp, w_oihw, stride=stride).permute(0, 2, 3, 1),
-                2 * macs, 4 * (x.numel() + w.numel() + out_elems),
-                peak=mma_peak, info={"split": split},
+                2 * macs, elem * (x.numel() + w.numel() + out_elems),
+                tol=tol, peak=mma_peak, info={**info, "split": split},
             )
         else:
-            w = torch.randn((kh, kw, s.d_in), generator=gen).cuda() / (kh * kw) ** 0.5
+            w = (torch.randn((kh, kw, s.d_in), generator=gen) / (kh * kw) ** 0.5).to(
+                "cuda", dtype)
             w_oihw = w.permute(2, 0, 1).unsqueeze(1)
             bench.case(
                 kernel, label,
@@ -283,7 +312,8 @@ def bench_nodes(torch, bench, family, plan, graph, gen):
                 lambda: dw_conv.dw_conv_plain(x, w, stride),
                 lambda: F.conv2d(xp, w_oihw, stride=stride,
                                  groups=s.d_in).permute(0, 2, 3, 1),
-                2 * macs, 4 * (x.numel() + w.numel() + out_elems),
+                2 * macs, elem * (x.numel() + w.numel() + out_elems),
+                tol=tol, info=info,
             )
 
 
@@ -383,8 +413,8 @@ def wrapper_host_us(torch, calls=2000):
 
 def ptxas_report(lib_path, kernel):
     """Registers, stack and spills ptxas reported for each instance of
-    ``kernel`` (its template arguments from the mangled name), read from
-    the build's ``nvcc.log``."""
+    ``kernel`` (its element type and integer template arguments from the
+    mangled name), read from the build's ``nvcc.log``."""
     import re
 
     log = os.path.join(os.path.dirname(lib_path), "nvcc.log")
@@ -394,9 +424,15 @@ def ptxas_report(lib_path, kernel):
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
                 cur = None
-                if kernel in m.group(1):
-                    args = re.search(r"I((?:Li\d+E)+)E", m.group(1))
-                    cur = {"template": [int(a) for a in re.findall(r"\d+", args.group(1))]
+                # the kernel's name as the mangling spells it, then its
+                # template arguments: element type, integers
+                at = m.group(1).find(f"{len(kernel)}{kernel}")
+                if at >= 0:
+                    rest = m.group(1)[at + len(f"{len(kernel)}{kernel}"):]
+                    args = re.match(r"I(f|13__nv_bfloat16)?((?:Li\d+E)*)E", rest)
+                    cur = {"dtype": {"f": "float32", "13__nv_bfloat16": "bfloat16"}.get(
+                               args.group(1)) if args else None,
+                           "template": [int(a) for a in re.findall(r"\d+", args.group(2))]
                            if args else []}
                     rows.append(cur)
                 continue
@@ -420,8 +456,8 @@ def device_ms_by_kernel(torch, fn, classes=DEVICE_FN):
     class of device function (``classes``: name -> substrings of the
     function's name), the rest (bias, activation, joins, pooling, norms,
     copies) under "other" (empty if the profiler saw no device activity);
-    the call's host-clock ms, ending in a synchronize; and the five
-    device functions that took the longest, with their ms."""
+    the call's host-clock ms, ending in a synchronize; and every device
+    function as (ms, calls, name), the longest first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -437,8 +473,8 @@ def device_ms_by_kernel(torch, fn, classes=DEVICE_FN):
         name = next((k for k, subs in classes.items()
                      if any(f in e.key for f in subs)), "other")
         out[name] = out.get(name, 0.0) + e.device_time_total / 1e3
-        by_fn.append((e.device_time_total / 1e3, e.count, e.key[:90]))
-    return out, wall, sorted(by_fn, reverse=True)[:5]
+        by_fn.append((e.device_time_total / 1e3, e.count, e.key))
+    return out, wall, sorted(by_fn, reverse=True)
 
 
 def reset_counts(kernels_mod) -> None:
@@ -450,14 +486,19 @@ def read_counts(kernels_mod) -> dict:
     return {name: getattr(kernels_mod[name], name).launches for name in KERNELS}
 
 
-def run_slice(torch, family, kernels_mod, gen, bench):
+def run_slice(torch, family, kernels_mod, gen, bench, dtype=None):
     """One family's main path: REQUESTS batches of BATCH frames through
-    the rate-matched forward pass on the card."""
+    the rate-matched forward pass on the card; with ``dtype=torch.bfloat16``
+    the same forward in bf16 (weights, frames and logits; phase
+    ``slice_bf16``, logits at BF16_TOL of their scale, off the main path:
+    its launches stay out of the kernels line)."""
     from repro_torch.kernels.fcu_matmul import _pick_bm
     from repro_torch.models.registry import get_cnn_api
 
+    bf16 = dtype == torch.bfloat16
+    tol = BF16_TOL if bf16 else TOL
     api = get_cnn_api(family)
-    cfg = api.make_config()
+    cfg = api.make_config(dtype=dtype or torch.float32)
     params = api.init(cfg, torch.Generator().manual_seed(0))
     kp = api.plan(cfg, RATE)
     graph = api.graph(cfg)
@@ -495,35 +536,46 @@ def run_slice(torch, family, kernels_mod, gen, bench):
 
     plain_ms, errs = [], []
     for x, y in zip(xs, logits):
-        require(tuple(y.shape) == (BATCH, cfg.num_classes), f"{family}: shape {y.shape}")
+        require(tuple(y.shape) == (BATCH, cfg.num_classes) and y.dtype == cfg.dtype,
+                f"{family}: logits {tuple(y.shape)} {y.dtype}")
         require(bool(torch.isfinite(y).all()), f"{family}: non-finite logits")
         t0 = time.perf_counter()
         ref = api.apply(params, x, cfg)  # the plain versions, on the card
         torch.cuda.synchronize()
         plain_ms.append((time.perf_counter() - t0) * 1e3)
         scale = max(1.0, ref.abs().max().item())
-        err = (y - ref).abs().max().item()
-        require(err <= TOL * scale,
-                f"{family}: logits vs plain path max|err| {err} > {TOL} x {scale}")
+        err = (y.float() - ref.float()).abs().max().item()
+        require(err <= tol * scale,
+                f"{family}: logits vs plain path max|err| {err} > {tol} x {scale}")
         errs.append(err / scale)
-    device_ms, _, _ = device_ms_by_kernel(
+    device_ms, _, fns = device_ms_by_kernel(
         torch, lambda: api.apply(params, xs[0], cfg, plan=kp))
+    # The planned depthwise tiles are whole 16-byte channel vectors, so
+    # every depthwise launch of the main path runs the vector instances
+    # (dw_kernel<element, 16 bytes of channels, stride>), none the
+    # element-at-a-time ones.
+    dw_fns = sorted({key for _, _, key in fns if "dw_kernel" in key})
+    vec = 16 // cfg.dtype.itemsize
+    require(all(re.search(rf"dw_kernel<[^,<>]+, {vec}, [12]>", k) for k in dw_fns),
+            f"{family}: depthwise time outside the {vec}-channel vector kernel: {dw_fns}")
     busy_ms = sum(device_ms.values())
     latency = statistics.median(latency_ms)
     isolated = {k: sum(r["ms"] for r in bench.rows if r["kernel"] == k
+                       and (r.get("route") == "bf16") == bf16
                        and r["node"].startswith(family + "/")) for k in KERNELS}
     row = {
-        "phase": "slice", "family": family, "input_hw": list(cfg.input_hw),
-        "batch": BATCH, "requests": REQUESTS, "rate": str(RATE),
-        "arith_nodes": len(arith), "launches": counts,
+        "phase": "slice_bf16" if bf16 else "slice", "family": family,
+        "input_hw": list(cfg.input_hw), "batch": BATCH, "requests": REQUESTS,
+        "rate": str(RATE), "arith_nodes": len(arith), "launches": counts,
         "executed_tile_eq_plan": True,
         "frames_per_s": BATCH * REQUESTS / (sum(latency_ms) / 1e3),
         "latency_ms": latency_ms, "latency_ms_median": latency,
         "plain_path_latency_ms_median": statistics.median(plain_ms),
         "profiled_device_ms": device_ms,
+        "dw_instances": [re.search(r"dw_kernel<[^<>]*>", k)[0] for k in dw_fns],
         "device_busy_share": busy_ms / latency if device_ms else None,
         "kernel_ms_isolated": isolated,
-        "logits_max_rel_err": max(errs), "tolerance": TOL,
+        "logits_max_rel_err": max(errs), "tolerance": tol,
     }
     emit(row)
     return counts
@@ -589,19 +641,21 @@ def bench_flash(torch, bench, gen):
 
 
 def bench_ssd(torch, bench, gen):
-    """The SSD kernel at the SSM path's prefill shapes (mamba2's 48 heads
+    """The SSD kernels at the SSM path's prefill shapes (mamba2's 48 heads
     at N 128 and zamba2's 64 heads at N 64, each served prompt length
     padded to the chunk of 128), inputs drawn as the models make them
     (silu of the conv, dt from the dt_bias range, a = -(1..H)); then
     extras off that path (two groups, chunks 16 and 64, one chunk, two
-    rows of the batch; checked, not timed).  There is no library call."""
+    rows of the batch; checked, not timed); each shape again with bf16 x,
+    dt, B and C (rows marked ``route`` "bf16").  There is no library
+    call."""
     import math
 
     import torch.nn.functional as F
 
     from repro_torch.kernels import ssd_chunk as sc
 
-    def case(label, b, l, h, p, g, n, chunk, timed=True):
+    def case(label, b, l, h, p, g, n, chunk, timed=True, dtype=torch.float32):
         def draw(*shape):
             return torch.randn(shape, generator=gen).cuda()
 
@@ -611,29 +665,46 @@ def bench_ssd(torch, bench, gen):
         x, bb, cc = F.silu(draw(b, l, h, p)), F.silu(draw(b, l, g, n)), F.silu(draw(b, l, g, n))
         dt = F.softplus(draw(b, l, h) + dt_bias)
         a = -torch.arange(1, h + 1, dtype=torch.float32, device="cuda")
+        x, dt, bb, cc = (t.to(dtype) for t in (x, dt, bb, cc))
         # The scores C.B^T depend on the group only; the diagonal output
         # and the state's two products are per head.
         nc, tri = l // chunk, chunk * (chunk + 1) // 2
         flops = b * nc * (g * tri * n * 2 + h * (tri * p * 2 + 2 * chunk * n * p * 2))
-        nbytes = 4 * (2 * x.numel() + dt.numel() + a.numel() + 2 * bb.numel() + b * h * p * n)
+        # The function's own bytes: x, dt, B, C and a read once, y and
+        # the final state written once.  The f32 chunk-state workspace
+        # [B, nc, H, P, N] (written by ssd_states, read and rewritten by
+        # ssd_pass, read by ssd_output) belongs to this design, not to the
+        # function; its traffic, counted as one write and one read, stands
+        # beside the bound (workspace_bytes, bound_ms_with_workspace).
+        nbytes = (x.element_size() * (2 * x.numel() + dt.numel() + 2 * bb.numel())
+                  + 4 * (a.numel() + b * h * p * n))
+        work = 4 * 2 * b * nc * h * p * n
+        peak = bench.hw.peak_tf32_flops / TF32_TERMS
+        bf16 = dtype == torch.bfloat16
+        info = {"route": "bf16"} if bf16 else {}
         bench.case(
-            "ssd_chunk", label,
+            "ssd_chunk", label + ("/bf16" if bf16 else ""),
             lambda: sc.ssd_chunk(x, dt, a, bb, cc, chunk=chunk),
             lambda: sc.ssd_chunk_plain(x, dt, a, bb, cc, chunk=chunk),
-            None, flops, nbytes, timed=timed, elementwise=SSD_TOL,
+            None, flops, nbytes, timed=timed,
+            elementwise=SSD_BF16_TOL if bf16 else SSD_TOL, peak=peak,
+            info={**info, "workspace_bytes": work, "bound_ms_with_workspace": max(
+                flops / peak, (nbytes + work) / bench.hw.hbm_bw) * 1e3},
         )
 
-    for s in PROMPT_LENS:
-        padded = -(-s // 128) * 128
-        case(f"mamba2-780m/prefill{s}", 1, padded, 48, 64, 1, 128, 128)
-    for s in PROMPT_LENS:
-        padded = -(-s // 128) * 128
-        case(f"zamba2-1.2b/prefill{s}", 1, padded, 64, 64, 1, 64, 128)
-    case("extra/g2-h8", 1, 512, 8, 64, 2, 128, 128, timed=False)
-    case("extra/chunk16", 1, 256, 8, 64, 1, 128, 16, timed=False)
-    case("extra/chunk64", 1, 512, 16, 64, 1, 128, 64, timed=False)
-    case("extra/one-chunk", 1, 128, 48, 64, 1, 128, 128, timed=False)
-    case("extra/b2", 2, 384, 8, 64, 2, 64, 128, timed=False)
+    for dtype in (torch.float32, torch.bfloat16):
+        for s in PROMPT_LENS:
+            padded = -(-s // 128) * 128
+            case(f"mamba2-780m/prefill{s}", 1, padded, 48, 64, 1, 128, 128, dtype=dtype)
+        for s in PROMPT_LENS:
+            padded = -(-s // 128) * 128
+            case(f"zamba2-1.2b/prefill{s}", 1, padded, 64, 64, 1, 64, 128, dtype=dtype)
+    for dtype in (torch.float32, torch.bfloat16):
+        case("extra/g2-h8", 1, 512, 8, 64, 2, 128, 128, timed=False, dtype=dtype)
+        case("extra/chunk16", 1, 256, 8, 64, 1, 128, 16, timed=False, dtype=dtype)
+        case("extra/chunk64", 1, 512, 16, 64, 1, 128, 64, timed=False, dtype=dtype)
+        case("extra/one-chunk", 1, 128, 48, 64, 1, 128, 128, timed=False, dtype=dtype)
+        case("extra/b2", 2, 384, 8, 64, 2, 64, 128, timed=False, dtype=dtype)
 
 
 def _cast(tree, dtype):
@@ -795,7 +866,7 @@ def run_serve(torch, kernels_mod, phase, cfg, mod, per_prefill, plain_routes,
             "ms": statistics.median(host_ms), "profiled_wall_ms": wall,
             "device_ms": device_ms,
             "device_busy_share": sum(device_ms.values()) / statistics.median(host_ms),
-            "top_device_fns": top}
+            "top_device_fns": [(ms, n, key[:90]) for ms, n, key in top[:5]]}
     emit({"phase": f"{phase}_profile", **profile})
     return counts
 
@@ -838,6 +909,45 @@ def run_lm_paths(torch, kernels_mod):
     return total
 
 
+def summarise(name, rows) -> dict:
+    """One route's rows of kernel ``name``, summed over the timed shapes:
+    ms, the plain version's and the library call's ms, the bound, and the
+    largest error over every row, timed or checked."""
+    timed = [r for r in rows if "ms" in r]
+    ops = sum(r["ops_ms"] for r in timed)
+    nbytes = sum(r["bytes_ms"] for r in timed)
+    return {
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": sum(r["ms"] for r in timed),
+        "plain_ms": sum(r["plain_ms"] for r in timed),
+        "bound_ms": sum(r["bound_ms"] for r in timed),
+        "bound_by": "operations" if ops >= nbytes else "bytes",
+        "library_ms": None if name in NO_LIBRARY else sum(r["library_ms"] for r in timed),
+        "shapes": len(timed),
+        **({"bound_ms_with_workspace": sum(r["bound_ms_with_workspace"] for r in timed)}
+           if timed and "bound_ms_with_workspace" in timed[0] else {}),
+    }
+
+
+def kernels_line(bench, launches) -> list:
+    """The ``kernels`` line: each kernel's main route (f32 rows; flash in
+    bf16) with the main path's launches, and its bf16 route beside it."""
+    out = []
+    for name, (source, replaces) in KERNELS.items():
+        rows = [r for r in bench.rows if r["kernel"] == name and "route" not in r]
+        row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+               "launches": launches[name], **summarise(name, rows)}
+        if name in TF32_KERNELS:
+            row["bound_ms_fp32"] = sum(r["bound_ms_fp32"] for r in rows if "ms" in r)
+        if name in NO_LIBRARY:
+            row["library_note"] = NO_LIBRARY[name]
+        bf16 = [r for r in bench.rows if r["kernel"] == name and r.get("route") == "bf16"]
+        if bf16:
+            row["bf16"] = summarise(name, bf16)
+        out.append(row)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -876,14 +986,26 @@ def main() -> int:
                             "setmaxnreg then gives the consumers 232 and the "
                             "producer warpgroup 40",
           "instances": ptxas_report(lib._name, "flash_kernel_wgmma")})
-    for kernel in ("fcu_kernel", "kpu_kernel"):
+    templates = {
+        "fcu_kernel": "<element, wgmma width BN, 64-row atoms a consumer warpgroup, "
+                      "consumer warpgroups>",
+        "kpu_kernel": "<element, wgmma width BN, 64-row atoms a consumer warpgroup, "
+                      "consumer warpgroups>",
+        "dw_kernel": "<element, channels a thread's vector (16 bytes, or 1 where "
+                     "the tile is no whole number of them), stride> (3x3 taps)",
+    }
+    for kernel, template in templates.items():
         rows = ptxas_report(lib._name, kernel)
-        emit({"phase": "ptxas", "kernel": kernel,
-              "template": "<wgmma width BN, 64-row atoms a consumer warpgroup, "
-                          "consumer warpgroups>",
-              "instances": rows})
-        require(all(r.get("spill_stores", 1) == 0 and r.get("spill_loads", 1) == 0
-                    for r in rows), f"{kernel}: ptxas reports spills")
+        for dtype in ("float32", "bfloat16"):
+            mine = [r for r in rows if r["dtype"] == dtype]
+            require(mine, f"{kernel}: no {dtype} instance in the build")
+            emit({"phase": "ptxas", "kernel": kernel, "dtype": dtype,
+                  "template": template, "instances": mine})
+            require(all(r.get("spill_stores", 1) == 0 and r.get("spill_loads", 1) == 0
+                        for r in mine), f"{kernel} ({dtype}): ptxas reports spills")
+    emit({"phase": "ptxas", "kernel": "ssd_chunk",
+          "instances": {k: ptxas_report(lib._name, k)
+                        for k in ("ssd_states", "ssd_pass", "ssd_output")}})
 
     kernels_mod = {"fcu_matmul": fcu_matmul, "kpu_conv": kpu_conv, "dw_conv": dw_conv,
                    "flash_attention": flash_attention, "ssd_chunk": ssd_chunk}
@@ -891,13 +1013,17 @@ def main() -> int:
     bench = KernelBench(torch, H100_SXM)
     emit({"phase": "kernels", "tolerance": TOL, "bound": BOUND,
           "tolerance_of": "max|kernel - plain| <= tolerance x max(1, max|plain|)",
+          "bf16_tolerance": KERNEL_BF16_TOL,
           "flash_tolerance": FLASH_TOL, "ssd_tolerance": SSD_TOL,
+          "ssd_bf16_tolerance": SSD_BF16_TOL,
           "flash_ssd_tolerance_of":
               "|kernel - plain| <= rtol x |plain| + atol + rms x rms(plain)"})
-    for family in ("mobilenet_v2", "resnet18"):
-        api = get_cnn_api(family)
-        cfg = api.make_config()
-        bench_nodes(torch, bench, family, api.plan(cfg, RATE), api.graph(cfg), gen)
+    for dtype in (None, torch.bfloat16):
+        for family in ("mobilenet_v2", "resnet18"):
+            api = get_cnn_api(family)
+            cfg = api.make_config()
+            bench_nodes(torch, bench, family, api.plan(cfg, RATE), api.graph(cfg), gen,
+                        dtype)
     bench_extras(torch, bench, gen)
     wrapper_host_us(torch)
     bench_flash(torch, bench, gen)
@@ -911,29 +1037,10 @@ def main() -> int:
     for k, v in run_lm_paths(torch, kernels_mod).items():
         launches[k] += v
     require(all(launches.values()), f"a kernel never launched on the main path: {launches}")
+    for family in ("mobilenet_v2", "resnet18"):
+        run_slice(torch, family, kernels_mod, gen, bench, torch.bfloat16)
 
-    out = []
-    for name, (source, replaces) in KERNELS.items():
-        rows = [r for r in bench.rows if r["kernel"] == name]
-        timed = [r for r in rows if "ms" in r]
-        ops = sum(r["ops_ms"] for r in timed)
-        nbytes = sum(r["bytes_ms"] for r in timed)
-        row = {
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name],
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": sum(r["ms"] for r in timed),
-            "plain_ms": sum(r["plain_ms"] for r in timed),
-            "bound_ms": sum(r["bound_ms"] for r in timed),
-            "bound_by": "operations" if ops >= nbytes else "bytes",
-            "library_ms": None if name in NO_LIBRARY else sum(r["library_ms"] for r in timed),
-            "shapes": len(timed),
-        }
-        if name in MMA_KERNELS:
-            row["bound_ms_fp32"] = sum(r["bound_ms_fp32"] for r in timed)
-        if name in NO_LIBRARY:
-            row["library_note"] = NO_LIBRARY[name]
-        out.append(row)
+    out = kernels_line(bench, launches)
     emit({"kernels": out})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

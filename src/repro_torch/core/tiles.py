@@ -25,7 +25,8 @@ Where the TPU rule aligns to 128 lanes and fits VMEM, this one fits the
 limits of the CUDA-core FCU / KPU block the kernels first had (since
 replaced by the tensor-core block of ``kernels/csrc/tile_mma.cuh``, which
 takes every tile this rule gives; a rule sized for that block is still
-to come) and of ``dw_conv.cu``:
+to come) and of ``dw_conv.cu``, whose block stages its input rows once in
+shared memory (``dw_halo_bytes``):
 
   * alignment: a tile dimension is a multiple of 32 (a warp) where the
     channel count divides by 32, else of 8 where it divides by 8, else
@@ -50,14 +51,15 @@ from .rate import divisors
 
 # The limits of the planner's block model: the CUDA-core FCU / KPU block
 # the kernels first had (replaced by kernels/csrc/tile_mma.cuh), and
-# dw_conv.cu.
+# dw_conv.cu.  Shared memory is sized at 4 bytes an element: the kernels
+# take float32 and bfloat16, and a plan that fits f32 fits bf16.
 THREADS = 256          # threads of one k-group (the tile's thread grid)
 MAX_THREADS = 512      # threads a block, k-groups included
 MAX_GROUPS = 64        # k-groups a block (blockDim.z)
 MAX_MICRO = 8          # TM, TN <= 8: at most 64 f32 accumulators a thread
 MAX_BM = 512           # pixel tile cap, as in the TPU rule
-DW_OUTPUTS = 4096      # depthwise outputs per block (16 per thread)
-WORD = 4               # bytes of an element: the kernels take float32 only
+DW_OUTPUTS = 4096      # depthwise outputs per block
+WORD = 4               # bytes of an element, the wider of f32 and bf16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,20 +184,30 @@ def dw_rows(ho: int, wo: int, bc: int) -> int:
     return max(1, min(ho, DW_OUTPUTS // max(1, wo * bc)))
 
 
+def dw_halo_bytes(rows: int, wo: int, bc: int, kernel: Tuple[int, int],
+                  stride: int, word: int = WORD) -> int:
+    """Shared memory of one depthwise block: the input rows its ``rows``
+    output rows read, ``(rows - 1) * stride + kh`` of them, each
+    ``(wo - 1) * stride + kw`` pixels wide with the SAME padding in
+    place, ``bc`` channels of ``word`` bytes."""
+    kh, kw = kernel
+    return ((rows - 1) * stride + kh) * ((wo - 1) * stride + kw) * bc * word
+
+
 def dw_tile(
-    out_hw: Tuple[int, int], bc: int, *, kernel: Tuple[int, int]
+    out_hw: Tuple[int, int], bc: int, *, kernel: Tuple[int, int], stride: int = 1
 ) -> TileChoice:
     """The depthwise block: ``bm`` = whole output rows (a multiple of the
-    output width), ``bk`` = the channel tile.  The block stages its
-    k x k x bc weights in shared memory (``smem_bytes``); its inputs
-    are read through L1/L2."""
+    output width), ``bk`` = the channel tile.  The block stages the input
+    rows those outputs read once in shared memory (``smem_bytes``, the
+    halo of ``dw_halo_bytes``)."""
     ho, wo = out_hw
-    kh, kw = kernel
+    rows = dw_rows(ho, wo, bc)
     return TileChoice(
-        bm=dw_rows(ho, wo, bc) * wo,
+        bm=rows * wo,
         bk=bc,
         bn=1,
-        smem_bytes=kh * kw * bc * WORD,
+        smem_bytes=dw_halo_bytes(rows, wo, bc, kernel, stride),
         acc_per_thread=1,
     )
 
@@ -277,7 +289,7 @@ def select_tile_for_impl(
 
     if lay.kind == "dwconv":
         bc = plan_dim_tile(lay.d_in, min(impl.j, lay.d_in))
-        return dw_tile(lay.out_hw, bc, kernel=lay.kernel)
+        return dw_tile(lay.out_hw, bc, kernel=lay.kernel, stride=lay.stride[0])
 
     conv = lay.kind == "conv"
     bk = plan_dim_tile(lay.d_in, min(impl.j, lay.d_in))

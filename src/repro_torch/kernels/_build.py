@@ -38,21 +38,31 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # x, w, y, m, d_in, d_out, bm, bk, bn, split (0: the rule), stream
     "fcu_matmul_f32": [_P, _P, _P] + [_I] * 7 + [_P],
+    "fcu_matmul_bf16": [_P, _P, _P] + [_I] * 7 + [_P],
     # x, w, y, n, h, w, d_in, ho, wo, d_out, kh, kw, stride, pad_t, pad_l,
     # bm, bci, bco, split (0: the rule), stream
     "kpu_conv_f32": [_P, _P, _P] + [_I] * 16 + [_P],
-    # n, h, w, d_in, ho, wo, d_out, kh, kw, bm, bk, bn -> the rule's split
-    "mma_split": [_I] * 12,
+    "kpu_conv_bf16": [_P, _P, _P] + [_I] * 16 + [_P],
+    # n, h, w, d_in, ho, wo, d_out, kh, kw, bm, bk, bn, element bytes ->
+    # the rule's split
+    "mma_split": [_I] * 13,
     # x, w, y, n, h, w, c, ho, wo, kh, kw, stride, pad_t, pad_l, rows, bc,
     # stream
     "dw_conv_f32": [_P, _P, _P] + [_I] * 13 + [_P],
+    "dw_conv_bf16": [_P, _P, _P] + [_I] * 13 + [_P],
     # q, k, v, o, batch, heads, group, sq, sk, d, block_q, block_k, causal,
     # scale, stream
     "flash_attention_f32": [_P] * 4 + [_I] * 9 + [_F, _P],
     "flash_attention_bf16": [_P] * 4 + [_I] * 9 + [_F, _P],
-    # x, dt, a, b, c, y, state, batch, L, H, G, P, N, chunk, p_block, stream
-    "ssd_chunk_f32": [_P] * 7 + [_I] * 8 + [_P],
+    # x, dt, a (f32), b, c, y, state, workspace, batch, L, H, G, P, N,
+    # chunk, head_run, stream
+    "ssd_chunk_f32": [_P] * 8 + [_I] * 8 + [_P],
+    "ssd_chunk_bf16": [_P] * 8 + [_I] * 8 + [_P],
 }
+# The element types the FCU, KPU, depthwise and SSD kernels take, and the
+# suffix of each one's C entry point.
+FLOATS = (torch.float32, torch.bfloat16)
+SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def nvcc_path() -> str:

@@ -17,12 +17,16 @@
 // input is made.  d_in = 3 (conv1) is a bci = 3 step copied 4 bytes at a
 // time (its 12-byte rows allow no wider copy, nor a TMA tensor map, whose
 // strides must be multiples of 16 bytes); a row of its kw taps is one
-// step of kw x 3 channels, zero-padded to k8 steps.
+// step of kw x 3 channels, zero-padded to k8 steps.  On bf16 operands a
+// pixel is 6 bytes, which no cp.async width divides, so conv1's rows are
+// copied 2 bytes at a time through registers (8 loads in flight a thread)
+// and the folded step is zero-padded to k16 steps in shared memory.
 //
 // Bound on an H100 SXM at its 700 W limit (NVIDIA's data sheet):
 // ResNet-18's 3x3 convs do 576-4608 MACs a pixel, far above the ridge, so
 // the bound is their flops done three times (3xTF32) over 495 TFLOP/s TF32,
-// i.e. 165 TFLOP/s of fp32-accurate work.  The design puts the products on
+// i.e. 165 TFLOP/s of fp32-accurate work; on bf16 operands the flops once
+// over 989 TFLOP/s.  The design puts the products on
 // wgmma with the 3xTF32 split (the 1e-4 gate forbids one TF32 rounding),
 // overlaps the gathers with them through a ring of cp.async slots, folds a
 // row of conv1's 3-channel taps into one step, and splits the (bci step,
@@ -39,17 +43,18 @@
 
 namespace {
 
-template <int BN, int MA, int NC>
+template <typename T, int BN, int MA, int NC>
 __global__ void __launch_bounds__(rt::kProducer * (NC + 1),
                                   rt::mma_min_blocks(BN, MA, NC))
-    kpu_kernel(const float* __restrict__ x, const float* __restrict__ w,
-               float* __restrict__ y, rt::MmaShape s, rt::MmaTile t) {
-  rt::mma_tile<BN, MA, NC>(x, w, y, s, t);
+    kpu_kernel(const T* __restrict__ x, const T* __restrict__ w,
+               T* __restrict__ y, rt::MmaShape s, rt::MmaTile t) {
+  rt::mma_tile<T, BN, MA, NC>(x, w, y, s, t);
 }
 
+template <typename T>
 struct KpuLaunch {
-  const float *x, *w;
-  float* y;
+  const T *x, *w;
+  T* y;
   rt::MmaShape s;
   rt::MmaLaunch l;
   cudaStream_t stream;
@@ -57,42 +62,61 @@ struct KpuLaunch {
   template <int BN, int MA, int NC>
   int run() {
     static bool opted[rt::kMaxDevices] = {};
-    const int err = rt::opt_in_smem(kpu_kernel<BN, MA, NC>, rt::kSmemBlock, opted);
+    const int err = rt::opt_in_smem(kpu_kernel<T, BN, MA, NC>, rt::kSmemBlock, opted);
     if (err) return err;
-    return rt::launch_cluster(kpu_kernel<BN, MA, NC>, l.grid, l.block, l.smem,
+    return rt::launch_cluster(kpu_kernel<T, BN, MA, NC>, l.grid, l.block, l.smem,
                               stream, l.split, x, w, y, s, l.t);
   }
 };
 
+template <typename T>
+int kpu_launch(const T* x, const T* w, T* y, int n, int h, int wd, int d_in,
+               int ho, int wo, int d_out, int kh, int kw, int stride, int pad_t,
+               int pad_l, int bm, int bci, int bco, int split,
+               cudaStream_t stream) {
+  const rt::MmaShape s{n, h, wd, d_in, ho, wo, d_out, kh, kw, stride, pad_t,
+                       pad_l};
+  KpuLaunch<T> f{x, w, y, s, {}, stream};
+  const bool x_ok = (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const bool w_ok = (reinterpret_cast<uintptr_t>(w) & 15) == 0;
+  if (n < 1 || ho < 1 || wo < 1 ||
+      !rt::plan_tile(s, bm, bci, bco, split, x_ok, w_ok, sizeof(T), &f.l))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return rt::dispatch(f.l, f);
+}
+
 }  // namespace
 
 // x [n, h, w, d_in] NHWC, w [kh, kw, d_in, d_out] HWIO, y [n, ho, wo, d_out],
-// f32 and contiguous; SAME pads (pad_t, pad_l) before the frame; the plan's
-// (bm, bci, bco) tile; `split` blocks a tile along a cluster (1: none, 0: as
-// the rule gives, which the wrapper passes).
+// contiguous, all f32 or all bf16; SAME pads (pad_t, pad_l) before the
+// frame; the plan's (bm, bci, bco) tile; `split` blocks a tile along a
+// cluster (1: none, 0: as the rule gives, which the wrapper passes).
 extern "C" int kpu_conv_f32(const float* x, const float* w, float* y, int n,
                             int h, int wd, int d_in, int ho, int wo, int d_out,
                             int kh, int kw, int stride, int pad_t, int pad_l,
                             int bm, int bci, int bco, int split,
                             cudaStream_t stream) {
-  const rt::MmaShape s{n, h, wd, d_in, ho, wo, d_out, kh, kw, stride, pad_t,
-                       pad_l};
-  KpuLaunch f{x, w, y, s, {}, stream};
-  const bool x_ok = (reinterpret_cast<uintptr_t>(x) & 15) == 0;
-  const bool w_ok = (reinterpret_cast<uintptr_t>(w) & 15) == 0;
-  if (n < 1 || ho < 1 || wo < 1 ||
-      !rt::plan_tile(s, bm, bci, bco, split, x_ok, w_ok, &f.l))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return rt::dispatch(f.l, f);
+  return kpu_launch(x, w, y, n, h, wd, d_in, ho, wo, d_out, kh, kw, stride, pad_t,
+                    pad_l, bm, bci, bco, split, stream);
+}
+
+extern "C" int kpu_conv_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                             __nv_bfloat16* y, int n, int h, int wd, int d_in,
+                             int ho, int wo, int d_out, int kh, int kw,
+                             int stride, int pad_t, int pad_l, int bm, int bci,
+                             int bco, int split, cudaStream_t stream) {
+  return kpu_launch(x, w, y, n, h, wd, d_in, ho, wo, d_out, kh, kw, stride, pad_t,
+                    pad_l, bm, bci, bco, split, stream);
 }
 
 // The cluster split the rule gives the (bm, bk, bn) tile of a KPU call on
-// the current device: blocks a tile, 1 for none; 0 if the kernels do not
-// take the tile.  The FCU over m pixels is the case n = h = ho = 1,
-// w = wo = m of a 1x1 kernel.
+// the current device for `elem`-byte elements (4: f32, 2: bf16): blocks a
+// tile, 1 for none; 0 if the kernels do not take the tile.  The FCU over m
+// pixels is the case n = h = ho = 1, w = wo = m of a 1x1 kernel.
 extern "C" int mma_split(int n, int h, int wd, int d_in, int ho, int wo,
-                         int d_out, int kh, int kw, int bm, int bk, int bn) {
+                         int d_out, int kh, int kw, int bm, int bk, int bn,
+                         int elem) {
   const rt::MmaShape s{n, h, wd, d_in, ho, wo, d_out, kh, kw, 1, 0, 0};
   rt::MmaLaunch l;
-  return rt::plan_tile(s, bm, bk, bn, 0, true, true, &l) ? l.split : 0;
+  return rt::plan_tile(s, bm, bk, bn, 0, true, true, elem, &l) ? l.split : 0;
 }

@@ -1,18 +1,54 @@
 // Helpers the Hopper kernels share: shared-memory addresses, mbarriers,
-// TMA, wgmma descriptors and the fence / commit / wait around wgmma, and
-// the launch with the opt-in to more than 48 KiB of dynamic shared
-// memory (optionally as thread-block clusters).  Used by
-// flash_attention_sm90.cu and tile_mma.cuh (the FCU and KPU kernels);
-// the CUDA-core kernels take only `launch`.
+// cp.async, TMA, wgmma descriptors and the fence / commit / wait around
+// wgmma, and the launch with the opt-in to more than 48 KiB of dynamic
+// shared memory (optionally as thread-block clusters).  Used by
+// flash_attention_sm90.cu, tile_mma.cuh (the FCU and KPU kernels),
+// dw_conv.cu and ssd_chunk.cu; flash_attention.cu takes only `launch`.
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace rt {
 
-// ---- shared memory, mbarriers, TMA -------------------------------------
+// ---- f32 and bf16 elements ------------------------------------------------
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+// The two bf16 halves of a 32-bit word as f32 (the lower-addressed first),
+// and two f32 rounded into one word.
+__device__ __forceinline__ float bf16_lo(uint32_t u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t u) {
+  return __uint_as_float(u & 0xFFFF0000u);
+}
+__device__ __forceinline__ uint32_t bf16_pack(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// v rounded to tf32 (round to nearest, ties away from zero), as the
+// tensor cores take it.
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// ---- shared memory, mbarriers, cp.async, TMA ----------------------------
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -48,6 +84,36 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(smem_u32(bar)), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// cp.async copies of 16 (cache in L2 only) or 4 bytes into shared
+// memory; `src_bytes` 0 fills the destination with zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// Arrive on `bar` once this thread's earlier cp.async copies have landed
+// (one of the arrivals the barrier was made to expect).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // One box of a 3-D tensor map (coordinates innermost first) into shared

@@ -1,5 +1,7 @@
 // Block-tile product of the FCU (fcu_matmul.cu) and KPU (kpu_conv.cu)
-// kernels on Hopper's tensor cores, fp32-accurate through a 3xTF32 split.
+// kernels on Hopper's tensor cores: on f32 operands fp32-accurate through a
+// 3xTF32 split, on bf16 operands one bf16 product a step (the bf16 route,
+// below); both accumulate in f32 and write y in the operands' type.
 //
 // The problem is an implicit GEMM: M = N*Ho*Wo output pixels, N = d_out
 // channels, K = kh*kw*d_in.  The FCU is the KPU's case with a 1x1 kernel,
@@ -38,6 +40,23 @@
 // warpgroups, setmaxnreg moves the producer's spare registers to them, so
 // that two blocks fit an SM.
 //
+// The bf16 route.  The same producer, ring and consumers, with a slot of
+// `ks` = 16 .. 64 channels (whole k16 steps): w first, as the MN-major B
+// operand wgmma reads through the transpose bit, as flash_attention_sm90.cu
+// reads V: rows of the tile's width (at most a 64-column panel, panels ks
+// rows apart) whose 16-byte chunks the producer places where the
+// descriptor's 32, 64 or 128-byte swizzle looks for them (a bn = 8 tile
+// is one 8-column core matrix, no swizzle), on 1024-byte boundaries; then
+// x as it lies.  So the consumers neither split nor rewrite w: after
+// `full` (and a proxy fence, since the copies are not TMA's) each reads
+// its x pairs with one 8-byte load per row pair as the A fragments (k
+// permuted, w's rows placed to match: `bf16_row`) and runs one wgmma
+// m64nBNk16 bf16 product a k16 step.  The producer's 16-byte copies carry
+// 8 channels.  Where rows of x (conv1's 3 channels: a 6-byte pixel) or of w
+// allow no 16-byte copy, the producer copies 2 bytes at a time through
+// registers, eight loads in flight a thread, and arrives with a plain
+// (release) arrival; a row of kw taps is then one step, as for f32.
+//
 // Cluster split.  Where the plan's tiles leave fewer blocks than SMs,
 // `plan_tile` launches `split` blocks per tile as a thread-block cluster
 // along z (`split_rule`): rank r takes steps [r S / split, (r + 1) S /
@@ -69,47 +88,23 @@ struct MmaTile {
   int bm;           // the block's pixel rows: the plan's bm, or 64 / bm
                     // of its tiles where bm < 64
   int bk, bn;       // the plan's tile
-  int fold;         // a row of kw taps is one step (d_in = bk, not 4k)
+  int fold;         // a row of kw taps is one step (rows of x allow no
+                    // 16-byte copy, d_in = bk)
   int kdim;         // channels a step contracts: bk, or kw d_in folded
-  int bkp;          // kdim rounded up to a k8 step
+  int bkp;          // kdim rounded up to a k step (8 f32, 16 bf16)
   int ks;           // channels a ring slot holds; divides bkp
-  int xs;           // floats between two staged rows of x
+  int xs;           // elements between two staged rows of x
   int stages;       // ring slots
   int slot_bytes;   // bytes of one ring slot
   int steps;        // steps of the contraction: d_in / bk x kh kw, or kh
-  int vec;          // 16-byte copies of x (else 4-byte)
-  int wvec;         // 16-byte copies of w (else 4-byte)
+  int vec;          // 16-byte copies of x (else 4-byte f32; bf16: of x
+                    // and w, else 2-byte loads and stores)
+  int wvec;         // f32: 16-byte copies of w (else 4-byte)
+  int wrow;         // bf16: bytes of a B row in a slot (16, 32, 64, 128)
+  int wbytes;       // bf16: bytes of a slot's B tile, before its x rows
 };
 
 // ---- device helpers -----------------------------------------------------
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-// Arrive on `bar` once this thread's earlier cp.async copies have landed
-// (one of the arrivals the barrier was made to expect).
-__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
 
 // Barrier `id` over `count` threads (the consumer warpgroups).
 __device__ __forceinline__ void named_sync(int id, int count) {
@@ -119,12 +114,6 @@ __device__ __forceinline__ void named_sync(int id, int count) {
 // Make this thread's shared-memory stores visible to wgmma's reads.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ uint32_t tf32_rna(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return r;
 }
 
 template <int M, int N>
@@ -301,6 +290,147 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[128],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// D += A B, wgmma m64nNk16 bf16: A [64 x 16] in registers (a0 row g, k 2t,
+// 2t + 1; a1 row g + 8, k 2t, 2t + 1; a2 row g, k 2t + 8, 2t + 9; a3 row
+// g + 8, k 2t + 8, 2t + 9 of the warp's 16 rows, the lower k in the lower
+// half), B [16 x N] MN-major (transposed) in shared memory; D as for tf32.
+__device__ __forceinline__ void wgmma_bf16(float (&d)[4],
+                                           const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3"
+      "}, {%4, %5, %6, %7}, %8, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_bf16(float (&d)[8],
+                                           const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_bf16(float (&d)[16],
+                                           const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_bf16(float (&d)[32],
+                                           const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_bf16(float (&d)[64],
+                                           const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_bf16(float (&d)[128],
+                                           const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 // ---- the block ----------------------------------------------------------
 
 // k8 steps a consumer issues per commit group: 4 / MA beside one consumer
@@ -387,14 +517,97 @@ __device__ __forceinline__ void mma_steps(float (&acc)[MA][BN / 2],
   wgmma_commit();
 }
 
-// y[p, n0 + c] for the block's tile (see the file's note).  BN: the
-// wgmma width (bn rounded up to a power of two, at least 8); MA: 64-row
-// atoms of each of the NC consumer warpgroups.
-template <int BN, int MA, int NC>
-__device__ __forceinline__ void mma_tile(const float* __restrict__ x,
-                                         const float* __restrict__ w,
-                                         float* __restrict__ y,
+// ---- the bf16 route --------------------------------------------------------
+
+// This thread's x values of `n` k16 steps (at most KC) as bf16 pairs, as
+// the A fragment wants them: rows g and g + 8 of each of its atoms (`xa`:
+// row g of the first atom, at column 4t of the first step), where phys
+// columns 4t .. 4t + 3 of a step hold logical k = 2t, 2t + 1, 2t + 8,
+// 2t + 9 (`bf16_row` places w's rows to match).
+template <int KC, int MA>
+__device__ __forceinline__ void load_a16(uint32_t (&f)[KC][MA][4],
+                                         const __nv_bfloat16* xa, int xs, int n) {
+#pragma unroll
+  for (int c = 0; c < KC; ++c) {
+    if (c >= n) break;
+#pragma unroll
+    for (int a = 0; a < MA; ++a) {
+      const __nv_bfloat16* p = xa + 16 * c + a * 64 * xs;
+      const uint2 u = *reinterpret_cast<const uint2*>(p);
+      const uint2 v = *reinterpret_cast<const uint2*>(p + 8 * xs);
+      f[c][a][0] = u.x;
+      f[c][a][1] = v.x;
+      f[c][a][2] = u.y;
+      f[c][a][3] = v.y;
+    }
+  }
+}
+
+// The B row (logical k) of a slot's channel kk: the permutation of
+// `load_a16`'s reads within each k16 step.
+__host__ __device__ __forceinline__ int bf16_row(int kk) {
+  const int p = kk % 16;
+  return kk - p + 2 * (p / 4) + p % 2 + 8 * (p / 2 % 2);
+}
+
+// Byte offset in a slot's B tile of the 16-byte chunk c8 (columns 8 c8 ..
+// 8 c8 + 7) of B row `row`: MN-major rows of `wrow` bytes (16, 32, 64 or
+// 128: the tile's width, at most a 64-column panel; panels of ks rows lie
+// ks * wrow bytes apart), 16-byte chunks swizzled within each 8-row group
+// as the wgmma descriptor's 32, 64 or 128-byte swizzle reads them (none
+// for 16-byte rows).
+__device__ __forceinline__ int bf16_chunk(int row, int c8, int ks, int wrow) {
+  const int per = wrow / 16;
+  const int lin = (c8 / per) * ks * wrow + row * wrow + (c8 % per) * 16;
+  return lin ^ (((lin >> 7) & (per - 1)) << 4);
+}
+
+// The descriptor of the B tile of one k16 step at shared address `addr`.
+__device__ __forceinline__ uint64_t bf16_desc(uint32_t addr, int ks, int wrow) {
+  switch (wrow) {
+    case 16: return smem_desc(addr, 128, 128, 0);  // one 8-column core matrix
+    case 32: return smem_desc(addr, ks * 32, 256, 3);
+    case 64: return smem_desc(addr, ks * 64, 512, 2);
+  }
+  return smem_desc(addr, ks * 128, 1024, 1);
+}
+
+// `n` k16 steps of a consumer warpgroup: copy its x values into the A
+// fragments, then acc += x w for each step (`b`: the B tile of the first
+// step), one commit group.  The caller retires the previous group first.
+template <int BN, int KC, int MA>
+__device__ __forceinline__ void mma_steps16(float (&acc)[MA][BN / 2],
+                                            uint32_t (&ar)[KC][MA][4],
+                                            const uint32_t (&f)[KC][MA][4], int n,
+                                            uint32_t b, int ks, int wrow) {
+#pragma unroll
+  for (int c = 0; c < KC; ++c)
+#pragma unroll
+    for (int a = 0; a < MA; ++a)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ar[c][a][e] = f[c][a][e];
+  wgmma_fence();
+#pragma unroll
+  for (int c = 0; c < KC; ++c) {
+    if (c >= n) break;
+    const uint64_t d = bf16_desc(b + c * 16 * wrow, ks, wrow);
+#pragma unroll
+    for (int a = 0; a < MA; ++a) wgmma_bf16(acc[a], ar[c][a], d);
+  }
+  wgmma_commit();
+}
+
+// ---- the block ------------------------------------------------------------
+
+// y[p, n0 + c] for the block's tile (see the file's note), on f32 or bf16
+// operands.  BN: the wgmma width (bn rounded up to a power of two, at least
+// 8); MA: 64-row atoms of each of the NC consumer warpgroups.
+template <typename T, int BN, int MA, int NC>
+__device__ __forceinline__ void mma_tile(const T* __restrict__ x,
+                                         const T* __restrict__ w,
+                                         T* __restrict__ y,
                                          const MmaShape& s, const MmaTile& t) {
+  constexpr bool kF32 = sizeof(T) == 4;
   constexpr int ROWS = 64 * MA * NC;
   extern __shared__ __align__(128) uint8_t smem[];
   __shared__ uint64_t full[kMaxStages], empty[kMaxStages];
@@ -404,6 +617,8 @@ __device__ __forceinline__ void mma_tile(const float* __restrict__ x,
   int* riy = rn + ROWS;
   int* rix = riy + ROWS;
   uint8_t* ring = smem + table_bytes(ROWS);
+  if constexpr (!kF32)  // the swizzled B tiles sit on 1024-byte boundaries
+    ring += (1024 - (smem_u32(ring) & 1023)) & 1023;
 
   const long long npix = static_cast<long long>(s.n) * s.ho * s.wo;
   const long long m0 = static_cast<long long>(blockIdx.x) * t.bm;
@@ -451,7 +666,7 @@ __device__ __forceinline__ void mma_tile(const float* __restrict__ x,
       const uint32_t addr = red_addr + 4 * (row * BN + col);
       float sum = ld_cluster(addr, 0);
       for (int q = 1; q < split; ++q) sum += ld_cluster(addr, q);
-      y[p * s.d_out + n0 + col] = sum;
+      y[p * s.d_out + n0 + col] = from_f32<T>(sum);
     }
     cluster_sync();
   };
@@ -461,11 +676,13 @@ __device__ __forceinline__ void mma_tile(const float* __restrict__ x,
     if constexpr (rebalance)
       asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     const int pt = threadIdx.x - kProducer * NC;
-    const int width = t.vec ? 4 : 1;   // floats a copy of x
-    const int cpr = t.ks / width;      // copies a staged row
-    const int rpp = kProducer / cpr;   // rows a pass of the warpgroup
+    constexpr int EV = 16 / sizeof(T);  // elements a 16-byte copy
+    const int width = t.vec ? EV : kF32 ? 1 : 0;  // elements a copy of x
+    const int cpr = width ? t.ks / width : 1;     // copies a staged row
+    const int rpp = kProducer / cpr;              // rows a pass of the warpgroup
     const int pr = pt / cpr, pc = (pt % cpr) * width;
-    const int wwidth = t.wvec ? 4 : 1;  // floats a copy of w
+    const int wwidth = t.wvec ? 4 : 1;  // floats a copy of w (f32)
+    const int tap_rows = t.fold ? s.kw * s.d_in : s.d_in;  // w rows a tap
     for (int it = 0; it < items; ++it) {
       const int st = it % t.stages;
       mbar_wait(&empty[st], ((it / t.stages) & 1) ^ 1);
@@ -476,42 +693,120 @@ __device__ __forceinline__ void mma_tile(const float* __restrict__ x,
       // slot's first channel; folded, its first (dx, ci) pair, which lie
       // contiguous in x's row and in w
       const int ci0 = (q / taps) * t.kdim + kofs;
-      float* xs = reinterpret_cast<float*>(ring + st * t.slot_bytes);
-      if (pr < rpp) {
-        const bool kin = kofs + pc < t.kdim;
-        const int ex = t.fold ? (kofs + pc) / s.d_in : 0;  // folded tap
-        for (int r = pr; r < ROWS; r += rpp) {
-          const int nn = rn[r], iy = riy[r] + dy, ix = rix[r] + dx;
-          const bool live =
-              kin && nn >= 0 &&
-              static_cast<unsigned>(iy) < static_cast<unsigned>(s.h) &&
-              static_cast<unsigned>(ix + ex) < static_cast<unsigned>(s.w);
+      uint8_t* slot = ring + st * t.slot_bytes;
+      const T* wsrc =
+          w + (static_cast<long long>(tap) * tap_rows + ci0) * s.d_out + n0;
+      if constexpr (kF32) {
+        float* xs = reinterpret_cast<float*>(slot);
+        if (pr < rpp) {
+          const bool kin = kofs + pc < t.kdim;
+          const int ex = t.fold ? (kofs + pc) / s.d_in : 0;  // folded tap
+          for (int r = pr; r < ROWS; r += rpp) {
+            const int nn = rn[r], iy = riy[r] + dy, ix = rix[r] + dx;
+            const bool live =
+                kin && nn >= 0 &&
+                static_cast<unsigned>(iy) < static_cast<unsigned>(s.h) &&
+                static_cast<unsigned>(ix + ex) < static_cast<unsigned>(s.w);
+            const float* src =
+                live ? x + (static_cast<long long>(nn * s.h + iy) * s.w + ix) *
+                               s.d_in + ci0 + pc
+                     : x;
+            if (t.vec)
+              cp_async16(xs + r * t.xs + pc, src, live ? 16 : 0);
+            else
+              cp_async4(xs + r * t.xs + pc, src, live ? 4 : 0);
+          }
+        }
+        // w[tap][ci0 + kk][n0 + n] as it lies, [ks][BN] (zero past bk, bn)
+        float* raw = xs + ROWS * t.xs;
+        for (int e = pt * wwidth; e < t.ks * BN; e += kProducer * wwidth) {
+          const int kk = e / BN, n = e % BN;
+          const bool live = kofs + kk < t.kdim && n < t.bn;
           const float* src =
-              live ? x + (static_cast<long long>(nn * s.h + iy) * s.w + ix) *
-                             s.d_in + ci0 + pc
-                   : x;
-          if (t.vec)
-            cp_async16(xs + r * t.xs + pc, src, live ? 16 : 0);
+              live ? wsrc + static_cast<long long>(kk) * s.d_out + n : w;
+          if (t.wvec)
+            cp_async16(raw + e, src, live ? 16 : 0);
           else
-            cp_async4(xs + r * t.xs + pc, src, live ? 4 : 0);
+            cp_async4(raw + e, src, live ? 4 : 0);
+        }
+        cp_async_arrive(&full[st]);
+      } else {
+        // B: w[tap][ci0 + kk][n0 ..] at row bf16_row(kk) of the slot's
+        // swizzled MN-major tile (zero past bk, bn); then x [rows][ks]
+        T* xs = reinterpret_cast<T*>(slot + t.wbytes);
+        if (t.vec) {
+          if (pr < rpp) {
+            const bool kin = kofs + pc < t.kdim;
+            for (int r = pr; r < ROWS; r += rpp) {
+              const int nn = rn[r], iy = riy[r] + dy, ix = rix[r] + dx;
+              const bool live =
+                  kin && nn >= 0 &&
+                  static_cast<unsigned>(iy) < static_cast<unsigned>(s.h) &&
+                  static_cast<unsigned>(ix) < static_cast<unsigned>(s.w);
+              const T* src =
+                  live ? x + (static_cast<long long>(nn * s.h + iy) * s.w + ix) *
+                                 s.d_in + ci0 + pc
+                       : x;
+              cp_async16(xs + r * t.xs + pc, src, live ? 16 : 0);
+            }
+          }
+          for (int e = pt; e < t.ks * (BN / 8); e += kProducer) {
+            const int kk = e / (BN / 8), c8 = e % (BN / 8);
+            const bool live = kofs + kk < t.kdim && 8 * c8 < t.bn;
+            const T* src =
+                live ? wsrc + static_cast<long long>(kk) * s.d_out + 8 * c8 : w;
+            cp_async16(slot + bf16_chunk(bf16_row(kk), c8, t.ks, t.wrow), src,
+                       live ? 16 : 0);
+          }
+          cp_async_arrive(&full[st]);
+        } else {
+          // rows that allow no 16-byte copy (conv1's 3 channels): 2 bytes
+          // at a time through registers, kU loads in flight a thread, then
+          // a plain (release) arrival
+          constexpr int kU = 8;
+          for (int e0 = pt; e0 < ROWS * t.ks; e0 += kU * kProducer) {
+            T v[kU];
+#pragma unroll
+            for (int u = 0; u < kU; ++u) {
+              const int e = e0 + u * kProducer;
+              const int r = min(e / t.ks, ROWS - 1), k = e % t.ks;
+              const int nn = e < ROWS * t.ks ? rn[r] : -1;
+              const int iy = riy[r] + dy, ix = rix[r] + dx;
+              const int ex = t.fold ? (kofs + k) / s.d_in : 0;  // folded tap
+              const bool live =
+                  kofs + k < t.kdim && nn >= 0 &&
+                  static_cast<unsigned>(iy) < static_cast<unsigned>(s.h) &&
+                  static_cast<unsigned>(ix + ex) < static_cast<unsigned>(s.w);
+              v[u] = live ? x[(static_cast<long long>(nn * s.h + iy) * s.w + ix) *
+                                  s.d_in + ci0 + k]
+                          : from_f32<T>(0.f);
+            }
+#pragma unroll
+            for (int u = 0; u < kU; ++u) {
+              const int e = e0 + u * kProducer;
+              if (e < ROWS * t.ks) xs[e / t.ks * t.xs + e % t.ks] = v[u];
+            }
+          }
+          for (int e0 = pt; e0 < t.ks * BN; e0 += kU * kProducer) {
+            T v[kU];
+#pragma unroll
+            for (int u = 0; u < kU; ++u) {
+              const int e = e0 + u * kProducer, kk = e / BN, n = e % BN;
+              const bool live = e < t.ks * BN && kofs + kk < t.kdim && n < t.bn;
+              v[u] = live ? wsrc[static_cast<long long>(kk) * s.d_out + n]
+                          : from_f32<T>(0.f);
+            }
+#pragma unroll
+            for (int u = 0; u < kU; ++u) {
+              const int e = e0 + u * kProducer, kk = e / BN, n = e % BN;
+              if (e < t.ks * BN)
+                *reinterpret_cast<T*>(slot + bf16_chunk(bf16_row(kk), n / 8, t.ks, t.wrow) +
+                                      2 * (n % 8)) = v[u];
+            }
+          }
+          mbar_arrive(&full[st]);
         }
       }
-      // w[tap][ci0 + kk][n0 + n] as it lies, [ks][BN] (zero past bk, bn)
-      float* raw = xs + ROWS * t.xs;
-      const int tap_rows = t.fold ? s.kw * s.d_in : s.d_in;  // w rows a tap
-      const float* wsrc =
-          w + (static_cast<long long>(tap) * tap_rows + ci0) * s.d_out + n0;
-      for (int e = pt * wwidth; e < t.ks * BN; e += kProducer * wwidth) {
-        const int kk = e / BN, n = e % BN;
-        const bool live = kofs + kk < t.kdim && n < t.bn;
-        const float* src =
-            live ? wsrc + static_cast<long long>(kk) * s.d_out + n : w;
-        if (t.wvec)
-          cp_async16(raw + e, src, live ? 16 : 0);
-        else
-          cp_async4(raw + e, src, live ? 4 : 0);
-      }
-      cp_async_arrive(&full[st]);
     }
     cp_async_wait_all();
     if (split > 1) {
@@ -532,55 +827,81 @@ __device__ __forceinline__ void mma_tile(const float* __restrict__ x,
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[a][i] = 0.f;
   constexpr int KC = mma_chunk(MA, NC);
-  uint32_t ah[KC][MA][4], al[KC][MA][4];
-  float f[KC][MA][4];
-  const int nk = t.ks / 8;
   const int row0 = 64 * MA * wg + 16 * wq + g;
-  // the consumers' two buffers of w's hi / lo halves (by item parity:
-  // one is written while the other may still be read by wgmma)
-  float* own = reinterpret_cast<float*>(ring + t.stages * t.slot_bytes);
-  for (int it = 0; it < items; ++it) {
-    const int st = it % t.stages;
-    mbar_wait(&full[st], (it / t.stages) & 1);
-    const float* xs = reinterpret_cast<const float*>(ring + st * t.slot_bytes);
-    const float* xa = xs + row0 * t.xs + 2 * tq;
-    // w as hi / lo into the consumers' buffer of the item's parity,
-    // [ks / 8][BN / 8][2][8][4] floats each: logical k j of a k8 step at
-    // phys kk = 2 (j % 4) + j / 4, as x is read
-    const float* raw = xs + ROWS * t.xs;
-    float* ph = own + (it & 1) * 2 * t.ks * BN;
-    float* pl = ph + t.ks * BN;
-    for (int e = threadIdx.x; e < t.ks * BN; e += kProducer * NC) {
-      const int kk = e / BN, n = e % BN;
-      const float v = raw[e];
-      const uint32_t hi = tf32_rna(v);
-      const uint32_t lo = tf32_rna(v - __uint_as_float(hi));
-      const int j = (kk % 8) / 2 + 4 * (kk % 2);
-      const int off = (kk / 8) * BN * 8 + ((n / 8) * 2 + j / 4) * 32 +
-                      (n % 8) * 4 + j % 4;
-      ph[off] = __uint_as_float(hi);
-      pl[off] = __uint_as_float(lo);
+  if constexpr (kF32) {
+    uint32_t ah[KC][MA][4], al[KC][MA][4];
+    float f[KC][MA][4];
+    const int nk = t.ks / 8;
+    // the consumers' two buffers of w's hi / lo halves (by item parity:
+    // one is written while the other may still be read by wgmma)
+    float* own = reinterpret_cast<float*>(ring + t.stages * t.slot_bytes);
+    for (int it = 0; it < items; ++it) {
+      const int st = it % t.stages;
+      mbar_wait(&full[st], (it / t.stages) & 1);
+      const float* xs = reinterpret_cast<const float*>(ring + st * t.slot_bytes);
+      const float* xa = xs + row0 * t.xs + 2 * tq;
+      // w as hi / lo into the consumers' buffer of the item's parity,
+      // [ks / 8][BN / 8][2][8][4] floats each: logical k j of a k8 step at
+      // phys kk = 2 (j % 4) + j / 4, as x is read
+      const float* raw = xs + ROWS * t.xs;
+      float* ph = own + (it & 1) * 2 * t.ks * BN;
+      float* pl = ph + t.ks * BN;
+      for (int e = threadIdx.x; e < t.ks * BN; e += kProducer * NC) {
+        const int kk = e / BN, n = e % BN;
+        const float v = raw[e];
+        const uint32_t hi = tf32_rna(v);
+        const uint32_t lo = tf32_rna(v - __uint_as_float(hi));
+        const int j = (kk % 8) / 2 + 4 * (kk % 2);
+        const int off = (kk / 8) * BN * 8 + ((n / 8) * 2 + j / 4) * 32 +
+                        (n % 8) * 4 + j % 4;
+        ph[off] = __uint_as_float(hi);
+        pl[off] = __uint_as_float(lo);
+      }
+      fence_proxy_async();
+      named_sync(1, kProducer * NC);  // every consumer's share is in
+      const uint32_t bh = smem_u32(ph);
+      const uint32_t bl = smem_u32(pl);
+      load_a(f, xa, t.xs, nk);
+      for (int j = 0; j < nk; j += KC) {
+        mma_steps<BN, KC, MA>(acc, ah, al, f, nk - j, bh + j * BN * 32,
+                              bl + j * BN * 32);
+        // the next steps' x loads overlap these steps' products
+        if (j + KC < nk) load_a(f, xa + 8 * (j + KC), t.xs, nk - j - KC);
+        wgmma_wait_all();
+        pin(ah);
+        pin(al);
+      }
+      pin(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
     }
-    fence_proxy_async();
-    named_sync(1, kProducer * NC);  // every consumer's share is in
-    const uint32_t bh = smem_u32(ph);
-    const uint32_t bl = smem_u32(pl);
-    load_a(f, xa, t.xs, nk);
-    for (int j = 0; j < nk; j += KC) {
-      mma_steps<BN, KC, MA>(acc, ah, al, f, nk - j, bh + j * BN * 32,
-                            bl + j * BN * 32);
-      // the next steps' x loads overlap these steps' products
-      if (j + KC < nk) load_a(f, xa + 8 * (j + KC), t.xs, nk - j - KC);
-      wgmma_wait_all();
-      pin(ah);
-      pin(al);
+  } else {
+    uint32_t ar[KC][MA][4], f[KC][MA][4];
+    const int nk = t.ks / 16;
+    for (int it = 0; it < items; ++it) {
+      const int st = it % t.stages;
+      mbar_wait(&full[st], (it / t.stages) & 1);
+      // the producer's writes (cp.async or plain stores) before wgmma's
+      // reads through the async proxy
+      fence_proxy_async();
+      const uint8_t* slot = ring + st * t.slot_bytes;
+      const T* xa = reinterpret_cast<const T*>(slot + t.wbytes) + row0 * t.xs + 4 * tq;
+      const uint32_t b = smem_u32(slot);
+      load_a16(f, xa, t.xs, nk);
+      for (int j = 0; j < nk; j += KC) {
+        mma_steps16<BN, KC, MA>(acc, ar, f, nk - j, b + j * 16 * t.wrow, t.ks, t.wrow);
+        if (j + KC < nk) load_a16(f, xa + 16 * (j + KC), t.xs, nk - j - KC);
+        wgmma_wait_all();
+        pin(ar);
+      }
+      pin(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
     }
-    pin(acc);
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[st]);
   }
 
   if (split == 1) {
+    const bool pairs = !kF32 && s.d_out % 2 == 0 && t.bn % 2 == 0;
 #pragma unroll
     for (int a = 0; a < MA; ++a)
 #pragma unroll
@@ -588,12 +909,17 @@ __device__ __forceinline__ void mma_tile(const float* __restrict__ x,
         const int row = 64 * (MA * wg + a) + 16 * wq + g + 8 * h;
         const long long p = m0 + row;
         if (row >= t.bm || p >= npix) continue;
-        float* dst = y + p * s.d_out + n0;
+        T* dst = y + p * s.d_out + n0;
 #pragma unroll
         for (int i = 0; i < BN / 8; ++i) {
           const int col = 8 * i + 2 * tq;
-          if (col < t.bn) dst[col] = acc[a][4 * i + 2 * h];
-          if (col + 1 < t.bn) dst[col + 1] = acc[a][4 * i + 2 * h + 1];
+          const float v0 = acc[a][4 * i + 2 * h], v1 = acc[a][4 * i + 2 * h + 1];
+          if (pairs && col + 1 < t.bn) {
+            *reinterpret_cast<uint32_t*>(dst + col) = bf16_pack(v0, v1);
+            continue;
+          }
+          if (col < t.bn) dst[col] = from_f32<T>(v0);
+          if (col + 1 < t.bn) dst[col + 1] = from_f32<T>(v1);
         }
       }
     return;
@@ -663,9 +989,10 @@ struct MmaLaunch {
 
 // Plan the (bm, bk, bn) tile of `s`, split `split` ways along a cluster
 // (0: as `split_rule` gives); false if the kernels do not take it.
-// `x_ok`, `w_ok`: x, w are 16-byte aligned.
+// `x_ok`, `w_ok`: x, w are 16-byte aligned; `elem`: bytes of an element
+// (4: f32, 2: bf16).
 inline bool plan_tile(const MmaShape& s, int bm, int bk, int bn, int split,
-                      bool x_ok, bool w_ok, MmaLaunch* l) {
+                      bool x_ok, bool w_ok, int elem, MmaLaunch* l) {
   if (bm < 1 || bm > 512 || bk < 1 || bn < 1 || bn > 256 || s.d_in % bk ||
       s.d_out % bn || split < 0 || split > kMaxSplit)
     return false;
@@ -686,13 +1013,18 @@ inline bool plan_tile(const MmaShape& s, int bm, int bk, int bn, int split,
   t.bm = rows_live;
   t.bk = bk;
   t.bn = bn;
-  const bool narrow = s.d_in % 4 || bk % 4;  // rows of 4-byte copies
-  t.vec = x_ok && !narrow;
+  const bool f32 = elem == 4;
+  const int ev = 16 / elem;  // elements a 16-byte copy
+  const bool narrow = s.d_in % ev || bk % ev;  // rows allow no 16-byte copy
+  t.vec = f32 ? x_ok && !narrow
+              : x_ok && w_ok && !narrow && s.d_out % ev == 0 && bn % ev == 0;
   t.fold = narrow && bk == s.d_in && s.kw > 1;
   t.kdim = t.fold ? s.kw * s.d_in : bk;
-  t.bkp = (t.kdim + 7) / 8 * 8;
+  const int kstep = f32 ? 8 : 16;
+  t.bkp = (t.kdim + kstep - 1) / kstep * kstep;
   t.steps = t.fold ? s.kh : s.d_in / bk * s.kh * s.kw;
   t.wvec = w_ok && s.d_out % 4 == 0 && bn % 4 == 0;
+  t.wrow = l->bn_pad * 2 < 128 ? l->bn_pad * 2 : 128;
   const long long tiles_m = (npix + rows_live - 1) / rows_live;
   if (split == 0) split = split_rule(tiles_m * (s.d_out / bn), t.steps, sm_count());
   if (split > t.steps) return false;
@@ -700,15 +1032,28 @@ inline bool plan_tile(const MmaShape& s, int bm, int bk, int bn, int split,
   const int steps_per_block = (t.steps + split - 1) / split;
   // the widest slot that leaves room for two blocks an SM, else for one
   for (int budget : {kSmemHalf, kSmemBlock}) {
-    for (int ks : {32, 24, 16, 8}) {
+    for (int k8 : {4, 3, 2, 1}) {
+      const int ks = k8 * 32 / elem;  // a row slice of 128, 96, 64, 32 bytes
       if (t.bkp % ks) continue;
       t.ks = ks;
-      t.xs = ks % 16 == 0 ? ks + 8 : ks;  // row pitch of 32 or 96 mod 128 B
-      // x and w as copied; beside the ring, the consumers' two buffers of
-      // w's hi and lo halves
-      t.slot_bytes = rows * t.xs * 4 + ks * l->bn_pad * 4;
-      const int own = 4 * ks * l->bn_pad * 4;
-      const int room = budget - table_bytes(rows) - own;
+      int own, slack;
+      if (f32) {
+        t.xs = ks % 16 == 0 ? ks + 8 : ks;  // row pitch of 32 or 96 mod 128 B
+        // x and w as copied; beside the ring, the consumers' two buffers of
+        // w's hi and lo halves
+        t.slot_bytes = rows * t.xs * 4 + ks * l->bn_pad * 4;
+        own = 4 * ks * l->bn_pad * 4;
+        slack = 0;
+      } else {
+        t.xs = ks % 32 == 0 ? ks + 16 : ks;  // row pitch of 32 or 96 mod 128 B
+        // w as wgmma reads it, on a 1024-byte boundary, then x; the ring
+        // starts on one too
+        t.wbytes = (ks * l->bn_pad * 2 + 1023) / 1024 * 1024;
+        t.slot_bytes = (t.wbytes + rows * t.xs * 2 + 1023) / 1024 * 1024;
+        own = 0;
+        slack = 1024;
+      }
+      const int room = budget - table_bytes(rows) - slack - own;
       // a ring of up to 8 slots, no more than a block has items
       const int items = steps_per_block * (t.bkp / ks);
       int stages = room / t.slot_bytes;
@@ -717,7 +1062,7 @@ inline bool plan_tile(const MmaShape& s, int bm, int bk, int bn, int split,
       if (stages < (items < 2 ? items : 2) || red > room + own) continue;
       t.stages = stages;
       const int ring = stages * t.slot_bytes + own;
-      l->smem = table_bytes(rows) + (ring > red ? ring : red);
+      l->smem = table_bytes(rows) + slack + (ring > red ? ring : red);
       l->split = split;
       l->grid = dim3(static_cast<unsigned>(tiles_m), s.d_out / bn, split);
       l->block = dim3(kProducer * (l->nc + 1));

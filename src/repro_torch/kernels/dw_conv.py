@@ -2,17 +2,26 @@
 
 Replaces the Pallas TPU kernel ``kernels/dw_conv/dw_conv.py::dw_conv_p``
 (adapter ``kernels/dw_conv/ops.py::dw_conv_impl``) with the CUDA kernel
-``csrc/dw_conv.cu``: a CUDA-core kernel blocked over output rows, one
-block per (frame, run of output rows, planned channel tile bc), threads
-laid out channel-fastest.  On an H100 HBM bytes bound it (9 MACs per
-output); a shared-memory halo of the block's input rows is left for a
-later change.
+``csrc/dw_conv.cu``: one block per (frame, run of output rows, planned
+channel tile bc) stages the input rows those outputs read, with the SAME
+padding zero-filled in place, once in shared memory by 16-byte cp.async
+copies.  Each thread owns a run of outputs along x for 4 neighbouring f32
+channels or 8 bf16 channels, keeps their 3 x 3 weights in registers in
+f32, applies each staged input vector to every output of its run that
+reads it, accumulates in f32 and writes 16 bytes at a time; a channel
+tile that is no whole number of 16-byte vectors runs the same kernel an
+element at a time.  On an H100 HBM bytes bound it (9 MACs per output
+against 4 or 2 bytes an element).  The kernel takes 3 x 3 taps at stride
+1 or 2, as every CNN family here has them; the wrapper raises for any
+other on the card, and for a 16-byte tile of operands that are not
+16-byte aligned.
 
-``dw_conv_plain`` repeats the Pallas body's arithmetic in plain
-PyTorch: per tap a strided window times ``w[dy, dx]``, accumulated in
-f32.  The wrapper runs it only for a tensor on the CPU; for a CUDA
-tensor it launches the kernel or raises.  ``dw_conv.launches`` counts
-kernel launches.
+Both routes take float32 or bfloat16 and write ``x``'s dtype.
+``dw_conv_plain`` repeats the Pallas body's arithmetic in plain PyTorch:
+per tap a strided window times ``w[dy, dx]``, accumulated in f32.  The
+wrapper runs it only for a tensor on the CPU; for a CUDA tensor it
+launches the kernel or raises.  ``dw_conv.launches`` counts kernel
+launches.
 """
 from __future__ import annotations
 
@@ -23,8 +32,12 @@ import torch
 
 from repro_torch.core.hw import H100_SXM
 from repro_torch.core.rate import divisors
-from repro_torch.core.tiles import TileChoice, dw_rows
+from repro_torch.core.tiles import TileChoice, dw_halo_bytes, dw_rows
 from repro_torch.kernels import _build
+
+# The taps and strides the kernel takes (those of every CNN family here).
+TAPS = 3
+STRIDES = (1, 2)
 
 
 def dw_conv_plain(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
@@ -57,7 +70,7 @@ def dw_conv(
         raise ValueError(f"dw_conv: shapes {tuple(x.shape)}, {tuple(w.shape)}")
     if stride < 1:
         raise ValueError(f"dw_conv: stride {stride}")
-    _build.check_operands("dw_conv", x, w)
+    _build.check_operands("dw_conv", x, w, dtypes=_build.FLOATS)
     n, h, wd, c = x.shape
     kh, kw, _ = w.shape
     ho, (pt, _) = _build.same_pads(h, kh, stride)
@@ -67,13 +80,22 @@ def dw_conv(
             f"dw_conv: tile (bm={bm}, bc={bc}) must be whole output rows of "
             f"width {wo} and divide C={c}"
         )
-    if kh * kw * bc * 4 > H100_SXM.smem_per_block:
-        raise ValueError(f"dw_conv: {kh}x{kw}x{bc} weights exceed a block")
+    halo = dw_halo_bytes(min(bm // wo, ho), wo, bc, (kh, kw), stride,
+                         x.element_size())
+    if halo > H100_SXM.smem_per_block:
+        raise ValueError(f"dw_conv: the block's {halo} B of input rows exceed "
+                         f"the {H100_SXM.smem_per_block} B of a block")
     if not _build.on_card(x):
         return dw_conv_plain(x, w, stride)
+    if (kh, kw) != (TAPS, TAPS) or stride not in STRIDES:
+        raise ValueError(f"dw_conv: the kernel takes {TAPS}x{TAPS} taps at stride "
+                         f"1 or 2, got {kh}x{kw} at stride {stride}")
+    if bc % (16 // x.element_size()) == 0 and (x.data_ptr() | w.data_ptr()) % 16:
+        raise ValueError("dw_conv: a channel tile of whole 16-byte vectors needs "
+                         "x and w 16-byte aligned")
     lib = _build.library()
     y = torch.empty((n, ho, wo, c), dtype=x.dtype, device=x.device)
-    err = lib.dw_conv_f32(
+    err = getattr(lib, f"dw_conv_{_build.SUFFIX[x.dtype]}")(
         x.data_ptr(), w.data_ptr(), y.data_ptr(), n, h, wd, c, ho, wo, kh, kw,
         stride, pt, pl, bm // wo, bc,
         _build.raw_stream(x.device),

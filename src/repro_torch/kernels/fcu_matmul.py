@@ -4,16 +4,19 @@ Replaces the Pallas TPU kernel ``kernels/fcu_matmul/fcu_matmul.py::
 fcu_matmul_p`` (adapters ``kernels/fcu_matmul/ops.py``) with the CUDA
 kernel ``csrc/fcu_matmul.cu``: one block per planned (bm x bn) output
 tile, walking d_in in planned bk steps on the tensor cores (wgmma tf32,
-three products per step so the result keeps f32 accuracy) fed by a
-cp.async ring (``csrc/tile_mma.cuh``).  Where the tiles leave SMs idle
+three products per step so the result keeps f32 accuracy; on bf16
+operands one wgmma bf16 product a step) fed by a cp.async ring
+(``csrc/tile_mma.cuh``).  Where the tiles leave SMs idle
 the kernel's plan splits the bk steps over a thread-block cluster
 (``cluster_split`` reads its choice).  Its bound on an H100 is HBM bytes
-for narrow layers and the 3xTF32 products at 495 TFLOP/s for wide ones.
+for narrow layers and the 3xTF32 products at 495 TFLOP/s (bf16: one
+product at 989 TFLOP/s) for wide ones.
 
-``fcu_matmul_plain`` is the same function in plain PyTorch (f32
-accumulation); the wrapper runs it only for a tensor on the CPU.  For a
-CUDA tensor it launches the kernel or raises.  ``fcu_matmul.launches``
-counts kernel launches.
+Both take float32 or bfloat16 and write ``x``'s dtype, accumulating in
+f32, as the Pallas kernel does.  ``fcu_matmul_plain`` is the same
+function in plain PyTorch (f32 accumulation); the wrapper runs it only
+for a tensor on the CPU.  For a CUDA tensor it launches the kernel or
+raises.  ``fcu_matmul.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -36,7 +39,7 @@ def fcu_matmul(x: torch.Tensor, w: torch.Tensor, *, bm: int, bk: int, bn: int
     """``x [m, d_in] @ w [d_in, d_out]`` with the (bm, bk, bn) block tile."""
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"fcu_matmul: shapes {tuple(x.shape)} @ {tuple(w.shape)}")
-    _build.check_operands("fcu_matmul", x, w)
+    _build.check_operands("fcu_matmul", x, w, dtypes=_build.FLOATS)
     _build.check_mma_tile("fcu_matmul", bm, bk, bn, x.shape[1], w.shape[1])
     if not _build.on_card(x):
         return fcu_matmul_plain(x, w)
@@ -50,7 +53,7 @@ def _launch(x, w, bm: int, bk: int, bn: int, split: int) -> torch.Tensor:
     lib = _build.library()
     (m, d_in), d_out = x.shape, w.shape[1]
     y = torch.empty((m, d_out), dtype=x.dtype, device=x.device)
-    err = lib.fcu_matmul_f32(
+    err = getattr(lib, f"fcu_matmul_{_build.SUFFIX[x.dtype]}")(
         x.data_ptr(), w.data_ptr(), y.data_ptr(), m, d_in, d_out, bm, bk, bn,
         split, _build.raw_stream(x.device),
     )
@@ -59,10 +62,13 @@ def _launch(x, w, bm: int, bk: int, bn: int, split: int) -> torch.Tensor:
     return y
 
 
-def cluster_split(m: int, d_in: int, d_out: int, *, bm: int, bk: int, bn: int) -> int:
+def cluster_split(m: int, d_in: int, d_out: int, *, bm: int, bk: int, bn: int,
+                  dtype: torch.dtype = torch.float32) -> int:
     """Blocks the kernel splits each (bm, bk, bn) tile's steps over on the
-    current card (1: none; 0: a tile it does not take)."""
-    return _build.library().mma_split(1, 1, m, d_in, 1, m, d_out, 1, 1, bm, bk, bn)
+    current card for ``dtype`` operands (1: none; 0: a tile it does not
+    take)."""
+    return _build.library().mma_split(1, 1, m, d_in, 1, m, d_out, 1, 1, bm, bk, bn,
+                                      dtype.itemsize)
 
 
 fcu_matmul.launches = 0

@@ -6,12 +6,15 @@ CUDA kernel ``csrc/kpu_conv.cu``: an implicit GEMM over M = N*Ho*Wo
 output pixels, one block per planned (bm pixels x bco channels) tile,
 walking the planned input-channel tile bci and the kh*kw taps on the
 tensor cores (wgmma tf32, three products per step so the result keeps
-f32 accuracy) fed by a cp.async ring (``csrc/tile_mma.cuh``).  Only
+f32 accuracy; on bf16 operands one wgmma bf16 product a step) fed by a
+cp.async ring (``csrc/tile_mma.cuh``).  Only
 surviving strided windows are read, and the asymmetric SAME padding is
 zero-fill in the kernel's index math.  Where the tiles leave SMs idle
 the kernel's plan splits the (bci, tap) steps over a thread-block
 cluster (``cluster_split`` reads its choice).
-On an H100 the 3xTF32 products at 495 TFLOP/s bound it.
+On an H100 the 3xTF32 products at 495 TFLOP/s bound it (bf16: one product
+at 989 TFLOP/s).  Both take float32 or bfloat16 and write ``x``'s dtype,
+accumulating in f32, as the Pallas kernel does.
 
 ``kpu_conv_plain`` repeats the Pallas body's arithmetic in plain
 PyTorch: per (dy, dx) tap a strided window of the padded input times
@@ -50,7 +53,7 @@ def kpu_conv(
         raise ValueError(f"kpu_conv: shapes {tuple(x.shape)}, {tuple(w.shape)}")
     if stride < 1:
         raise ValueError(f"kpu_conv: stride {stride}")
-    _build.check_operands("kpu_conv", x, w)
+    _build.check_operands("kpu_conv", x, w, dtypes=_build.FLOATS)
     _build.check_mma_tile("kpu_conv", bm, bci, bco, x.shape[3], w.shape[3])
     if not _build.on_card(x):
         return kpu_conv_plain(x, w, stride)
@@ -68,7 +71,7 @@ def _launch(x, w, stride: int, bm: int, bci: int, bco: int, split: int
     ho, (pt, _) = _build.same_pads(h, kh, stride)
     wo, (pl, _) = _build.same_pads(wd, kw, stride)
     y = torch.empty((n, ho, wo, d_out), dtype=x.dtype, device=x.device)
-    err = lib.kpu_conv_f32(
+    err = getattr(lib, f"kpu_conv_{_build.SUFFIX[x.dtype]}")(
         x.data_ptr(), w.data_ptr(), y.data_ptr(), n, h, wd, d_in, ho, wo,
         d_out, kh, kw, stride, pt, pl, bm, bci, bco, split,
         _build.raw_stream(x.device),
@@ -78,16 +81,16 @@ def _launch(x, w, stride: int, bm: int, bci: int, bco: int, split: int
     return y
 
 
-def cluster_split(x_shape, w_shape, *, stride: int, bm: int, bci: int, bco: int
-                  ) -> int:
+def cluster_split(x_shape, w_shape, *, stride: int, bm: int, bci: int, bco: int,
+                  dtype: torch.dtype = torch.float32) -> int:
     """Blocks the kernel splits each (bm, bci, bco) tile's steps over on
-    the current card for NHWC ``x_shape`` and HWIO ``w_shape`` (1: none;
-    0: a tile it does not take)."""
+    the current card for NHWC ``x_shape`` and HWIO ``w_shape`` of
+    ``dtype`` (1: none; 0: a tile it does not take)."""
     n, h, wd, d_in = x_shape
     kh, kw, _, d_out = w_shape
     ho, wo = -(-h // stride), -(-wd // stride)
     return _build.library().mma_split(n, h, wd, d_in, ho, wo, d_out, kh, kw,
-                                      bm, bci, bco)
+                                      bm, bci, bco, dtype.itemsize)
 
 
 kpu_conv.launches = 0

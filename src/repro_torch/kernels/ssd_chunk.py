@@ -2,33 +2,48 @@
 
 Replaces the Pallas TPU kernel ``kernels/ssd_chunk/ssd_chunk.py::
 ssd_chunk_p`` (body ``_ssd_kernel``; adapter ``kernels/ssd_chunk/ops.py::
-ssd_chunk``) with the CUDA kernel ``csrc/ssd_chunk.cu``: one block per
-(batch, head, slice of the head dim P) walks the chunks itself with the
-[P-slice, N] state in f32 registers.  B and C are read at group width
-(head h reads group h // (H/G)); the JAX adapter's repeat to H heads would
-materialise 48x the tensor for mamba2.  At mamba2's prefill shapes the
-scan is bound by operations (67 TFLOP/s f32 on the CUDA cores); this first
-design runs its three products on the CUDA cores from shared memory, and
-tensor cores and TMA staging are left for a later change.
+ssd_chunk``) with the CUDA kernels of ``csrc/ssd_chunk.cu``, three phases
+on one stream after the block decomposition of the SSD paper (Mamba-2,
+arXiv:2405.21060), so that no block walks the chunks' heavy work in
+order:
+
+1. chunk states, every chunk at once: for each (batch, chunk, head) the
+   state a chunk adds, ``sum_j exp(a_cum_end - a_cum_j) xd_j^T B_j``
+   ``[P, N]``, into an f32 workspace ``[B, nc, H, P, N]``;
+2. state passing, a short elementwise walk over the chunks for each
+   (batch, head): ``S_c = exp(a_cum_end,c) S_{c-1} + dS_c``, leaving in
+   the workspace the state entering each chunk, and the final state;
+3. chunk outputs, every chunk at once: for each (batch, chunk, run of
+   ``ssd_head_run`` heads of one group) the scores C·Bᵀ once, then per
+   head ``(L o scores) xd + exp(a_cum) o (C S_{c-1}^T)``.
+
+The products run on the tensor cores (``mma.sync`` m16n8k8 tf32) in
+3xTF32, three products a step, so the result keeps f32 accuracy.  B and C
+are read at group width (head h reads group h // (H/G)); the JAX adapter's
+repeat to H heads would materialise 48x the tensor for mamba2.
 
 ``ssd_chunk_plain`` is the same function in plain PyTorch: the streaming
 scan over chunks of the JAX package's ``nn/ssm.py::ssd_chunked_streaming``
-in f32.  The wrapper runs it only for a tensor on the CPU.  For a CUDA
-tensor it launches the kernel or raises.  ``ssd_chunk.launches`` counts
-kernel launches.
+in f32.  Both take x, dt, B and C in float32 or bfloat16 (a in float32 or
+their dtype), compute in f32 and return y in x's dtype and the state in
+f32, as the Pallas kernel does.  The wrapper runs the plain version only
+for a tensor on the CPU.  For a CUDA tensor it launches the kernels or
+raises.  ``ssd_chunk.launches`` counts calls that launched them (one a
+call, for the three phases).
 """
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
 
 from repro_torch.core.hw import H100_SXM
+from repro_torch.core.rate import divisors
 from repro_torch.kernels import _build
 
-P_BLOCKS = (16, 32, 64)   # the kernel's instantiations: head-dim columns a block owns
-MAX_CHUNK = 128           # score columns: 16 threads x 8
-MAX_STATE = 128           # state columns: 16 threads x 8
+MAX_CHUNK = 128           # the kernels' shared-memory tiles: Q <= 128
+MAX_STATE = 128           # and N <= 128
 
 
 def ssd_chunk_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -36,12 +51,13 @@ def ssd_chunk_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """SSD as a streaming scan over chunks: x ``[B, L, H, P]``, dt
     ``[B, L, H]``, a ``[H]`` (negative), b, c ``[B, L, G, N]`` (G | H),
-    ``L % chunk == 0``.  Returns y ``[B, L, H, P]`` and the final state
-    ``[B, H, P, N]``, both f32.  B/C are repeated to heads one chunk at a
-    time."""
+    ``L % chunk == 0``.  Returns y ``[B, L, H, P]`` in x's dtype and the
+    final state ``[B, H, P, N]`` in f32, computed in f32.  B/C are
+    repeated to heads one chunk at a time."""
     bsz, l, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     nc, q, rep = l // chunk, chunk, h // g
+    y_dtype = x.dtype
     x, dt, a, b, c = (t.float() for t in (x, dt, a, b, c))
     ad = (dt * a[None, None, :]).reshape(bsz, nc, q, h)
     xd = (x * dt[..., None]).reshape(bsz, nc, q, h, p)
@@ -64,30 +80,34 @@ def ssd_chunk_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         s = (s * torch.exp(a_cum[:, -1, :])[..., None, None]
              + torch.einsum("bqhs,bqh,bqhp->bhps", b_i, decay_to_end, x_i))
         ys.append(y_diag + y_off)
-    return torch.stack(ys, dim=1).reshape(bsz, l, h, p), s
+    return torch.stack(ys, dim=1).reshape(bsz, l, h, p).to(y_dtype), s
 
 
-def ssd_p_block(bh: int, p: int, n: int, chunk: int) -> int:
-    """The card's slice of the head dim for ``bh`` (batch, head) pairs.
-    Each slice recomputes the chunk's C·Bᵀ scores but owns its columns of
-    y and the state, so narrower slices put more blocks on the 132 SMs
-    for more total work.  Picks the slice with the least work on the
-    busiest SM: waves of blocks times one block's multiply-adds per
-    chunk.  Every slice fits a block's shared memory at ``n`` and
-    ``chunk`` up to 128 (at most 199 KB of the 227 KB)."""
-    def cost(pb):
-        blocks = bh * -(-p // pb)
-        per_block = chunk * chunk * (n + pb) / 2 + 2 * chunk * n * pb
-        return -(-blocks // H100_SXM.sms) * per_block, -pb
+def ssd_head_run(batch: int, nc: int, h: int, g: int, p: int, n: int,
+                 chunk: int) -> int:
+    """Heads of one group that a chunk-state and a chunk-output block
+    take together (a divisor of H / G).  A block forms its chunk's C·Bᵀ
+    scores once for all of them, so longer runs form them fewer times but
+    leave fewer blocks for the 132 SMs (one an SM: up to 207 KB of shared
+    memory).  Picks the run with the least work on the busiest SM: waves
+    of blocks times one block's multiply-adds, the causal scores once and
+    each head's diagonal output and two state products."""
+    per_group = h // g
 
-    return min(P_BLOCKS, key=cost)
+    def cost(run):
+        blocks = batch * nc * g * (per_group // run)
+        per_block = chunk * chunk * n / 2 + run * (chunk * chunk * p / 2
+                                                   + 2 * chunk * n * p)
+        return math.ceil(blocks / H100_SXM.sms) * per_block, -run
+
+    return min(divisors(per_group), key=cost)
 
 
 def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
               b: torch.Tensor, c: torch.Tensor, *, chunk: int
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The SSD scan of ``ssd_chunk_plain``'s contract, f32, with
-    ``chunk <= 128`` and ``N <= 128``."""
+    """The SSD scan of ``ssd_chunk_plain``'s contract, with ``chunk <=
+    128`` and ``N <= 128``."""
     if x.dim() != 4 or dt.dim() != 3 or a.dim() != 1 or b.dim() != 4 or b.shape != c.shape:
         raise ValueError(f"ssd_chunk: shapes x {tuple(x.shape)}, dt {tuple(dt.shape)}, "
                          f"a {tuple(a.shape)}, b {tuple(b.shape)}, c {tuple(c.shape)}")
@@ -104,16 +124,25 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     if not 1 <= n <= MAX_STATE or p < 1:
         raise ValueError(f"ssd_chunk: state dim {n} must be in 1..{MAX_STATE}, "
                          f"head dim {p} positive")
-    _build.check_operands("ssd_chunk", x, dt, a, b, c)
+    _build.check_operands("ssd_chunk", x, dt, b, c, dtypes=_build.FLOATS)
+    _build.check_operands("ssd_chunk", a, dtypes=(torch.float32, x.dtype))
+    if a.device != x.device:
+        raise ValueError(f"ssd_chunk: operands on {x.device} and {a.device}")
     if not _build.on_card(x):
         return ssd_chunk_plain(x, dt, a, b, c, chunk=chunk)
-    p_block = ssd_p_block(bsz * h, p, n, chunk)
+    nc = l // chunk
+    run = ssd_head_run(bsz, nc, h, g, p, n, chunk)
     y = torch.empty_like(x)
     state = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
-    err = _build.library().ssd_chunk_f32(
+    # the state each chunk adds, then the state entering it; then each
+    # chunk's sum of dt * a
+    work = torch.empty(bsz * nc * h * (p * n + 1), dtype=torch.float32,
+                       device=x.device)
+    a = a.float()
+    err = getattr(_build.library(), f"ssd_chunk_{_build.SUFFIX[x.dtype]}")(
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
-        y.data_ptr(), state.data_ptr(), bsz, l, h, g, p, n, chunk, p_block,
-        _build.raw_stream(x.device),
+        y.data_ptr(), state.data_ptr(), work.data_ptr(), bsz, l, h, g, p, n,
+        chunk, run, _build.raw_stream(x.device),
     )
     _build.check_launch("ssd_chunk", err)
     ssd_chunk.launches += 1

@@ -13,7 +13,12 @@ bf16 outputs, computed in f32 (P in two bf16 terms on the card) and
 rounded once each side, at 2^-7 and 1e-4; f32 at 1e-4 and 1e-5.  The SSD
 kernel is held element by element against its plain version at the JAX
 kernel test's 2e-4, scaled by the element and by the output's RMS:
-|y - plain| <= 2e-4 x |plain| + 2e-4 x rms(plain).
+|y - plain| <= 2e-4 x |plain| + 2e-4 x rms(plain); with bf16 inputs its
+bf16 y, rounded once each side from f32, at 2^-7 x |plain| + 2e-4 x
+rms(plain).  The bf16 routes of the FCU, KPU and depthwise kernels are held
+at the JAX kernel tests' bf16 tolerances of the output's scale: 2e-2 for
+the FCU (tests/kernels/test_fcu_matmul.py), 3e-2 for the KPU and the
+depthwise conv (test_kpu_conv.py, test_dw_conv.py).
 """
 from fractions import Fraction
 
@@ -38,6 +43,8 @@ pytestmark = pytest.mark.cuda
 TOL = 1e-4
 FLASH_TOL = {torch.bfloat16: (2.0 ** -7, 1e-4), torch.float32: (1e-4, 1e-5)}
 SSD_TOL = 2e-4
+BF16_TOL = {"fcu_matmul": 2e-2, "kpu_conv": 3e-2, "dw_conv": 3e-2}
+DTYPES = [torch.float32, torch.bfloat16]
 
 
 @pytest.fixture
@@ -53,10 +60,16 @@ def _rand(shape, seed, scale=1.0):
     return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32))
 
 
-def _close(got, want):
+def _close(got, want, tol=TOL):
     torch.cuda.synchronize()
+    assert got.dtype == want.dtype
+    want = want.float()
     scale = max(1.0, want.abs().max().item())
-    assert (got - want).abs().max().item() <= TOL * scale
+    assert (got.float() - want).abs().max().item() <= tol * scale
+
+
+def _tol(kernel, dtype):
+    return TOL if dtype == torch.float32 else BF16_TOL[kernel]
 
 
 def _close_elementwise(got, want, rtol, atol):
@@ -65,10 +78,11 @@ def _close_elementwise(got, want, rtol, atol):
     assert bool((diff <= rtol * want.float().abs() + atol).all())
 
 
-def _close_rms(got, want, tol=SSD_TOL):
+def _close_rms(got, want, tol=SSD_TOL, rtol=None):
     torch.cuda.synchronize()
+    assert got.dtype == want.dtype
     want = want.float()
-    limit = tol * want.abs() + tol * want.square().mean().sqrt()
+    limit = (tol if rtol is None else rtol) * want.abs() + tol * want.square().mean().sqrt()
     assert bool(((got.float() - want).abs() <= limit).all())
 
 
@@ -99,18 +113,109 @@ def test_kpu_conv_kernel_matches_plain(card, hw, d_in, d_out, k, stride, rate):
     _close(y, kpu_conv.kpu_conv_plain(x, w, stride))
 
 
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
 @pytest.mark.parametrize(
     "hw,c,stride,rate",
     [(112, 96, 2, 3), (56, 144, 1, 3), (7, 960, 1, 3), (15, 24, 2, 1)],
 )
-def test_dw_conv_kernel_matches_plain(card, hw, c, stride, rate):
+def test_dw_conv_kernel_matches_plain(card, hw, c, stride, rate, dtype):
     spec, _ = conv_spec("d", "dwconv", c, c, (hw, hw), 3, stride)
     t = select_tile_for_impl(select_ours(spec, Fraction(rate)))
-    x = _rand((2, hw, hw, c), hw + c).to(card)
-    w = _rand((3, 3, c), c, 1 / 3).to(card)
+    x = _rand((2, hw, hw, c), hw + c).to(card, dtype)
+    w = _rand((3, 3, c), c, 1 / 3).to(card, dtype)
     y = _launched(dw_conv.dw_conv, lambda: dw_conv.dw_conv(
         x, w, stride=stride, bm=t.bm, bc=t.bk))
-    _close(y, dw_conv.dw_conv_plain(x, w, stride))
+    _close(y, dw_conv.dw_conv_plain(x, w, stride), _tol("dw_conv", dtype))
+
+
+def _dw_main_path_tiles():
+    """MobileNetV2's depthwise nodes at 224x224 with the rate-3 plan's
+    tiles: (label, hw, c, stride, bm, bc)."""
+    api = get_cnn_api("mobilenet_v2", device="cpu")
+    cfg = api.make_config()
+    graph, kp = api.graph(cfg), api.plan(cfg, Fraction(3))
+    return [(n, graph.spec(n).in_hw[0], graph.spec(n).d_in, graph.spec(n).stride[0],
+             ip.tile.bm, ip.tile.bk)
+            for n, ip in kp.items() if graph.spec(n).kind == "dwconv"]
+
+
+DW_MAIN_PATH_TILES = _dw_main_path_tiles()
+# Odd and even sizes at stride 1 and 2, ragged channel tiles (24, 72: not a
+# multiple of 32), one output row a block, and a tile of 8 channels (two f32
+# vectors, one bf16 vector); then tiles that are no whole number of 16-byte
+# vectors, which the kernel takes an element at a time: 4 channels (one f32
+# vector, half a bf16 one), 3 and 1 (the low-rate plans'), and 258, more
+# channels than a block has threads.
+DW_OTHER_TILES = [
+    ("15x15 s2 bc24", 15, 24, 2, 8, 24),
+    ("16x16 s2 bc72", 16, 144, 2, 16, 72),
+    ("9x9 s1 bc8", 9, 32, 1, 27, 8),
+    ("10x10 s1 bc16 rows1", 10, 48, 1, 10, 16),
+    ("7x7 s2 bc32", 7, 64, 2, 16, 32),
+    ("17x17 s1 bc96", 17, 96, 1, 34, 96),
+    ("12x12 s1 bc4", 12, 12, 1, 24, 4),
+    ("11x11 s2 bc3", 11, 9, 2, 12, 3),
+    ("8x8 s1 bc1", 8, 5, 1, 16, 1),
+    ("5x5 s2 bc258", 5, 258, 2, 3, 258),
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("label,hw,c,stride,bm,bc", DW_MAIN_PATH_TILES + DW_OTHER_TILES,
+                         ids=[t[0] for t in DW_MAIN_PATH_TILES + DW_OTHER_TILES])
+def test_dw_kernel_at_every_planned_tile(card, label, hw, c, stride, bm, bc, dtype):
+    """The depthwise kernel at each of MobileNetV2's planned tiles (batch 2)
+    and at odd and even sizes off the main path, in both dtypes."""
+    x = _rand((2, hw, hw, c), hw * c).to(card, dtype)
+    w = _rand((3, 3, c), c + 1, 1 / 3).to(card, dtype)
+    y = _launched(dw_conv.dw_conv, lambda: dw_conv.dw_conv(x, w, stride=stride, bm=bm,
+                                                           bc=bc))
+    assert y.dtype == dtype
+    _close(y, dw_conv.dw_conv_plain(x, w, stride), _tol("dw_conv", dtype))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("hw,c,k,stride,bm,bc", [(9, 16, 5, 1, 18, 16),
+                                                 (12, 12, 3, 3, 8, 4)])
+def test_dw_kernel_other_taps_and_strides(card, hw, c, k, stride, bm, bc, dtype):
+    """The kernel takes 3x3 taps at stride 1 and 2 only: a 5x5 kernel or
+    stride 3 on the card raises before any launch (the plain version on
+    the CPU takes them)."""
+    x = _rand((2, hw, hw, c), hw + k).to(card, dtype)
+    w = _rand((k, k, c), c + k, 1 / k).to(card, dtype)
+    before = dw_conv.dw_conv.launches
+    with pytest.raises(ValueError, match="3x3 taps"):
+        dw_conv.dw_conv(x, w, stride=stride, bm=bm, bc=bc)
+    assert dw_conv.dw_conv.launches == before
+    y = dw_conv.dw_conv(x.cpu(), w.cpu(), stride=stride, bm=bm, bc=bc)
+    _close(y.to(card), dw_conv.dw_conv_plain(x, w, stride), _tol("dw_conv", dtype))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_dw_kernel_refuses_unaligned_vectors(card, dtype):
+    """A tile of whole 16-byte vectors on an x that starts off a 16-byte
+    boundary raises before any launch; a tile the kernel takes an element
+    at a time runs on it."""
+    shape = (2, 8, 8, 16)
+    flat = _rand((int(np.prod(shape)) + 1,), 5).to(card, dtype)
+    x = flat[1:].view(shape)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    w = _rand((3, 3, 16), 6, 1 / 3).to(card, dtype)
+    before = dw_conv.dw_conv.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        dw_conv.dw_conv(x, w, stride=1, bm=16, bc=16)
+    assert dw_conv.dw_conv.launches == before
+    y = _launched(dw_conv.dw_conv, lambda: dw_conv.dw_conv(x, w, stride=1, bm=16, bc=2))
+    _close(y, dw_conv.dw_conv_plain(x, w, stride=1), _tol("dw_conv", dtype))
+
+
+def test_dw_kernel_is_deterministic(card):
+    x = _rand((8, 56, 56, 144), 3).to(card)
+    w = _rand((3, 3, 144), 4, 1 / 3).to(card)
+    first = dw_conv.dw_conv(x, w, stride=1, bm=224, bc=16)
+    again = dw_conv.dw_conv(x, w, stride=1, bm=224, bc=16)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
 
 
 @pytest.mark.parametrize(
@@ -218,21 +323,23 @@ OTHER_RATE_TILES = [
 ]
 
 
-def _tile_case(card, shape, d_in, d_out, bm, bk, bn, seed, split=0):
+def _tile_case(card, shape, d_in, d_out, bm, bk, bn, seed, split=0,
+               dtype=torch.float32):
     """The FCU (``shape`` = m) or KPU (``shape`` = (hw, k, stride), batch
-    2 off the main path, 8 on it) at one tile, its steps split over
-    ``split`` blocks (0: the kernel's rule): (kernel, plain) outputs."""
+    2 off the main path, 8 on it) at one tile on ``dtype`` operands, its
+    steps split over ``split`` blocks (0: the kernel's rule): (kernel,
+    plain) outputs."""
     if isinstance(shape, int):
-        x = _rand((shape, d_in), seed).to(card)
-        w = _rand((d_in, d_out), seed + 1, d_in ** -0.5).to(card)
+        x = _rand((shape, d_in), seed).to(card, dtype)
+        w = _rand((d_in, d_out), seed + 1, d_in ** -0.5).to(card, dtype)
         _build.check_mma_tile("fcu_matmul", bm, bk, bn, d_in, d_out)
         y = _launched(fcu_matmul.fcu_matmul, lambda: fcu_matmul._launch(
             x, w, bm, bk, bn, split))
         return y, fcu_matmul.fcu_matmul_plain(x, w)
     hw, k, stride = shape
     n = 8 if hw in (224, 56, 28, 14, 7) and bm > 1 else 2
-    x = _rand((n, hw, hw, d_in), seed).to(card)
-    w = _rand((k, k, d_in, d_out), seed + 1, (k * k * d_in) ** -0.5).to(card)
+    x = _rand((n, hw, hw, d_in), seed).to(card, dtype)
+    w = _rand((k, k, d_in, d_out), seed + 1, (k * k * d_in) ** -0.5).to(card, dtype)
     _build.check_mma_tile("kpu_conv", bm, bk, bn, d_in, d_out)
     y = _launched(kpu_conv.kpu_conv, lambda: kpu_conv._launch(
         x, w, stride, bm, bk, bn, split))
@@ -261,6 +368,23 @@ def test_mma_kernels_match_plain_at_every_tile(card, label, shape, d_in, d_out,
         y, want = _tile_case(card, shape, d_in, d_out, bm, bk, bn, d_in + bm, split)
         assert y.shape == want.shape
         _close(y, want)
+
+
+@pytest.mark.parametrize(
+    "label,shape,d_in,d_out,bm,bk,bn", MAIN_PATH_TILES + RAGGED_TILES + OTHER_RATE_TILES,
+    ids=[t[0] for t in MAIN_PATH_TILES + RAGGED_TILES + OTHER_RATE_TILES])
+def test_mma_kernels_bf16_match_plain_at_every_tile(card, label, shape, d_in, d_out,
+                                                    bm, bk, bn):
+    """The bf16 route (one wgmma bf16 product a step, w MN-major through
+    the transpose bit; conv1's 3-channel rows copied 2 bytes at a time) at
+    each tile, split where the rule takes it and not, against the plain
+    version in f32 rounded to bf16, at the JAX kernel tests' tolerances."""
+    kernel = "fcu_matmul" if isinstance(shape, int) else "kpu_conv"
+    for split in (0, 1):
+        y, want = _tile_case(card, shape, d_in, d_out, bm, bk, bn, d_in + bm, split,
+                             torch.bfloat16)
+        assert y.shape == want.shape and y.dtype == torch.bfloat16
+        _close(y, want, BF16_TOL[kernel])
 
 
 @pytest.mark.parametrize(
@@ -294,13 +418,15 @@ PLAN_RATES = [Fraction(1, 16), Fraction(3, 32), Fraction(1, 8), Fraction(3, 16),
               Fraction(3), Fraction(6), Fraction(64)]
 
 
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
 @pytest.mark.parametrize("rate", PLAN_RATES, ids=str)
 @pytest.mark.parametrize(
     "family", ["mobilenet_v1", "mobilenet_v2", "resnet18", "resnet34"])
-def test_planned_mma_tiles_plan_on_the_card(card, family, rate):
+def test_planned_mma_tiles_plan_on_the_card(card, family, rate, dtype):
     """The kernels' own host plan (``tile_mma.cuh::plan_tile``: the block,
     its shared-memory ring and the cluster split) takes every FCU / KPU
-    tile the planner gives at 224x224, batch 8, at each rate."""
+    tile the planner gives at 224x224, batch 8, at each rate, for f32 and
+    bf16 operands."""
     from repro_torch.core.graph import plan_graph
 
     api = get_cnn_api(family, device="cpu")
@@ -312,12 +438,12 @@ def test_planned_mma_tiles_plan_on_the_card(card, family, rate):
         if s.kind == "conv":
             split = kpu_conv.cluster_split(
                 (8, *s.in_hw, s.d_in), (*s.kernel, s.d_in, s.d_out),
-                stride=s.stride[0], bm=t.bm, bci=t.bk, bco=t.bn)
+                stride=s.stride[0], bm=t.bm, bci=t.bk, bco=t.bn, dtype=dtype)
         else:
             m = 8 * s.in_hw[0] * s.in_hw[1]
             split = fcu_matmul.cluster_split(
                 m, s.d_in, s.d_out, bm=fcu_matmul._pick_bm(m, t.bm), bk=t.bk,
-                bn=t.bn)
+                bn=t.bn, dtype=dtype)
         assert 1 <= split <= 8, (name, t)
 
 
@@ -451,9 +577,16 @@ def _ssd_inputs(b, l, h, p, g, n, seed, model_decay):
     return [torch.from_numpy(np.asarray(t, np.float32)) for t in (x, dt, a, bb, cc)]
 
 
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
 @pytest.mark.parametrize(
     "b,l,h,p,g,n,chunk,model_decay",
     [
+        (1, 2048, 48, 64, 1, 128, 128, True),  # mamba2's longest prompt
+        (1, 1024, 64, 64, 1, 64, 128, True),   # zamba2's 1000 tokens, padded
+        (1, 512, 8, 64, 2, 128, 128, True),    # two groups
+        (1, 256, 8, 64, 1, 128, 16, False),    # chunk 16
+        (2, 384, 8, 64, 2, 64, 128, True),     # two rows of the batch
+        (1, 256, 6, 160, 1, 32, 64, False),    # P past one 64-column slice
         (1, 256, 48, 64, 1, 128, 128, True),   # mamba2's heads, 2 chunks
         (1, 256, 64, 64, 1, 64, 128, True),    # zamba2's heads
         (2, 64, 8, 16, 2, 16, 16, False),      # two groups, two rows of the batch
@@ -463,15 +596,30 @@ def _ssd_inputs(b, l, h, p, g, n, seed, model_decay):
         (1, 40, 3, 40, 1, 20, 8, False),       # P not a slice multiple, chunk 8
     ],
 )
-def test_ssd_kernel_matches_plain(card, b, l, h, p, g, n, chunk, model_decay):
+def test_ssd_kernel_matches_plain(card, b, l, h, p, g, n, chunk, model_decay, dtype):
+    """The three SSD phases against the plain scan; bf16 x, dt, B and C
+    (a stays f32) give a bf16 y and an f32 state."""
     x, dt, a, bb, cc = (t.to(card) for t in _ssd_inputs(b, l, h, p, g, n, l + h,
                                                           model_decay))
+    x, dt, bb, cc = (t.to(dtype) for t in (x, dt, bb, cc))
     want_y, want_s = sc.ssd_chunk_plain(x, dt, a, bb, cc, chunk=chunk)
     y, s = _launched(sc.ssd_chunk, lambda: sc.ssd_chunk(x, dt, a, bb, cc, chunk=chunk))
     assert y.shape == x.shape and s.shape == (b, h, p, n)
+    assert y.dtype == dtype and s.dtype == torch.float32
     assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(s).all())
-    _close_rms(y, want_y)
+    _close_rms(y, want_y, rtol=None if dtype == torch.float32 else 2.0 ** -7)
     _close_rms(s, want_s)
+
+
+def test_ssd_kernel_is_deterministic(card):
+    """Two launches at mamba2's 2048-token shape are bit-identical: no
+    atomics, the chunk states summed in chunk order."""
+    x, dt, a, bb, cc = (t.to(card) for t in _ssd_inputs(1, 2048, 48, 64, 1, 128, 9,
+                                                          True))
+    first = sc.ssd_chunk(x, dt, a, bb, cc, chunk=128)
+    again = sc.ssd_chunk(x, dt, a, bb, cc, chunk=128)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
 
 
 @pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-1.2b"])

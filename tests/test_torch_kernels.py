@@ -194,3 +194,59 @@ def test_mma_tile_past_the_block_raises(bm, bn):
     x, w = torch.ones(bm, 32), torch.ones(32, bn)
     with pytest.raises(ValueError, match="past the kernel's block"):
         fcu_matmul(x, w, bm=bm, bk=32, bn=bn)
+
+
+# The JAX kernel tests' bf16 tolerances (tests/kernels/test_fcu_matmul.py,
+# test_kpu_conv.py, test_dw_conv.py), applied as they apply them: rtol =
+# atol on the f32-upcast outputs.  Both sides accumulate the same bf16
+# inputs in f32 and round once to bf16, so they differ by at most one bf16
+# rounding where the f32 sums straddle it.
+BF16_TOL = {"fcu": 2e-2, "kpu": 3e-2, "dw": 3e-2}
+
+
+@pytest.mark.parametrize(
+    "kind,shape",
+    [
+        ("fcu", (64, 48, 24)),               # [m, d_in] x [d_in, d_out]
+        ("fcu", (98, 144, 40)),
+        ("kpu", (9, 3, 64, 7, 2)),           # ResNet conv1: 3 channels, 7x7/s2
+        ("kpu", (8, 16, 24, 3, 1)),          # hw, d_in, d_out, k, stride
+        ("kpu", (7, 24, 32, 3, 2)),
+        ("dw", (8, 32, 3, 1)),               # hw, c, k, stride
+        ("dw", (9, 48, 3, 2)),
+        ("dw", (8, 16, 5, 1)),
+    ],
+)
+def test_kernels_take_bf16_like_the_pallas_kernels(kind, shape):
+    """bf16 operands give a bf16 output in x's dtype, as the Pallas kernels
+    in interpret mode do, within their own bf16 tolerance."""
+    rng = np.random.default_rng(sum(shape))
+    bf16 = jnp.bfloat16
+
+    def draw(*dims, scale=1.0):
+        return (rng.standard_normal(dims) * scale).astype(np.float32)
+
+    if kind == "fcu":
+        m, d_in, d_out = shape
+        x, w = draw(m, d_in), draw(d_in, d_out, scale=d_in ** -0.5)
+        want = ref_fcu_matmul(jnp.asarray(x, bf16), jnp.asarray(w, bf16))
+        got = pointwise_impl(rate=Fraction(2))(
+            torch.from_numpy(x).bfloat16(), torch.from_numpy(w).bfloat16())
+    elif kind == "kpu":
+        hw, d_in, d_out, k, stride = shape
+        x, w = draw(2, hw, hw, d_in), draw(k, k, d_in, d_out, scale=(k * k * d_in) ** -0.5)
+        want = ref_kpu_conv(jnp.asarray(x, bf16), jnp.asarray(w, bf16), stride=stride)
+        got = conv_impl(rate=Fraction(2))(
+            torch.from_numpy(x).bfloat16(), torch.from_numpy(w).bfloat16(), stride)
+    else:
+        hw, c, k, stride = shape
+        x, w = draw(2, hw, hw, c), draw(k, k, 1, c, scale=1 / k)
+        want = ref_dw_conv(jnp.asarray(x, bf16), jnp.asarray(w[:, :, 0, :], bf16),
+                           stride=stride)
+        got = dw_conv_impl(rate=Fraction(2))(
+            torch.from_numpy(x).bfloat16(), torch.from_numpy(w).bfloat16(), stride)
+    assert want.dtype == bf16 and got.dtype == torch.bfloat16
+    assert tuple(got.shape) == tuple(want.shape)
+    tol = BF16_TOL[kind]
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)

@@ -23,6 +23,8 @@ from repro_torch.core.tiles import (  # noqa: E402
     MAX_MICRO,
     MAX_THREADS,
     THREADS,
+    dw_halo_bytes,
+    dw_rows,
     gemm_layout,
     plan_dim_tile,
     select_tile,
@@ -110,6 +112,23 @@ def test_degenerate_tpu_tiles_stay_aligned():
     assert plan_dim_tile(1000, 1) == 8
     assert plan_dim_tile(960, 1) == 32
     assert plan_dim_tile(3, 1) == 1
+
+
+@pytest.mark.parametrize("node,halo", [("b1_dw", 3 * 114 * 32 * 4),
+                                       ("b4_dw", 19 * 57 * 16 * 4),
+                                       ("b15_dw", 9 * 9 * 32 * 4)])
+def test_dw_tile_stages_its_input_rows(node, halo):
+    """The depthwise block stages the input rows of its output rows once,
+    SAME padding in place: ((rows - 1) * stride + 3) rows of ((wo - 1) *
+    stride + 3) pixels by bc channels, f32-sized (bf16 takes half); the
+    rows stay DW_OUTPUTS' rule (MobileNetV2 at 224, rate 3)."""
+    api = get_cnn_api("mobilenet_v2", device="cpu")
+    cfg = api.make_config()
+    spec, t = api.graph(cfg).spec(node), api.plan(cfg, Fraction(3))[node].tile
+    rows = t.bm // spec.out_hw[1]
+    assert rows == dw_rows(*spec.out_hw, t.bk)
+    assert t.smem_bytes == dw_halo_bytes(rows, spec.out_hw[1], t.bk, spec.kernel,
+                                         spec.stride[0]) == halo
 
 
 def test_bm_shrinks_to_fit_registers():

@@ -57,6 +57,38 @@ def test_rate_matched_matches_reference_kernels(family):
             assert e["bm"] == t.bm, n
 
 
+BF16_TOL = 3e-2
+
+
+@pytest.mark.parametrize("family,seed", [("mobilenet_v2", 1), ("resnet18", 2)])
+def test_bf16_forward_matches_reference_kernels(family, seed):
+    """The rate-matched forward pass in bf16 against the reference's, on the
+    same bf16 parameters, at 3e-2 of the logits' scale (the JAX KPU and
+    depthwise kernel tests' bf16 tolerance): every node's output is
+    rounded to bf16 on both sides from sums taken in another order.  The
+    reference's ``init`` at ``dtype=bfloat16`` keeps its weights in f32
+    (a numpy scalar promotes them), so its arrays are rounded to bf16 first
+    and both sides run those."""
+    bf16 = jax.numpy.bfloat16
+    ra, pa = ref_api(family), get_cnn_api(family, device="cpu")
+    rc = ra.make_config(input_hw=HW, dtype=bf16)
+    pc = pa.make_config(input_hw=HW, dtype=torch.bfloat16)
+    rp = jax.tree_util.tree_map(lambda v: v.astype(bf16), ra.init(rc, jax.random.key(seed)))
+    pp = cnn.params_from_reference(jax.tree_util.tree_map(np.asarray, rp), "cpu",
+                                   dtype=torch.bfloat16)
+    x = np.random.default_rng(seed).standard_normal((2, *HW, 3)).astype(np.float32)
+    want = ra.apply(rp, jax.numpy.asarray(x), rc, plan=ra.plan(rc, Fraction(3)))
+    executed = {}
+    got = pa.apply(pp, torch.from_numpy(x), pc, plan=pa.plan(pc, Fraction(3)),
+                   executed=executed)
+    assert want.dtype == bf16 and got.dtype == torch.bfloat16
+    assert sorted(executed) == sorted(n for n, ip in pa.plan(pc, Fraction(3)).items()
+                                      if ip.has_kernel)
+    want = np.asarray(want, np.float32)
+    scale = max(1.0, np.abs(want).max())
+    assert np.abs(got.float().numpy() - want).max() <= BF16_TOL * scale
+
+
 @pytest.mark.parametrize(
     "family", ["mobilenet_v1", "mobilenet_v2", "resnet18", "resnet34"])
 def test_plain_path_matches_reference_lax(family):

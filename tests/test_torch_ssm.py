@@ -28,7 +28,7 @@ from repro.nn import ssm as ref_ssm  # noqa: E402
 from repro.serving.engine import Engine as RefEngine  # noqa: E402
 from repro.serving.engine import Request as RefRequest  # noqa: E402
 from repro_torch.configs.registry import get_config, reduced  # noqa: E402
-from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_chunk_plain, ssd_p_block  # noqa: E402
+from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_chunk_plain, ssd_head_run  # noqa: E402
 from repro_torch.models import hybrid, mamba, registry  # noqa: E402
 from repro_torch.nn import ssm  # noqa: E402
 from repro_torch.serving.engine import Engine, Request  # noqa: E402
@@ -122,13 +122,52 @@ def test_ssd_chunk_rejects_what_the_kernel_does_not_take():
         ssd_chunk(x.transpose(1, 2).contiguous().transpose(1, 2), dt, a, b, c, chunk=16)
 
 
-def test_ssd_p_block_fills_the_card():
-    """mamba2 (48 heads, N 128) and zamba2 (64 heads, N 64) split the head
-    dim in two: 96 and 128 blocks for 132 SMs; a single head takes the
-    narrowest slice."""
-    assert ssd_p_block(48, 64, 128, 128) == 32
-    assert ssd_p_block(64, 64, 64, 128) == 32
-    assert ssd_p_block(1, 64, 128, 128) == 16
+@pytest.mark.parametrize(
+    "arch,tokens,run",
+    [("mamba2-780m", 2048, 6), ("mamba2-780m", 512, 2), ("zamba2-1.2b", 2048, 8),
+     ("zamba2-1.2b", 1536, 2)],
+)
+def test_ssd_head_run_fills_the_card(arch, tokens, run):
+    """The chunk blocks' run of heads at the served models' shapes (one
+    group): at 2048 tokens one wave of 128 blocks on the 132 SMs (16
+    chunks x 48 heads / 6 for mamba2, 16 x 64 / 8 for zamba2), so each
+    chunk's scores are formed 8 times, not once a head."""
+    cfg = get_config(arch)
+    h = cfg.d_model * cfg.ssm_expand // cfg.ssm_head_dim
+    got = ssd_head_run(1, tokens // 128, h, 1, cfg.ssm_head_dim, cfg.ssm_state, 128)
+    assert got == run and h % got == 0
+    if tokens == 2048:
+        assert 16 * h // got == 128
+
+
+def test_ssd_head_run_divides_a_groups_heads():
+    """A single head runs alone; a run never spans two groups."""
+    assert ssd_head_run(1, 1, 1, 1, 64, 128, 128) == 1
+    for g in (1, 2, 4):
+        assert (8 // g) % ssd_head_run(2, 4, 8, g, 64, 64, 128) == 0
+
+
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("chunk", [8, 32])
+def test_ssd_chunk_takes_bf16_like_the_pallas_kernel(chunk, g):
+    """bf16 x, dt, B and C (a in f32): y in bf16 and the state in f32, as
+    ``ssd_chunk_p`` gives them.  Both sides compute in f32; the f32 state
+    is held at the JAX kernel test's 2e-4, the bf16 y, rounded once from
+    f32 on each side, at 2^-7 relative (one bf16 rounding) and 2e-4
+    absolute."""
+    x, dt, a, bb, cc = _ssd_inputs(chunk + g, 2, 64, 8, 8, g, 16)
+    bf = [np.asarray(jnp.asarray(t, jnp.bfloat16).astype(jnp.float32)) for t in (x, dt, bb, cc)]
+    want_y, want_s = ref_ssd_chunk(*(jnp.asarray(t, jnp.bfloat16) for t in (x, dt)),
+                                   jnp.asarray(a),
+                                   *(jnp.asarray(t, jnp.bfloat16) for t in (bb, cc)),
+                                   chunk=chunk, head_block=4)
+    y, s = ssd_chunk(_t(bf[0]).bfloat16(), _t(bf[1]).bfloat16(), _t(a),
+                     _t(bf[2]).bfloat16(), _t(bf[3]).bfloat16(), chunk=chunk)
+    assert want_y.dtype == jnp.bfloat16 and want_s.dtype == jnp.float32
+    assert y.dtype == torch.bfloat16 and s.dtype == torch.float32
+    np.testing.assert_allclose(y.float().numpy(), np.asarray(want_y, np.float32),
+                               rtol=2.0 ** -7, atol=SSD_TOL)
+    np.testing.assert_allclose(s.numpy(), np.asarray(want_s), rtol=SSD_TOL, atol=SSD_TOL)
 
 
 # -- nn/ssm.py ---------------------------------------------------------------
