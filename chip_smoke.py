@@ -38,7 +38,23 @@ printing JSON lines:
    every depthwise launch on the 16-byte vector instances; then each
    family's forward in bf16 (``slice_bf16``: bf16 weights and frames),
    held against the plain path in bf16, with its frames/s;
-5. lm, ssm, hybrid — qwen2-7b (bf16 KV cache: the config's int8 cache is
+5. partition, staged, int8, replicated — the multi-stage path, for
+   MobileNetV2 and ResNet-18 at 224x224 with BATCH frames a request:
+   ``api.partition`` at S in STAGES (the stages' nodes and mults, every
+   cut edge with its activation shape, the stream buffers' bits at int8
+   and at fp32, the planning time); ``api.apply_staged`` with the
+   batch-pinned kernel plan, fp32 and then int8 links, REQUESTS requests
+   with the launch counts set to 0 just before and read just after (each
+   kernel: its arithmetic nodes x requests), executed tile == plan in
+   every stage, ``check_monolithic=True`` bit for bit on every request,
+   the batch latency beside the monolithic forward's, the host time of
+   the pipeline build each staged call makes (median of BUILDS builds),
+   the device busy share and the cut-crossing bytes a batch; ``api.quantize`` +
+   ``api.apply_int8`` monolithic and at S=3 (bit-identical, both within
+   TOL of the plain path's int8 logits); and ResNet-18 at S=3 with the
+   replication ``best_replication`` picks, held within TOL of the
+   unreplicated monolithic forward;
+6. lm, ssm, hybrid — qwen2-7b (bf16 KV cache: the config's int8 cache is
    not ported), then mamba2-780m, then zamba2-1.2b, each at full width
    and depth with random weights from a seeded CUDA generator: the token
    engine serves 4 prompts of 512-2048 tokens on 2 slots, 16 new tokens
@@ -47,7 +63,7 @@ printing JSON lines:
    per Mamba2 layer, per prefill); then each prompt's prefill logits on
    the kernels against the same prefill on their plain versions, and
    one prefill and one decode step under ``torch.profiler``;
-6. the ``kernels`` line, the card line, and the final ``ok`` line.
+7. the ``kernels`` line, the card line, and the final ``ok`` line.
 
 Any failure raises: the script then exits non-zero and prints no result.
 """
@@ -100,6 +116,10 @@ SSM_BF16_WITNESS = {"mamba2-780m": 0.0456, "zamba2-1.2b": 0.0351}
 SSM_BF16_FACTOR = 3
 SSM_CHECK = (f"f32 copy of the weights at TOL; bf16 within {SSM_BF16_FACTOR} x "
              "the plain path's measured other-order gap")
+# The multi-stage phases: the stage counts and the wire formats of the cuts.
+STAGES = (2, 3)
+LINKS = (None, "int8")
+BUILDS = 20
 # The serving phases: prompts (tokens), new tokens each, engine shape.
 PROMPT_LENS = (512, 1000, 1536, 2048)
 MAX_NEW = 16
@@ -241,12 +261,14 @@ class KernelBench:
         emit(row)
 
 
-def bench_nodes(torch, bench, family, plan, graph, gen, dtype=None):
+def bench_nodes(torch, bench, family, plan, graph, gen, dtype=None, only=None,
+                suffix="", timed=True):
     """Every arithmetic node of ``family``'s main path, at its shapes; on
     bf16 operands with ``dtype=torch.bfloat16`` (rows marked ``route``
     "bf16", labelled ``.../bf16``, at the JAX tests' bf16 tolerances, the
     bound at 2-byte elements and the FCU's and KPU's products at 989
-    TFLOP/s)."""
+    TFLOP/s).  ``only`` limits the rows to those nodes, labelled with
+    ``suffix``; ``timed=False`` checks them without timing."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import _build, dw_conv, fcu_matmul, kpu_conv
@@ -256,11 +278,11 @@ def bench_nodes(torch, bench, family, plan, graph, gen, dtype=None):
     elem = dtype.itemsize
     mma_peak = bench.hw.peak_bf16_flops if bf16 else bench.hw.peak_tf32_flops / TF32_TERMS
     for name, ip in plan.items():
-        if not ip.has_kernel:
+        if not ip.has_kernel or (only is not None and name not in only):
             continue
         s, t = graph.spec(name), ip.tile
         kernel = KIND_KERNEL[s.kind]
-        label = f"{family}/{name}" + ("/bf16" if bf16 else "")
+        label = f"{family}/{name}" + ("/bf16" if bf16 else "") + suffix
         tol = KERNEL_BF16_TOL[kernel] if bf16 else TOL
         info = {"route": "bf16"} if bf16 else {}
         x = torch.randn((BATCH, *s.in_hw, s.d_in), generator=gen).to("cuda", dtype)
@@ -279,7 +301,7 @@ def bench_nodes(torch, bench, family, plan, graph, gen, dtype=None):
                 lambda: fcu_matmul.fcu_matmul_plain(x2, w),
                 lambda: torch.matmul(x2, w),
                 2 * macs, elem * (x2.numel() + w.numel() + out_elems),
-                tol=tol, peak=mma_peak, info={**info, "split": split},
+                tol=tol, peak=mma_peak, info={**info, "split": split}, timed=timed,
             )
             continue
         kh, kw = s.kernel
@@ -300,7 +322,7 @@ def bench_nodes(torch, bench, family, plan, graph, gen, dtype=None):
                 lambda: kpu_conv.kpu_conv_plain(x, w, stride),
                 lambda: F.conv2d(xp, w_oihw, stride=stride).permute(0, 2, 3, 1),
                 2 * macs, elem * (x.numel() + w.numel() + out_elems),
-                tol=tol, peak=mma_peak, info={**info, "split": split},
+                tol=tol, peak=mma_peak, info={**info, "split": split}, timed=timed,
             )
         else:
             w = (torch.randn((kh, kw, s.d_in), generator=gen) / (kh * kw) ** 0.5).to(
@@ -313,7 +335,7 @@ def bench_nodes(torch, bench, family, plan, graph, gen, dtype=None):
                 lambda: F.conv2d(xp, w_oihw, stride=stride,
                                  groups=s.d_in).permute(0, 2, 3, 1),
                 2 * macs, elem * (x.numel() + w.numel() + out_elems),
-                tol=tol, info=info,
+                tol=tol, info=info, timed=timed,
             )
 
 
@@ -560,7 +582,7 @@ def run_slice(torch, family, kernels_mod, gen, bench, dtype=None):
             f"{family}: depthwise time outside the {vec}-channel vector kernel: {dw_fns}")
     busy_ms = sum(device_ms.values())
     latency = statistics.median(latency_ms)
-    isolated = {k: sum(r["ms"] for r in bench.rows if r["kernel"] == k
+    isolated = {k: sum(r["ms"] for r in bench.rows if r["kernel"] == k and "ms" in r
                        and (r.get("route") == "bf16") == bf16
                        and r["node"].startswith(family + "/")) for k in KERNELS}
     row = {
@@ -579,6 +601,255 @@ def run_slice(torch, family, kernels_mod, gen, bench, dtype=None):
     }
     emit(row)
     return counts
+
+
+def repinned_nodes(plan, pinned, graph) -> set:
+    """The nodes whose batch-pinned tile runs another (bk, bn, bm) than the
+    main path's plan executes at BATCH frames."""
+    from repro_torch.kernels.fcu_matmul import _pick_bm
+
+    out = set()
+    for n, ip in plan.items():
+        if not ip.has_kernel:
+            continue
+        spec, t, tp = graph.spec(n), ip.tile, pinned[n].tile
+        bm = t.bm
+        if spec.kind in ("pointwise", "dense"):
+            bm = _pick_bm(BATCH * spec.out_hw[0] * spec.out_hw[1], t.bm)
+        if (t.bk, t.bn, bm) != (tp.bk, tp.bn, tp.bm):
+            out.add(n)
+    return out
+
+
+def want_launches(plan, requests: int) -> dict:
+    """Each kernel's launches for ``requests`` forwards of ``plan``: its
+    arithmetic nodes x requests."""
+    want = {k: 0 for k in KERNELS}
+    for ip in plan.values():
+        if ip.has_kernel:
+            want[KIND_KERNEL[ip.kind]] += requests
+    return want
+
+
+def timed_calls(torch, fn, xs):
+    """``fn(x)`` for each x, host-clock ms each, ending in a synchronize."""
+    outs, ms = [], []
+    for x in xs:
+        t0 = time.perf_counter()
+        outs.append(fn(x))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return outs, ms
+
+
+def rel_err(torch, got, want) -> float:
+    scale = max(1.0, want.abs().max().item())
+    return (got.float() - want.float()).abs().max().item() / scale
+
+
+def cut_bytes(graph, stage_plan, batch: int) -> dict:
+    """Bytes that cross the cuts a batch, one stream per exported
+    producer, at fp32 and as int8 payloads (one int8 a feature plus the
+    4-byte scale)."""
+    stage_of = stage_plan.stage_index()
+    producers = {u for v in graph.topo_order() for u in graph.preds(v)
+                 if stage_of[u] != stage_of[v]}
+    feats = [batch * graph.spec(u).out_hw[0] * graph.spec(u).out_hw[1]
+             * graph.spec(u).d_out for u in producers]
+    return {"producers": len(producers), "fp32": 4 * sum(feats),
+            "int8": sum(feats) + 4 * len(feats)}
+
+
+def run_partition(api, cfg, family):
+    """``api.partition`` at each S: stages, cuts, stream buffers, time."""
+    from repro_torch.core.stage_partition import stream_buffers
+
+    graph = api.graph(cfg)
+    plans = {}
+    for n_stages in STAGES:
+        t0 = time.perf_counter()
+        gp = api.partition(cfg, RATE, n_stages)
+        plan_s = time.perf_counter() - t0
+        sp = gp.stage_plan
+        fp32 = stream_buffers(gp, sp, link_dtype="fp32")
+        require(gp.continuous_flow and not any(gp.stage_infeasible_nodes()),
+                f"{family}/S={n_stages}: a stage cannot absorb its rate")
+        emit({
+            "phase": "partition", "family": family, "stages": n_stages,
+            "rate": str(RATE), "plan_s": plan_s,
+            "stage_nodes": [len(sp.stage_nodes(s)) for s in range(n_stages)],
+            "stage_mults": gp.stage_mults(),
+            "cut_edges": [{"src": u, "dst": v, "shape": [*graph.spec(u).out_hw,
+                                                         graph.spec(u).d_out]}
+                          for cut in sp.cut_edges for u, v in cut],
+            "stream_buffers": [{"src": b.src, "dst": b.dst, "int8_bits": b.bits,
+                                "fp32_bits": f.bits, "depth_words": b.depth_words}
+                               for b, f in zip(gp.stream_bufs, fp32)],
+            "stream_bits": {"int8": gp.total_stream_bits,
+                            "fp32": sum(b.bits for b in fp32)},
+            "cut_bytes_per_batch": cut_bytes(graph, sp, BATCH),
+        })
+        plans[n_stages] = gp
+    return plans
+
+
+def run_staged(torch, family, kernels_mod, gen):
+    """The multi-stage path of one family on the card (phases
+    ``partition``, ``staged``, ``int8``, and ``replicated`` for ResNet-18);
+    returns the launches of its counted runs, per kernel."""
+    from repro_torch.core.graph import plan_graph
+    from repro_torch.core.replicate import best_replication, replicate_params
+    from repro_torch.models.cnn import apply_graph, cut_edge_dtypes, stage_functions
+    from repro_torch.models.registry import get_cnn_api
+
+    api = get_cnn_api(family)
+    cfg = api.make_config()
+    graph = api.graph(cfg)
+    params = api.init(cfg, torch.Generator().manual_seed(0))
+    xs = [torch.randn((BATCH, *cfg.input_hw, 3), generator=gen).cuda()
+          for _ in range(REQUESTS)]
+    plans = run_partition(api, cfg, family)
+    kp = plans[STAGES[0]].kernel_plan(batch=BATCH)
+    arith = [n for n, ip in kp.items() if ip.has_kernel]
+    total = {k: 0 for k in KERNELS}
+
+    def counted(label, fn, plan, per_request=1):
+        """REQUESTS calls of ``fn`` between a reset and a read of the
+        launch counts; every kernel must launch its nodes x requests."""
+        fn(xs[0])  # warm-up
+        torch.cuda.synchronize()
+        reset_counts(kernels_mod)
+        outs, ms = timed_calls(torch, fn, xs)
+        counts = read_counts(kernels_mod)
+        want = want_launches(plan, REQUESTS * per_request)
+        require(counts == want, f"{label}: launches {counts} != nodes x requests {want}")
+        for k, v in counts.items():
+            total[k] += v
+        for y in outs:
+            require(tuple(y.shape) == (BATCH, cfg.num_classes) and y.dtype == cfg.dtype
+                    and bool(torch.isfinite(y).all()), f"{label}: logits {tuple(y.shape)}")
+        return outs, ms, counts
+
+    mono, mono_ms, _ = counted(f"{family}/monolithic",
+                               lambda x: api.apply(params, x, cfg, plan=kp), kp)
+    mono_device, _, _ = device_ms_by_kernel(
+        torch, lambda: api.apply(params, xs[0], cfg, plan=kp))
+    for n_stages in STAGES:
+        gp = plans[n_stages]
+        kps = gp.kernel_plan(batch=BATCH)
+        require(kps == kp, f"{family}/S={n_stages}: the stage plan changed a tile")
+        for link in LINKS:
+            label = f"{family}/S={n_stages}/{link or 'fp32'}"
+
+            def staged(x, link=link):
+                # builds the stages afresh each call; the executor asserts
+                # executed tile == plan on every node
+                return api.apply_staged(params, x, cfg, partition=gp, plan=kps,
+                                        link_quant=link)
+
+            outs, ms, counts = counted(label, staged, kps)
+            ex = {}
+            api.apply_staged(params, xs[0], cfg, partition=gp, plan=kps, link_quant=link,
+                             executed=ex)
+            require(sorted(ex) == sorted(arith), f"{label}: executed tiles miss nodes")
+            for n in arith:
+                t = kps[n].tile
+                require((ex[n]["bk"], ex[n]["bn"], ex[n]["bm"]) == (t.bk, t.bn, t.bm),
+                        f"{label}/{n}: executed {ex[n]} != plan {t}")
+            for x, y in zip(xs, outs):
+                # raises unless every cut tensor and the logits are bit-identical
+                # to the monolithic forward (with the same fake-quant at the cuts)
+                y2 = api.apply_staged(params, x, cfg, partition=gp, plan=kps,
+                                      link_quant=link, check_monolithic=True)
+                require(torch.equal(y, y2), f"{label}: two staged runs differ")
+            if link is None:
+                require(all(torch.equal(y, m) for y, m in zip(outs, mono)),
+                        f"{label}: fp32 links differ from the monolithic forward")
+                yard, yard_name = mono, "monolithic forward (bit-identical)"
+            else:
+                qmap = cut_edge_dtypes(graph, gp, link)
+                yard = [apply_graph(params, x, graph, plan=kps, link_quant=qmap)
+                        for x in xs]
+                require(all(torch.equal(y, m) for y, m in zip(outs, yard)),
+                        f"{label}: int8 links differ from the monolithic fake-quant")
+                yard_name = "monolithic forward with the same fake-quant (bit-identical)"
+            device_ms, _, _ = device_ms_by_kernel(torch, lambda: staged(xs[0]))
+            latency = statistics.median(ms)
+            builds = []  # host ms of the pipeline build each staged call makes
+            for _ in range(BUILDS):
+                t0 = time.perf_counter()
+                stage_functions(graph, partition=gp, plan=kps, link_quant=link)
+                builds.append((time.perf_counter() - t0) * 1e3)
+            emit({
+                "phase": "staged", "family": family, "stages": n_stages,
+                "link": link or "fp32", "batch": BATCH, "requests": REQUESTS,
+                "launches": counts, "arith_nodes": len(arith),
+                "executed_tile_eq_plan": True, "check_monolithic": "bit-identical",
+                "latency_ms": ms, "latency_ms_median": latency,
+                "frames_per_s": BATCH * REQUESTS / (sum(ms) / 1e3),
+                "pipeline_build_ms_median": statistics.median(builds),
+                "pipeline_build_share": statistics.median(builds) / latency,
+                "monolithic_latency_ms_median": statistics.median(mono_ms),
+                "monolithic_frames_per_s": BATCH * REQUESTS / (sum(mono_ms) / 1e3),
+                "profiled_device_ms": device_ms,
+                "device_ms": sum(device_ms.values()),
+                "monolithic_device_ms": sum(mono_device.values()),
+                "device_busy_share": sum(device_ms.values()) / latency,
+                "cut_bytes_per_batch": cut_bytes(graph, gp.stage_plan, BATCH),
+                "yardstick": yard_name,
+                "max_rel_err": max(rel_err(torch, y, m) for y, m in zip(outs, yard)),
+                "max_rel_err_vs_fp32_monolithic":
+                    max(rel_err(torch, y, m) for y, m in zip(outs, mono)),
+            })
+
+    # the int8 weight datapath, monolithic and at the deepest cut
+    gp = plans[STAGES[-1]]
+    q, scales = api.quantize(params)
+    plain = [api.apply_int8(q, scales, x, cfg) for x in xs]
+    int8_mono, ms_mono, c_mono = counted(
+        f"{family}/int8", lambda x: api.apply_int8(q, scales, x, cfg, plan=kp), kp)
+    int8_staged, ms_staged, c_staged = counted(
+        f"{family}/int8/S={STAGES[-1]}",
+        lambda x: api.apply_int8(q, scales, x, cfg, plan=kp, partition=gp), kp)
+    require(all(torch.equal(a, b) for a, b in zip(int8_mono, int8_staged)),
+            f"{family}: int8 staged differs from int8 monolithic")
+    errs = [rel_err(torch, y, p) for y, p in zip(int8_mono, plain)]
+    require(max(errs) <= TOL, f"{family}: int8 logits vs plain path {max(errs)} > {TOL}")
+    emit({
+        "phase": "int8", "family": family, "stages": STAGES[-1], "batch": BATCH,
+        "launches": {"monolithic": c_mono, "staged": c_staged},
+        "staged_eq_monolithic": "bit-identical",
+        "latency_ms_median": statistics.median(ms_mono),
+        "staged_latency_ms_median": statistics.median(ms_staged),
+        "f32_latency_ms_median": statistics.median(mono_ms),
+        "max_rel_err_vs_plain_int8": max(errs), "tolerance": TOL,
+        "max_rel_err_vs_f32_weights": max(rel_err(torch, a, b)
+                                          for a, b in zip(int8_mono, mono)),
+    })
+
+    if family == "resnet18":
+        best = best_replication(graph, RATE, n_stages=STAGES[-1])
+        rep = {r.node: r.r for r in best.replications}
+        require(rep, "best_replication kept the unreplicated plan")
+        gpr = plan_graph(graph, RATE, n_stages=STAGES[-1], replicate=rep)
+        kpr = gpr.kernel_plan(batch=BATCH)
+        rparams = replicate_params(params, gpr.replications)
+        outs, ms, counts = counted(
+            f"{family}/replicated",
+            lambda x: api.apply_staged(rparams, x, cfg, graph=gpr.graph, partition=gpr,
+                                       plan=kpr), kpr)
+        errs = [rel_err(torch, y, m) for y, m in zip(outs, mono)]
+        require(max(errs) <= TOL,
+                f"{family}/replicated: logits vs unreplicated {max(errs)} > {TOL}")
+        emit({
+            "phase": "replicated", "family": family, "stages": STAGES[-1],
+            "replicate": rep, "stage_mults": gpr.stage_mults(),
+            "unreplicated_stage_mults": gp.stage_mults(), "launches": counts,
+            "latency_ms_median": statistics.median(ms),
+            "monolithic_latency_ms_median": statistics.median(mono_ms),
+            "max_rel_err_vs_unreplicated_monolithic": max(errs), "tolerance": TOL,
+        })
+    return total
 
 
 def bench_flash(torch, bench, gen):
@@ -1022,8 +1293,13 @@ def main() -> int:
         for family in ("mobilenet_v2", "resnet18"):
             api = get_cnn_api(family)
             cfg = api.make_config()
-            bench_nodes(torch, bench, family, api.plan(cfg, RATE), api.graph(cfg), gen,
-                        dtype)
+            kp = api.plan(cfg, RATE)
+            bench_nodes(torch, bench, family, kp, api.graph(cfg), gen, dtype)
+            # the staged phases run the batch-pinned plan: its other tiles too
+            pinned = api.partition(cfg, RATE, STAGES[0]).kernel_plan(batch=BATCH)
+            bench_nodes(torch, bench, family, pinned, api.graph(cfg), gen, dtype,
+                        only=repinned_nodes(kp, pinned, api.graph(cfg)),
+                        suffix="/pinned", timed=False)
     bench_extras(torch, bench, gen)
     wrapper_host_us(torch)
     bench_flash(torch, bench, gen)
@@ -1033,6 +1309,9 @@ def main() -> int:
     for family in ("mobilenet_v2", "resnet18"):
         counts = run_slice(torch, family, kernels_mod, gen, bench)
         for k, v in counts.items():
+            launches[k] += v
+    for family in ("mobilenet_v2", "resnet18"):
+        for k, v in run_staged(torch, family, kernels_mod, gen).items():
             launches[k] += v
     for k, v in run_lm_paths(torch, kernels_mod).items():
         launches[k] += v

@@ -1,7 +1,7 @@
 """Design-space exploration for data-rate-matched layer implementations.
 
 The port's own copy of the JAX package's ``core/dse.py`` (the paper's
-Eqs. 1-11 as the graph planner uses them):
+Eqs. 1-11):
 
 * ``hj_set``        — Eq. (9): all viable (j, h) with j | d_in, h | d_out,
                       j/h >= r  (continuous-flow feasibility).
@@ -9,6 +9,7 @@ Eqs. 1-11 as the graph planner uses them):
 * ``select_ours``   — Eq. (11) + the paper's tie-break: among BestRate
                       settings prefer the largest h.
 * ``select_ref11``  — the [11] baseline: Eqs. (1)-(3) direct derivation.
+* ``plan_network``  — the chain planner behind Tables I and II.
 * multi-pixel handling (paper §II-E): P pixel phases with stride pruning.
 
 Everything is exact fraction arithmetic — no floats in feasibility logic.
@@ -67,6 +68,19 @@ class LayerImpl:
             return Fraction(1)
         u = min(Fraction(1), self.demand / self.capacity)
         return u * (1 - self.pad_waste)
+
+    @property
+    def adder_tree_operands(self) -> int:
+        """Operands entering each unit's accumulation tree (larger trees
+        are more compressor-tree efficient [13])."""
+        lay = self.layer
+        if lay.kind == "conv":
+            return self.j * lay.k_taps
+        if lay.kind == "dwconv":
+            return lay.k_taps
+        if lay.kind in ("pointwise", "dense"):
+            return self.j
+        return 0
 
 
 def hj_set(d_in: int, h_domain: int, r: Fraction) -> List[Tuple[int, int]]:
@@ -131,14 +145,16 @@ def select_ours(
     P = ceil(pixel_rate) phases each seeing r/P, then prune phases whose
     windows are all skipped by the stride (conv/dwconv/pool only).
 
-    Only ``objective='max_h'`` (the paper's §II-D heuristic) is ported;
-    the resource-model objectives raise ``NotImplementedError``.
+    ``objective``: how ties among BestRate candidates are broken.
+      'max_h'     — the paper's heuristic (§II-D: h close to d_out =>
+                    fewest units, biggest compressor trees);
+      'resources' — beyond the paper: evaluate the calibrated FPGA
+                    resource model on every BestRate candidate and take
+                    the cheapest (weighted LUT + DSP + BRAM);
+      'pareto'    — the same cost over the full HJ set, which may pick a
+                    setting above BestRate when the mapping granularity
+                    makes it cheaper (capacity >= r still holds).
     """
-    if objective != "max_h":
-        raise NotImplementedError(
-            f"objective={objective!r} needs the FPGA resource model, which "
-            f"the port does not carry yet (ROADMAP: DSE objectives)"
-        )
     d_in = layer.d_in
     p_raw = pixel_phases(r, d_in)
     r_phase = r / p_raw
@@ -171,24 +187,38 @@ def select_ours(
     candidates = [(j, h) for (j, h) in hj if Fraction(j, h) == br]
     stride = max(layer.stride) if layer.kind in ("conv", "dwconv") else 1
     p = surviving_phases(p_raw, stride)
-    if prefer_large_h:
+
+    def build(jh):
+        j, h = jh
+        units = _units_per_phase(layer, h) * p
+        return LayerImpl(
+            layer=layer,
+            j=j,
+            h=h,
+            p=p,
+            p_raw=p_raw,
+            configs=max(1, (h * d_in) // j),
+            units=units,
+            mults=units * _mults_per_unit(layer, j),
+            scheme="ours",
+            demand=r,
+            capacity=Fraction(j, h) * p_raw,
+        )
+
+    if objective in ("resources", "pareto"):
+        from .resource_model import estimate_layer
+
+        def cost(jh):
+            e = estimate_layer(build(jh))
+            return e.lut + 25.0 * e.dsp + 90.0 * e.bram36  # ~area weights
+
+        pool = hj if objective == "pareto" else candidates
+        j, h = min(pool, key=cost)
+    elif prefer_large_h:
         j, h = max(candidates, key=lambda jh: (jh[1], jh[0]))
     else:
         j, h = min(candidates, key=lambda jh: (jh[1], -jh[0]))
-    units = _units_per_phase(layer, h) * p
-    return LayerImpl(
-        layer=layer,
-        j=j,
-        h=h,
-        p=p,
-        p_raw=p_raw,
-        configs=max(1, (h * d_in) // j),
-        units=units,
-        mults=units * _mults_per_unit(layer, j),
-        scheme="ours",
-        demand=r,
-        capacity=Fraction(j, h) * p_raw,
-    )
+    return build((j, h))
 
 
 def select_ref11(layer: LayerSpec, r: Fraction) -> LayerImpl:
@@ -279,9 +309,39 @@ def select_impl(
     prefer_large_h: bool = True,
     objective: str = "max_h",
 ) -> LayerImpl:
-    """Scheme dispatch shared by the DAG planner."""
+    """Scheme dispatch shared by chain planning and the DAG planner."""
     if scheme == "ours":
         return select_ours(layer, r, prefer_large_h=prefer_large_h, objective=objective)
     if scheme == "ref11":
         return select_ref11(layer, r)
     raise ValueError(f"unknown scheme {scheme!r}")
+
+
+def plan_network(
+    layers: List[LayerSpec],
+    input_rate: Fraction,
+    *,
+    scheme: str = "ours",
+    prefer_large_h: bool = True,
+    objective: str = "max_h",
+) -> List[LayerImpl]:
+    """Select an implementation for every layer of a chain.
+
+    The demand of layer l is the steady-state propagated rate, which by
+    construction of ``rate_out`` is independent of the chosen capacities:
+    continuous flow means every layer forwards exactly what it receives
+    (``core.schedule`` checks it by discrete-event simulation).
+    """
+    impls: List[LayerImpl] = []
+    r = input_rate
+    for lay in layers:
+        impl = select_impl(
+            lay,
+            r,
+            scheme=scheme,
+            prefer_large_h=prefer_large_h,
+            objective=objective,
+        )
+        impls.append(impl)
+        r = impl.rate_out
+    return impls

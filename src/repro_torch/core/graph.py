@@ -1,9 +1,10 @@
 """DAG rate graph — branch/join rate propagation, skew sizing, DAG DSE.
 
-The port's own copy of the JAX package's ``core/graph.py``, without the
-multi-chip stage partition (a later slice).  It lifts the paper's rate
-calculus onto an explicit producer/consumer graph and sizes the join
-skew FIFOs a branchy dataflow needs.
+The port's own copy of the JAX package's ``core/graph.py``.  It lifts
+the paper's rate calculus onto an explicit producer/consumer graph,
+sizes the join skew FIFOs a branchy dataflow needs, and (with
+``n_stages``) cuts the DAG into pipeline stages whose cut-crossing edges
+become inter-chip stream buffers (``core.stage_partition``).
 
 Timing model (exact fractions): a node's steady-state output stream is
 affine, t_out(m) = offset + (m+1)/q_out, with
@@ -28,6 +29,17 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 from .dse import NON_ARITH_KINDS, LayerImpl, select_impl
 from .rate import LayerSpec, RatePoint
+from .stage_partition import (
+    EdgeTraffic,
+    GraphStagePlan,
+    LinkDtype,
+    StreamBuffer,
+    partition_graph,
+    plan_node_costs,
+    round_robin_placement,
+    stage_stream_bits,
+    stream_buffers,
+)
 from .tiles import TileChoice, select_tile_for_impl
 
 JOIN_KINDS = ("add", "concat")
@@ -250,6 +262,19 @@ def fill_pixels(spec: LayerSpec) -> int:
     return 0
 
 
+def decimation_keep(spec: LayerSpec) -> int:
+    """1-in-keep pixel survival through this node (1 for non-decimating)."""
+    ratio = 1 / spec.spatial_ratio
+    if ratio <= 1:
+        return 1
+    if ratio.denominator != 1:
+        raise GraphError(
+            f"{spec.name}: non-integer decimation {ratio} unsupported in "
+            f"graph timing (pad dims so in_px is a multiple of out_px)"
+        )
+    return int(ratio)
+
+
 def compute_timing(
     graph: LayerGraph,
     impls: Dict[str, LayerImpl],
@@ -392,7 +417,14 @@ class ImplPlan:
 
 @dataclasses.dataclass
 class GraphPlan:
-    """A complete hardware plan for a LayerGraph at one input rate."""
+    """A complete hardware plan for a LayerGraph at one input rate.
+
+    When planned with ``n_stages`` the plan also carries the multi-chip
+    partition: ``stage_plan`` (the DAG cut) and ``stream_bufs`` (the FIFO
+    on every cut-crossing edge).  Stream buffers re-time and never
+    re-rate, so each node's demand is the post-cut rate its (j, h) was
+    chosen against, and its tile does not change with the cut.
+    """
 
     graph: LayerGraph
     input_rate: Fraction
@@ -402,6 +434,14 @@ class GraphPlan:
     out_points: Dict[str, RatePoint]
     timing: Dict[str, NodeTiming]
     buffers: List[JoinBuffer]
+    stage_plan: Optional[GraphStagePlan] = None
+    stream_bufs: Optional[List[StreamBuffer]] = None
+    # Wire format of cut-crossing activations (str, or per-producer
+    # mapping): what every stream buffer's width was sized with.
+    link_dtype: LinkDtype = "int8"
+    # Multi-CLP replications applied before planning (core.replicate
+    # records; empty for an unreplicated plan).
+    replications: tuple = ()
 
     @property
     def total_mults(self) -> int:
@@ -415,6 +455,63 @@ class GraphPlan:
     @property
     def continuous_flow(self) -> bool:
         return not self.infeasible_nodes
+
+    def buffer_for(self, join: str, src: str) -> JoinBuffer:
+        for b in self.buffers:
+            if b.join == join and b.src == src:
+                return b
+        raise KeyError((join, src))
+
+    # -- multi-chip stage introspection (requires n_stages planning) ------
+
+    def _require_stages(self) -> GraphStagePlan:
+        if self.stage_plan is None:
+            raise GraphError(
+                "plan has no stage partition — call plan_graph(..., "
+                "n_stages=S)"
+            )
+        return self.stage_plan
+
+    def stage_mults(self) -> List[int]:
+        """DSE-selected multiplier count per stage (what the cut balances)."""
+        sp = self._require_stages()
+        return [
+            sum(self.impls[n].mults for n in sp.stage_nodes(s))
+            for s in range(sp.n_stages)
+        ]
+
+    def stage_infeasible_nodes(self) -> List[List[str]]:
+        """Per stage, the nodes whose capacity cannot absorb the post-cut
+        rate (empty everywhere for scheme 'ours')."""
+        sp = self._require_stages()
+        return [
+            [n for n in sp.stage_nodes(s) if not self.impls[n].feasible]
+            for s in range(sp.n_stages)
+        ]
+
+    def cut_rates(self) -> List[Fraction]:
+        """Features/clock crossing each interior cut — the inter-chip
+        link load (cut c separates stage c from stage c+1)."""
+        sp = self._require_stages()
+        rates = [Fraction(0)] * (sp.n_stages - 1)
+        for sb in self.stream_bufs or []:
+            for c in range(sb.src_stage, sb.dst_stage):
+                rates[c] += sb.q * sb.d
+        return rates
+
+    @property
+    def total_stream_bits(self) -> int:
+        """Bits of inter-chip stream buffering the partition adds.  Raises
+        on an unpartitioned plan: a silent 0 would read as 'the cut is
+        free'."""
+        self._require_stages()
+        return sum(b.bits for b in self.stream_bufs or [])
+
+    def stage_stream_bits(self) -> List[int]:
+        """Cut-crossing buffer bits parked on each stage's chip (buffers
+        live on the consuming stage) — what a ``bram_budget`` caps."""
+        sp = self._require_stages()
+        return list(stage_stream_bits(self.stream_bufs or [], sp.n_stages))
 
     def kernel_plan(
         self,
@@ -449,6 +546,29 @@ class GraphPlan:
         return plans
 
 
+def _plan_edge_traffic(plan: GraphPlan) -> Dict[Tuple[str, str], EdgeTraffic]:
+    """Exact per-edge traffic from a solved plan — the q_in / d /
+    absorbed-FIFO base that ``stream_buffers`` prices, handed to the
+    budgeted DP so feasibility and pricing agree bit for bit."""
+    graph = plan.graph
+    out: Dict[Tuple[str, str], EdgeTraffic] = {}
+    for dst in graph.topo_order():
+        q = plan.timing[dst].q_in
+        for src in graph.preds(dst):
+            try:
+                base = plan.buffer_for(dst, src).bound_pixels
+            except KeyError:
+                base = 1
+            out[(src, dst)] = EdgeTraffic(
+                src=src,
+                dst=dst,
+                q=q,
+                d=graph.spec(src).d_out,
+                base_pixels=base,
+            )
+    return out
+
+
 def plan_graph(
     graph: LayerGraph,
     input_rate: Fraction,
@@ -457,24 +577,47 @@ def plan_graph(
     prefer_large_h: bool = True,
     objective: str = "max_h",
     n_stages: Optional[int] = None,
-    replicate=None,
+    chain_cuts: bool = False,
+    link_dtype: LinkDtype = "int8",
     bram_budget=None,
+    replicate=None,
+    n_devices: Optional[int] = None,
 ) -> GraphPlan:
     """Select an implementation for every node of a DAG.
 
     Demands propagate exactly as the fluid recurrence; joins add the
-    operand-consistency constraint and the skew analysis.  The
-    multi-chip options of the reference planner (``n_stages``,
-    ``replicate``, ``bram_budget``) wait for the staged slice and raise
-    ``NotImplementedError`` until then.
+    operand-consistency constraint and the skew analysis.
+
+    ``n_stages`` turns on multi-chip planning: the DAG is cut into that
+    many contiguous-in-topo-order stages by the min-bottleneck / min-cut
+    DP (``core.stage_partition.partition_graph``), balancing the
+    DSE-selected per-node multiplier count, and every cut-crossing edge
+    is sized as an inter-chip ``StreamBuffer`` with
+    ``DEFAULT_LINK_CYCLES`` of slack per chip boundary crossed.
+    ``chain_cuts=True`` restricts boundaries to single-stream positions.
+    ``link_dtype`` ('int8' / 'bf16' / 'fp32', or a per-producer mapping)
+    sets the wire format of cut-crossing activations: it scales the DP's
+    cut weights and every stream buffer's width.  ``bram_budget`` (bits
+    per chip; scalar or one per stage) admits only cuts whose parked
+    stream bits fit each chip, and raises ``ValueError`` when none does.  ``n_devices`` records a
+    round-robin device placement on the stage plan (metadata only).
+
+    ``replicate`` turns on Multi-CLP bottleneck replication before
+    planning: a ``(node, R)`` pair, a ``{node: R}`` mapping, or a bare
+    ``R`` (the max-mults bottleneck).  The node is cloned R ways behind
+    a round-robin frame splitter and an order-preserving merger
+    (``core.replicate``); the applied records land in
+    ``GraphPlan.replications``.
     """
-    for opt, val in (("n_stages", n_stages), ("replicate", replicate),
-                     ("bram_budget", bram_budget)):
-        if val is not None:
-            raise NotImplementedError(
-                f"plan_graph({opt}=...) belongs to staged execution, which "
-                f"the port does not carry yet (ROADMAP: staged execution)"
-            )
+    if n_devices is not None and n_stages is None:
+        raise GraphError("n_devices= requires n_stages= (placement is per stage)")
+    replications: tuple = ()
+    if replicate is not None:
+        from .replicate import apply_replications
+
+        graph, replications = apply_replications(
+            graph, replicate, input_rate=input_rate, scheme=scheme
+        )
     demands, out_points = propagate_graph(graph, input_rate)
     impls: "OrderedDict[str, LayerImpl]" = OrderedDict()
     for name in graph.topo_order():
@@ -486,7 +629,7 @@ def plan_graph(
             objective=objective,
         )
     timing = compute_timing(graph, impls, input_rate)
-    return GraphPlan(
+    plan = GraphPlan(
         graph=graph,
         input_rate=Fraction(input_rate),
         scheme=scheme,
@@ -496,4 +639,33 @@ def plan_graph(
         timing=timing,
         buffers=join_buffers(graph, impls, timing)
         + deal_buffers(graph, impls, timing),
+        link_dtype=link_dtype,
+        replications=replications,
     )
+    if n_stages is not None:
+        plan.stage_plan = partition_graph(
+            graph,
+            plan_node_costs(plan),
+            n_stages,
+            chain_cuts=chain_cuts,
+            link_dtype=link_dtype,
+            bram_budget=bram_budget,
+            edge_traffic=(
+                _plan_edge_traffic(plan) if bram_budget is not None else None
+            ),
+        )
+        if n_devices is not None:
+            plan.stage_plan = dataclasses.replace(
+                plan.stage_plan,
+                placement=round_robin_placement(n_stages, n_devices),
+            )
+        plan.stream_bufs = stream_buffers(plan, plan.stage_plan, link_dtype=link_dtype)
+        if plan.stage_plan.bram_budget is not None:
+            parked = stage_stream_bits(plan.stream_bufs, n_stages)
+            if tuple(parked) != plan.stage_plan.stage_buffer_bits:
+                raise GraphError(
+                    f"budgeted DP parked bits {plan.stage_plan.stage_buffer_bits}"
+                    f" != priced stream buffers {tuple(parked)} — "
+                    f"edge_buffer_geometry drifted from stream_buffers"
+                )
+    return plan

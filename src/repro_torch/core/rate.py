@@ -1,7 +1,6 @@
 """Data-rate algebra for continuous-flow accelerators (paper §II).
 
-The port's own copy of the JAX package's ``core/rate.py`` (the part the
-rate-matched forward pass needs).  Rates are exact ``fractions.Fraction``
+The port's own copy of the JAX package's ``core/rate.py``.  Rates are exact ``fractions.Fraction``
 values in **features per clock** (the paper's r).  A rate ``r`` entering
 a layer with ``d_in`` channels corresponds to a *pixel* rate
 ``q = r / d_in`` (pixels per clock).
@@ -16,7 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 from fractions import Fraction
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 LayerKind = str
 # 'conv' | 'dwconv' | 'pointwise' | 'dense' | 'pool' | 'add' | 'gap' | 'concat'
@@ -95,6 +94,18 @@ class RatePoint:
         return self.features_per_clock / self.d
 
 
+def propagate_chain(
+    input_rate: Fraction, layers: Sequence[LayerSpec]
+) -> List[RatePoint]:
+    """Rates at every edge: [input, after layer0, after layer1, ...]."""
+    if not layers:
+        return []
+    pts = [RatePoint(features_per_clock=input_rate, d=layers[0].d_in)]
+    for layer in layers:
+        pts.append(propagate(pts[-1], layer))
+    return pts
+
+
 def propagate(rate_in: RatePoint, layer: LayerSpec) -> RatePoint:
     """Steady-state output rate of ``layer`` given its input rate."""
     if layer.d_in != rate_in.d:
@@ -118,3 +129,19 @@ def divisors(n: int) -> List[int]:
                 large.append(n // i)
         i += 1
     return small + large[::-1]
+
+
+def frame_cycles(hw: Tuple[int, int], pixels_per_clock: Fraction) -> Fraction:
+    """Clock cycles to stream one frame through the accelerator input.
+
+    Matches the paper's Table II throughput model: one blank column per
+    image row for sliding-window flushing, i.e. (W+1)*H pixel slots.
+    (224x224 @ 403.71 MHz, 2 px/clk -> 16,020 FPS exactly as published.)
+    """
+    h, w = hw
+    return Fraction((w + 1) * h) / pixels_per_clock
+
+
+def fps(hw: Tuple[int, int], pixels_per_clock: Fraction, f_hz: float) -> float:
+    """Frames per second at clock ``f_hz``."""
+    return f_hz / float(frame_cycles(hw, pixels_per_clock))

@@ -235,3 +235,71 @@ def apply(
         dtype=cfg.dtype,
         check=check,
     )
+
+
+def apply_staged(
+    params: cnn.Params,
+    x: torch.Tensor,
+    cfg: MobileNetConfig,
+    *,
+    partition,
+    conv_impls: Optional[Dict[str, cnn.Impl]] = None,
+    plan=None,
+    overrides=None,
+    executed=None,
+    check: bool = True,
+    check_monolithic: bool = False,
+    link_quant=None,
+    placement=None,
+    graph: Optional[LayerGraph] = None,
+) -> torch.Tensor:
+    """Multi-chip forward pass over a stage partition (a
+    ``GraphStagePlan`` or a ``GraphPlan`` planned with ``n_stages=``):
+    each stage run as its own function, cut-crossing activations
+    threaded across the boundaries.  ``graph`` defaults to
+    ``cfg.graph()``.  See ``cnn.apply_staged``."""
+    return cnn.apply_staged(
+        params,
+        x,
+        cfg.graph() if graph is None else graph,
+        partition=partition,
+        impls=conv_impls,
+        plan=plan,
+        overrides=overrides,
+        executed=executed,
+        dtype=cfg.dtype,
+        check=check,
+        check_monolithic=check_monolithic,
+        link_quant=link_quant,
+        placement=placement,
+    )
+
+
+# the paper's 8-bit datapath, shared with every CNN family
+quantize_params = cnn.quantize_params
+
+
+def apply_int8(
+    q_params,
+    scales,
+    x: torch.Tensor,
+    cfg: MobileNetConfig,
+    *,
+    plan=None,
+    overrides=None,
+    partition=None,
+    graph: Optional[LayerGraph] = None,
+) -> torch.Tensor:
+    """Inference with int8 weights dequantized on the fly to
+    ``cfg.dtype`` (the FPGA's int8 weight datapath; activations stay
+    float); ``partition`` runs it staged.  See ``cnn.apply_int8``."""
+    return cnn.apply_int8(
+        q_params,
+        scales,
+        x,
+        cfg.graph() if graph is None else graph,
+        plan=plan,
+        overrides=overrides,
+        partition=partition,
+        dtype=cfg.dtype,
+    )

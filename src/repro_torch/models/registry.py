@@ -12,6 +12,11 @@ and ``get_cnn_api`` for the CNN families.
     params = api.init(cfg, torch.Generator().manual_seed(0))
     kp = api.plan(cfg, Fraction(3))            # per-node ImplPlan table
     logits = api.apply(params, x, cfg, plan=kp)   # rate-matched kernels
+    gp = api.partition(cfg, Fraction(3), 3)    # 3 stages, int8 stream buffers
+    logits = api.apply_staged(params, x, cfg, partition=gp,
+                              plan=gp.kernel_plan(batch=8), link_quant=True)
+    q, s = api.quantize(params)                # int8 weights, one scale each
+    logits = api.apply_int8(q, s, x, cfg, plan=kp)
 
 ``get_api(cfg, device=None)`` and ``get_cnn_api(family, device=None)``
 resolve ``None`` to ``"cuda"`` and raise where CUDA is absent: the port's
@@ -106,8 +111,17 @@ class CNNApi:
     ``registry.CNNApi``).  ``plan(cfg, input_rate, **dse_kwargs)`` runs
     the DAG DSE on the family's graph and lowers it to the per-node
     ``ImplPlan`` table; ``apply(..., plan=kp)`` runs every arithmetic
-    node on its own planned tile.  ``caches`` memoizes graphs per config
-    and DSE plans per (config, rate, kwargs)."""
+    node on its own planned tile.
+
+    ``partition(cfg, input_rate, n_stages, **dse_kwargs)`` is the
+    multi-chip front door: the stage-aware DSE cuts the family's DAG into
+    ``n_stages`` stages and returns the ``GraphPlan`` with ``stage_plan``
+    / ``stream_bufs``; ``apply_staged(params, x, cfg, partition=gp)``
+    runs each stage as its own function.  ``quantize`` / ``apply_int8``
+    are the int8 weight datapath.
+
+    ``caches`` memoizes graphs per config and DSE plans per (config,
+    rate, stages, kwargs)."""
 
     family: str
     device: torch.device
@@ -116,10 +130,10 @@ class CNNApi:
     apply: Callable                  # (params, x, cfg, *, conv_impls, plan, ...)
     graph: Callable                  # (cfg) -> LayerGraph (the DSE's view)
     plan: Callable                   # (cfg, input_rate, **kw) -> ImplPlan table
-    quantize: Callable               # not ported yet: raises
-    apply_int8: Callable             # not ported yet: raises
-    partition: Callable              # not ported yet: raises
-    apply_staged: Callable           # not ported yet: raises
+    quantize: Callable               # (params, bits=8) -> (q_params, scales)
+    apply_int8: Callable             # (q_params, scales, x, cfg, ...) -> logits
+    partition: Callable              # (cfg, input_rate, n_stages, **kw) -> GraphPlan
+    apply_staged: Callable           # (params, x, cfg, *, partition, ...)
     serve: Callable                  # not ported yet: raises
     caches: Any = None               # {"graphs", "plans"} memo dicts
 
@@ -138,27 +152,42 @@ def _cnn_api(family: str, make_config: Callable, mod, device) -> CNNApi:
             graphs[cfg] = hit
         return hit
 
-    def _planned(cfg, input_rate, dse_kwargs):
+    def _planned(cfg, input_rate, n_stages, dse_kwargs):
         try:
-            key = (cfg, Fraction(input_rate), tuple(sorted(dse_kwargs.items())))
+            key = (cfg, Fraction(input_rate), n_stages,
+                   tuple(sorted(dse_kwargs.items())))
             hit = plans.get(key)
         except TypeError:  # unhashable rate/kwargs: plan fresh
             key, hit = None, None
         if hit is None:
-            hit = plan_graph(graph(cfg), input_rate, **dse_kwargs)
+            hit = plan_graph(graph(cfg), input_rate, n_stages=n_stages, **dse_kwargs)
             if key is not None:
                 plans[key] = hit
         return hit
 
     def plan(cfg, input_rate, **dse_kwargs):
-        return _planned(cfg, input_rate, dse_kwargs).kernel_plan()
+        return _planned(cfg, input_rate, None, dse_kwargs).kernel_plan()
+
+    def partition(cfg, input_rate, n_stages, **dse_kwargs):
+        return _planned(cfg, input_rate, n_stages, dse_kwargs)
 
     def init(cfg, generator: torch.Generator):
         return mod.init_params(cfg, generator, device)
 
+    def on_device(x):
+        return torch.as_tensor(x).to(device)
+
     def apply(params, x, cfg, **kwargs):
         kwargs.setdefault("graph", graph(cfg))
-        return mod.apply(params, torch.as_tensor(x).to(device), cfg, **kwargs)
+        return mod.apply(params, on_device(x), cfg, **kwargs)
+
+    def apply_staged(params, x, cfg, **kwargs):
+        kwargs.setdefault("graph", graph(cfg))
+        return mod.apply_staged(params, on_device(x), cfg, **kwargs)
+
+    def apply_int8(q_params, scales, x, cfg, **kwargs):
+        kwargs.setdefault("graph", graph(cfg))
+        return mod.apply_int8(q_params, scales, on_device(x), cfg, **kwargs)
 
     return CNNApi(
         family=family,
@@ -168,10 +197,10 @@ def _cnn_api(family: str, make_config: Callable, mod, device) -> CNNApi:
         apply=apply,
         graph=graph,
         plan=plan,
-        quantize=_not_yet("quantize", "int8 datapath"),
-        apply_int8=_not_yet("apply_int8", "int8 datapath"),
-        partition=_not_yet("partition", "staged execution"),
-        apply_staged=_not_yet("apply_staged", "staged execution"),
+        quantize=mod.quantize_params,
+        apply_int8=apply_int8,
+        partition=partition,
+        apply_staged=apply_staged,
         serve=_not_yet("serve", "stream engine"),
         caches={"graphs": graphs, "plans": plans},
     )

@@ -479,6 +479,108 @@ def test_rate_matched_slice_on_card_matches_cpu(card, family):
     _close(got.cpu(), want)
 
 
+def _card_params(params, card):
+    return {n: {k: v.to(card) for k, v in p.items()} for n, p in params.items()}
+
+
+def _kernel_launches():
+    return (fcu_matmul.fcu_matmul.launches, kpu_conv.kpu_conv.launches,
+            dw_conv.dw_conv.launches)
+
+
+# int8 links on the card against the CPU: activations differ by about 1e-6
+# of their scale (other summation orders), so a value on a rounding edge of
+# a link lands one int8 step (amax/127) apart; held at 2e-2 of the scale,
+# as the CPU tests hold the port against the JAX package.
+INT8_LINK_TOL = 2e-2
+
+
+@pytest.mark.parametrize("link", [None, "int8"])
+@pytest.mark.parametrize("n_stages", [2, 3])
+@pytest.mark.parametrize("family", ["mobilenet_v2", "resnet18"])
+def test_staged_on_card_matches_cpu(card, family, n_stages, link):
+    """``apply_staged`` through the registry's defaults (no ``device=``) on
+    the batch-pinned plan: every arithmetic node launches its kernel once,
+    staged equals monolithic bit for bit on the card, and the logits match
+    the CPU's staged run."""
+    api, cpu = get_cnn_api(family), get_cnn_api(family, device="cpu")
+    cfg = api.make_config(input_hw=(64, 64))
+    params = cpu.init(cfg, torch.Generator().manual_seed(1))
+    x = _rand((2, 64, 64, 3), 6)
+    gp = api.partition(cfg, Fraction(3), n_stages)
+    kp = gp.kernel_plan(batch=2)
+    on_card = _card_params(params, card)
+    arith = [ip for ip in kp.values() if ip.has_kernel]
+    want_launches = (sum(ip.kind in ("pointwise", "dense") for ip in arith),
+                     sum(ip.kind == "conv" for ip in arith),
+                     sum(ip.kind == "dwconv" for ip in arith))
+    before = _kernel_launches()
+    got = api.apply_staged(on_card, x, cfg, partition=gp, plan=kp, link_quant=link)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_kernel_launches(), before)) == want_launches
+    again = api.apply_staged(on_card, x, cfg, partition=gp, plan=kp, link_quant=link,
+                             check_monolithic=True)
+    assert torch.equal(got, again)
+    want = cpu.apply_staged(params, x, cfg, partition=gp, plan=kp, link_quant=link)
+    _close(got.cpu(), want, INT8_LINK_TOL if link else TOL)
+
+
+@pytest.mark.parametrize("family", ["mobilenet_v2", "resnet18"])
+def test_int8_datapath_on_card(card, family):
+    """``quantize`` + ``apply_int8`` on the card: monolithic and staged
+    bit-identical, both within 1e-4 of the CPU's and of the plain path."""
+    api, cpu = get_cnn_api(family), get_cnn_api(family, device="cpu")
+    cfg = api.make_config(input_hw=(64, 64))
+    params = cpu.init(cfg, torch.Generator().manual_seed(2))
+    x = _rand((2, 64, 64, 3), 7)
+    q, s = api.quantize(_card_params(params, card))
+    assert all(q[n]["w"].dtype == torch.int8 and q[n]["w"].is_cuda for n in q)
+    gp = api.partition(cfg, Fraction(3), 3)
+    kp = gp.kernel_plan(batch=2)
+    mono = api.apply_int8(q, s, x, cfg, plan=kp)
+    staged = api.apply_int8(q, s, x, cfg, plan=kp, partition=gp)
+    assert torch.equal(mono, staged)
+    _close(mono.cpu(), api.apply_int8(q, s, x, cfg).cpu())
+    cq, cs = cpu.quantize(params)
+    assert all(torch.equal(cq[n]["w"], q[n]["w"].cpu()) for n in q)
+    assert all(torch.equal(cs[n], s[n].cpu()) for n in q)
+    _close(mono.cpu(), cpu.apply_int8(cq, cs, x, cfg, plan=kp))
+
+
+def test_link_quant_on_card_is_the_cpus(card):
+    """Link quantization on the card gives the CPU's bits (and so the JAX
+    package's): the scale is a true quotient there too, not a product by
+    the reciprocal of 127."""
+    from repro_torch.nn.quant import dequantize_link, quantize_link
+
+    for seed in range(20):
+        x = _rand((2, 28, 28, 64), 100 + seed, scale=10.0 ** (seed % 7 - 3))
+        got, want = quantize_link(x.to(card)), quantize_link(x)
+        assert torch.equal(got["__s__"].cpu(), want["__s__"])
+        assert torch.equal(got["__q__"].cpu(), want["__q__"])
+        assert torch.equal(dequantize_link(got).cpu(), dequantize_link(want))
+
+
+def test_replicated_plan_on_card(card):
+    """ResNet-18 at S=3 with the replication the DSE picks: its lanes see
+    half the batch, so it is held at 1e-4 of the unreplicated forward."""
+    from repro_torch.core.graph import plan_graph
+    from repro_torch.core.replicate import best_replication, replicate_params
+
+    api, cpu = get_cnn_api("resnet18"), get_cnn_api("resnet18", device="cpu")
+    cfg = api.make_config(input_hw=(64, 64))
+    graph = api.graph(cfg)
+    rep = {r.node: r.r for r in best_replication(graph, Fraction(3),
+                                                 n_stages=3).replications}
+    assert rep
+    gp = plan_graph(graph, Fraction(3), n_stages=3, replicate=rep)
+    params = _card_params(cpu.init(cfg, torch.Generator().manual_seed(3)), card)
+    x = _rand((4, 64, 64, 3), 8)
+    got = api.apply_staged(replicate_params(params, gp.replications), x, cfg,
+                           graph=gp.graph, partition=gp, plan=gp.kernel_plan(batch=4))
+    _close(got.cpu(), api.apply(params, x, cfg, plan=api.plan(cfg, Fraction(3))).cpu())
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize(
     "h,hkv,sq,sk,d,causal",

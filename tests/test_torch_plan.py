@@ -158,16 +158,34 @@ def test_uniform_select_tile():
 @pytest.mark.parametrize("kw", [dict(n_stages=2), dict(replicate=2),
                                 dict(bram_budget=10**6)])
 def test_staged_options_not_ported(kw):
+    """The multi-chip options raised until the staged slice; now they plan
+    as the reference does (``bram_budget`` needs ``n_stages``)."""
+    kw = {**kw, "n_stages": 2} if "bram_budget" in kw else kw
     g = get_cnn_api("resnet18", device="cpu").make_config(input_hw=(32, 32)).graph()
-    with pytest.raises(NotImplementedError, match="staged"):
-        plan_graph(g, Fraction(3), **kw)
+    ref_g = ref_api("resnet18").make_config(input_hw=(32, 32)).graph()
+    gp, ref_gp = plan_graph(g, Fraction(3), **kw), ref_plan_graph(ref_g, Fraction(3), **kw)
+    assert gp.graph.topo_order() == ref_gp.graph.topo_order()
+    assert [(r.node, r.r, r.lanes) for r in gp.replications] == [
+        (r.node, r.r, r.lanes) for r in ref_gp.replications]
+    if "n_stages" in kw:
+        assert gp.stage_plan.boundaries == ref_gp.stage_plan.boundaries
+        assert [(b.src, b.dst, b.bits) for b in gp.stream_bufs] == [
+            (b.src, b.dst, b.bits) for b in ref_gp.stream_bufs]
 
 
 @pytest.mark.parametrize("objective", ["resources", "pareto"])
 def test_resource_objectives_not_ported(objective):
+    """The FPGA resource-model objectives raised until the analytic core
+    was ported; now they choose the reference's (j, h)."""
+    from repro.core.dse import select_ours as ref_select_ours
+    from repro.models.topology import conv_spec as ref_conv_spec
+
     spec, _ = conv_spec("c", "conv", 16, 32, (8, 8), 3, 1)
-    with pytest.raises(NotImplementedError, match="resource model"):
-        select_ours(spec, Fraction(3), objective=objective)
+    ref_spec, _ = ref_conv_spec("c", "conv", 16, 32, (8, 8), 3, 1)
+    got = select_ours(spec, Fraction(3), objective=objective)
+    want = ref_select_ours(ref_spec, Fraction(3), objective=objective)
+    assert (got.j, got.h, got.p, got.units, got.mults) == (
+        want.j, want.h, want.p, want.units, want.mults)
 
 
 def test_families():

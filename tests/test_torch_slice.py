@@ -151,7 +151,18 @@ def test_init_graph_params_from_generator():
 
 
 def test_unported_entry_points_raise():
+    """What later slices port raises with its ROADMAP name: the stream
+    engine (``serve``), stages on devices of their own (``placement=``)
+    and the cut-transfer hook (``StagePipeline.observe``)."""
     pa = get_cnn_api("resnet18", device="cpu")
-    for fn in (pa.quantize, pa.apply_int8, pa.partition, pa.apply_staged, pa.serve):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn()
+    with pytest.raises(NotImplementedError, match=r"ROADMAP: stream engine"):
+        pa.serve()
+    cfg = pa.make_config(input_hw=HW)
+    params = pa.init(cfg, torch.Generator().manual_seed(0))
+    gp = pa.partition(cfg, Fraction(3), 2)
+    x = torch.zeros((1, *HW, 3))
+    with pytest.raises(NotImplementedError, match=r"ROADMAP: Device pipeline"):
+        pa.apply_staged(params, x, cfg, partition=gp, placement=True)
+    pipe = cnn.stage_functions(pa.graph(cfg), partition=gp)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP: Fleet and obs hooks"):
+        pipe.observe(print)
