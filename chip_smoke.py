@@ -54,7 +54,24 @@ printing JSON lines:
    TOL of the plain path's int8 logits); and ResNet-18 at S=3 with the
    replication ``best_replication`` picks, held within TOL of the
    unreplicated monolithic forward;
-6. lm, ssm, hybrid — qwen2-7b (bf16 KV cache: the config's int8 cache is
+6. stream — the stream engine (``serving/cnn_stream.py``), for
+   MobileNetV2 and ResNet-18 at 224x224, STREAM_FRAMES frames a run at
+   micro-batch STREAM_MICROBATCH on the batch-pinned rate-3 plan: (a) S
+   = 1, 2, 3 with fp32 links and (b) S = 3 with int8 links, constant
+   traffic at BestRate; (c) S = 2, adversarial traffic with a
+   STREAM_DEADLINE-tick ``ShedPolicy``; (d) S = 2, bursty traffic with a
+   ``SwitchPolicy`` over the rate-3 / rate-6 ladder; (e) S = 2 traced,
+   audited by ``obs.audit``.  Each run: launch counts set to 0 just
+   before ``run()`` and read after the outputs (each kernel: its
+   arithmetic nodes x micro-batches executed, summed over rungs); served
+   outputs bit for bit ``apply_staged`` on the same zero-padded
+   micro-batches (d: each rung's frames against that rung served alone);
+   the report equal to the ``execute=False`` twin's field for field;
+   stall-free at BestRate; finite logits; host syncs inside ``run()``
+   counted under ``torch.cuda.set_sync_debug_mode("warn")``; wall ms and
+   frames/s beside ``apply_staged``'s over the same micro-batches, the
+   twin's loop ms, and the busy share of one profiled run;
+7. lm, ssm, hybrid — qwen2-7b (bf16 KV cache: the config's int8 cache is
    not ported), then mamba2-780m, then zamba2-1.2b, each at full width
    and depth with random weights from a seeded CUDA generator: the token
    engine serves 4 prompts of 512-2048 tokens on 2 slots, 16 new tokens
@@ -63,7 +80,7 @@ printing JSON lines:
    per Mamba2 layer, per prefill); then each prompt's prefill logits on
    the kernels against the same prefill on their plain versions, and
    one prefill and one decode step under ``torch.profiler``;
-7. the ``kernels`` line, the card line, and the final ``ok`` line.
+8. the ``kernels`` line, the card line, and the final ``ok`` line.
 
 Any failure raises: the script then exits non-zero and prints no result.
 """
@@ -120,6 +137,12 @@ SSM_CHECK = (f"f32 copy of the weights at TOL; bf16 within {SSM_BF16_FACTOR} x "
 STAGES = (2, 3)
 LINKS = (None, "int8")
 BUILDS = 20
+# The stream phase: frames a run (8 full micro-batches and one of 4,
+# padded), the micro-batch, and run c's SLA deadline in ticks (it sheds
+# frames under adversarial traffic at S=2; 64 ticks would shed none).
+STREAM_FRAMES = 68
+STREAM_MICROBATCH = 8
+STREAM_DEADLINE = Fraction(24)
 # The serving phases: prompts (tokens), new tokens each, engine shape.
 PROMPT_LENS = (512, 1000, 1536, 2048)
 MAX_NEW = 16
@@ -852,6 +875,212 @@ def run_staged(torch, family, kernels_mod, gen):
     return total
 
 
+def _plain(obj):
+    """Builtins for a field-by-field comparison of two reports (dataclasses
+    as their ``==`` fields, Fractions kept exact)."""
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return tuple((f.name, _plain(getattr(obj, f.name)))
+                     for f in dataclasses.fields(obj) if f.compare)
+    if isinstance(obj, (list, tuple)):
+        return tuple(_plain(v) for v in obj)
+    return obj
+
+
+def padded_batches(torch, frames, rids, microbatch):
+    """The engine's micro-batches: ``rids`` in admission order, in groups of
+    ``microbatch``, the last zero-padded (the engine pads on the device)."""
+    out = []
+    for i in range(0, len(rids), microbatch):
+        idx = rids[i:i + microbatch]
+        b = frames[idx]
+        if len(idx) < microbatch:
+            b = torch.cat([b, torch.zeros((microbatch - len(idx), *b.shape[1:]),
+                                          dtype=b.dtype, device=b.device)])
+        out.append((idx, b))
+    return out
+
+
+def run_stream(torch, family, kernels_mod, gen):
+    """The stream engine (``serving/cnn_stream.py``) on the card, runs a-e
+    of one family at 224x224 (phase ``stream``); returns the launches of
+    its counted runs, per kernel."""
+    import warnings
+
+    from repro_torch.obs import audit
+    from repro_torch.serving import (CNNStreamEngine, PlanLadder, ServeConfig,
+                                     ShedPolicy, SwitchPolicy, adversarial, bursty,
+                                     constant)
+    from repro_torch.serving.cnn_stream import best_rate_frames
+    from repro_torch.models.registry import get_cnn_api
+
+    api = get_cnn_api(family)
+    cfg = api.make_config()
+    graph = api.graph(cfg)
+    params = api.init(cfg, torch.Generator().manual_seed(0))
+    frames_cpu = torch.randn((STREAM_FRAMES, *cfg.input_hw, 3), generator=gen)
+    frames = frames_cpu.cuda()
+    total = {k: 0 for k in KERNELS}
+
+    t0 = time.perf_counter()
+    ladder = PlanLadder.build(graph, RATE, n_stages=2, rate_factors=(1, 2))
+    ladder_s = time.perf_counter() - t0
+    runs = []
+    for n_stages in (1, 2, 3):
+        runs.append(("a", n_stages, None, "constant", None, {}))
+    runs.append(("b", 3, "int8", "constant", None, {"link_dtype": "int8"}))
+    runs.append(("c", 2, None, "adversarial", "shed", {}))
+    runs.append(("d", 2, None, "bursty", "switch", {}))
+    runs.append(("e", 2, None, "constant", "traced", {}))
+
+    for run, n_stages, link, traffic, policy, dse in runs:
+        label = f"{family}/stream/{run}/S={n_stages}/{link or 'fp32'}"
+        gp = ladder.rungs[0].plan if policy == "switch" else api.partition(
+            cfg, RATE, n_stages, **dse)
+        br = best_rate_frames(gp)
+        arrival = {"constant": constant(br), "adversarial": adversarial(br),
+                   "bursty": bursty(2 * br, burst=32, gap=48)}[traffic]
+        overload = {"shed": ShedPolicy(STREAM_DEADLINE),
+                    "switch": SwitchPolicy(ladder, window_ticks=16)}.get(policy)
+        kp = gp.kernel_plan(batch=STREAM_MICROBATCH)
+        config = ServeConfig(microbatch=STREAM_MICROBATCH, kernel_plan=kp,
+                             link_quant=True if link else None, arrival=arrival,
+                             overload=overload, trace=policy == "traced")
+
+        def engine(execute=True):
+            eng = CNNStreamEngine(graph, params, gp, config.with_(execute=execute))
+            if execute:
+                eng.submit_all(frames_cpu)  # one copy of the whole stack
+                torch.cuda.synchronize()
+            else:
+                for _ in range(STREAM_FRAMES):
+                    eng.submit(None)
+            return eng
+
+        def serve(eng, syncs=None):
+            """run() and outputs() on the host clock, up to the outputs
+            synchronized; with ``syncs`` (a list), the run and the output
+            stack under the sync debug mode, its warnings appended."""
+            t0 = time.perf_counter()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                if syncs is not None:
+                    torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    rep = eng.run()
+                    out = eng.outputs()
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            if syncs is not None:
+                syncs += [str(w.message) for w in caught
+                          if "synchroniz" in str(w.message)]
+            return rep, out, ms
+
+        serve(engine())  # warm-up
+        eng = engine()
+        host_syncs = []
+        reset_counts(kernels_mod)
+        rep, out, wall_ms = serve(eng, host_syncs)
+        counts = read_counts(kernels_mod)
+        for k, v in counts.items():
+            total[k] += v
+
+        twin = engine(execute=False)
+        t0 = time.perf_counter()
+        twin_rep = twin.run()
+        loop_ms = (time.perf_counter() - t0) * 1e3
+        require(_plain(rep) == _plain(twin_rep)
+                and rep._stage_intervals == twin_rep._stage_intervals,
+                f"{label}: executing moved the clock (report != execute=False twin)")
+
+        # micro-batches executed, per rung (stage 0 rows), and the launches
+        batches = {}
+        for row in rep.stages:
+            if row.stage == 0:
+                batches[row.rung] = batches.get(row.rung, 0) + row.batches_served
+        want = {k: 0 for k in KERNELS}
+        rung_plans = [r.plan for r in ladder.rungs] if policy == "switch" else [gp]
+        for rung, nb in batches.items():
+            for k, v in want_launches(rung_plans[rung].kernel_plan(
+                    batch=STREAM_MICROBATCH), nb).items():
+                want[k] += v
+        require(counts == want, f"{label}: launches {counts} != nodes x batches {want}")
+
+        served = sorted((r for r in eng._requests if r.t_shed is None),
+                        key=lambda r: (r.t_admit, r.rid))
+        rids = [r.rid for r in served]
+        require(tuple(out.shape) == (len(rids), cfg.num_classes) and out.is_cuda
+                and bool(torch.isfinite(out).all()), f"{label}: outputs {tuple(out.shape)}")
+        by_rid = dict(zip(sorted(rids), out))
+
+        # gate 1: bit for bit against apply_staged on the same padded batches
+        # (run d: each rung's frames against that rung served alone)
+        if policy == "switch":
+            for rung in sorted(batches):
+                mine = [r.rid for r in served if r.rung == rung]
+                plan_r = ladder.rungs[rung].plan
+                alone = CNNStreamEngine(plan_r.graph, params, plan_r, ServeConfig(
+                    microbatch=STREAM_MICROBATCH,
+                    kernel_plan=plan_r.kernel_plan(batch=STREAM_MICROBATCH)))
+                alone.submit_all(frames_cpu[sorted(mine)])
+                alone.run()
+                require(torch.equal(torch.stack([by_rid[r] for r in sorted(mine)]),
+                                    alone.outputs()),
+                        f"{label}: rung {rung} differs from that rung served alone")
+        else:
+            chunks = padded_batches(torch, frames, rids, STREAM_MICROBATCH)
+            for idx, b in chunks:
+                y = api.apply_staged(params, b, cfg, partition=gp, plan=kp,
+                                     link_quant=True if link else None)
+                require(torch.equal(torch.stack([by_rid[r] for r in idx]), y[:len(idx)]),
+                        f"{label}: served != apply_staged on the padded micro-batch")
+            t0 = time.perf_counter()
+            for _, b in chunks:
+                api.apply_staged(params, b, cfg, partition=gp, plan=kp,
+                                 link_quant=True if link else None)
+            torch.cuda.synchronize()
+            staged_ms = (time.perf_counter() - t0) * 1e3
+
+        if policy is None or policy == "traced":
+            require(rep.stall_free, f"{label}: stalled at the plan's BestRate")
+        summary = rep.summary()
+        row = {
+            "phase": "stream", "family": family, "stages": n_stages,
+            "links": link or "fp32", "traffic": traffic, "policy": policy,
+            "run": run, "frames": STREAM_FRAMES, "microbatch": STREAM_MICROBATCH,
+            "input_hw": list(cfg.input_hw), "rate": str(RATE),
+            "wall_ms": wall_ms, "frames_per_s": len(rids) / (wall_ms / 1e3),
+            "loop_ms": loop_ms, "loop_us_per_frame": loop_ms * 1e3 / STREAM_FRAMES,
+            "best_rate": str(rep.best_rate), "admitted_rate": str(rep.admitted_rate),
+            "stall_free": rep.stall_free, "max_queue": list(summary.max_queue),
+            "caps": list(summary.queue_caps), "p50_ticks": rep.p50_latency(),
+            "p99_ticks": rep.p99_latency(), "shed": rep.shed,
+            "switches": [[str(t), a, b] for t, a, b in rep.switches],
+            "batches": batches, "launches": counts, "bit_exact": True,
+            "host_syncs_in_run": len(host_syncs), "host_sync_examples": host_syncs[:3],
+            "report_eq_execute_false_twin": True,
+        }
+        if policy != "switch":
+            row["staged_ms"] = staged_ms
+            row["staged_frames_per_s"] = len(rids) / (staged_ms / 1e3)
+        else:
+            row["ladder"] = ladder.describe()
+            row["ladder_plan_s"] = ladder_s
+        if policy == "traced":
+            ar = audit(rep.trace)
+            require(ar.matches(summary) and ar.clean,
+                    f"{label}: audit {ar.verdict_line()} disagrees with the summary")
+            row["audit"] = ar.verdict_line()
+            row["exec_spans"] = len(rep.trace.spans("exec", clock="host"))
+        prof = engine()
+        device_ms, _, _ = device_ms_by_kernel(torch, lambda: serve(prof))
+        row["profiled_device_ms"] = device_ms
+        row["device_busy_share"] = sum(device_ms.values()) / wall_ms if device_ms else None
+        emit(row)
+    return total
+
+
 def bench_flash(torch, bench, gen):
     """The flash kernel at the LM paths' prefill shapes (qwen2-7b's heads
     and zamba2's shared-attention heads, bf16, each served prompt length),
@@ -1312,6 +1541,10 @@ def main() -> int:
             launches[k] += v
     for family in ("mobilenet_v2", "resnet18"):
         for k, v in run_staged(torch, family, kernels_mod, gen).items():
+            launches[k] += v
+    for family in ("mobilenet_v2", "resnet18"):
+        for k, v in run_stream(torch, family, kernels_mod,
+                               torch.Generator().manual_seed(2028)).items():
             launches[k] += v
     for k, v in run_lm_paths(torch, kernels_mod).items():
         launches[k] += v

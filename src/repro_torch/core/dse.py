@@ -10,6 +10,8 @@ Eqs. 1-11):
                       settings prefer the largest h.
 * ``select_ref11``  — the [11] baseline: Eqs. (1)-(3) direct derivation.
 * ``plan_network``  — the chain planner behind Tables I and II.
+* ``plan_ladder``   — a graph planned at several rates: the downgrade
+                      ladder of the stream engine's plan switching.
 * multi-pixel handling (paper §II-E): P pixel phases with stride pruning.
 
 Everything is exact fraction arithmetic — no floats in feasibility logic.
@@ -345,3 +347,50 @@ def plan_network(
         impls.append(impl)
         r = impl.rate_out
     return impls
+
+
+def plan_ladder(
+    graph,
+    input_rate: Fraction,
+    *,
+    n_stages: int = 1,
+    rate_factors: Tuple = (1, 2),
+    try_replicate: bool = False,
+    r_options: Tuple[int, ...] = (2, 3),
+    **plan_kwargs,
+) -> List:
+    """Enumerate the downgrade ladder of plans for one graph.
+
+    ``plan_graph`` at ``input_rate * f`` for every factor in
+    ``rate_factors`` (each with the same ``n_stages`` partition, so the
+    serving pipeline shape is comparable), and, with ``try_replicate``,
+    the best Multi-CLP replication variant at the top rate
+    (``core.replicate.best_replication``, kept only when it replicates
+    something).  Returned cheapest first; ``serving.overload.PlanLadder``
+    prices each rung's request-level sustainable rate and prunes the
+    rungs that do not improve it.
+    """
+    from .graph import plan_graph
+
+    factors = sorted({Fraction(f) for f in rate_factors})
+    if not factors or factors[0] <= 0:
+        raise ValueError(f"rate_factors must be > 0, got {rate_factors}")
+    plans = [
+        plan_graph(
+            graph, Fraction(input_rate) * f, n_stages=n_stages, **plan_kwargs
+        )
+        for f in factors
+    ]
+    if try_replicate:
+        from .replicate import best_replication
+
+        rep = best_replication(
+            graph,
+            Fraction(input_rate) * factors[-1],
+            n_stages=n_stages,
+            r_options=r_options,
+            **plan_kwargs,
+        )
+        if rep.replications:
+            plans.append(rep)
+    return plans

@@ -760,8 +760,7 @@ class StagePipeline:
     per-batch ``boundary`` dict (imported tensors in, exported tensors
     merged back in); ``staged_forward``'s callable is the loop over s.
     Every stage runs on the input's device: placing stages on devices of
-    their own (``prefetch``) and the transfer hook (``observe``) belong
-    to later slices and raise.
+    their own (``prefetch``) belongs to a later slice and raises.
     """
 
     def __init__(
@@ -785,6 +784,7 @@ class StagePipeline:
         # activations — decode with ``decode_boundary`` before comparing.
         self.link_quant_edges = dict(link_quant_edges or {})
         self.dtype = dtype
+        self._observer = None
 
     @property
     def n_stages(self) -> int:
@@ -795,10 +795,14 @@ class StagePipeline:
         return {n: params[n] for n in nodes if n in params}
 
     def observe(self, hook) -> None:
-        """The cut-transfer hook of a placed pipeline."""
-        raise NotImplementedError(
-            "StagePipeline.observe is not ported yet (ROADMAP: Fleet and obs hooks)"
-        )
+        """Register ``hook(stage=, name=, nbytes=, dtype=, donated=)``, to
+        be called on every placed cut transfer ``prefetch`` issues (the
+        serving engine folds it into ``transfer_bytes{edge,dtype}``).
+        Pass ``None`` to detach.  A pipeline whose stages all run on the
+        input's device moves nothing across a cut, so it never calls the
+        hook, as in the JAX package; placed transfers come with the
+        device pipeline."""
+        self._observer = hook
 
     def keep_after(self) -> List[set]:
         """``keep_after()[s]``: the boundary keys still live once stage

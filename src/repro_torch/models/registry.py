@@ -17,6 +17,9 @@ and ``get_cnn_api`` for the CNN families.
                               plan=gp.kernel_plan(batch=8), link_quant=True)
     q, s = api.quantize(params)                # int8 weights, one scale each
     logits = api.apply_int8(q, s, x, cfg, plan=kp)
+    out, report = api.serve(params, frames, cfg, input_rate=Fraction(3),
+                            n_stages=2, rate_matched=True,
+                            config=ServeConfig(microbatch=8))
 
 ``get_api(cfg, device=None)`` and ``get_cnn_api(family, device=None)``
 resolve ``None`` to ``"cuda"`` and raise where CUDA is absent: the port's
@@ -118,10 +121,14 @@ class CNNApi:
     ``n_stages`` stages and returns the ``GraphPlan`` with ``stage_plan``
     / ``stream_bufs``; ``apply_staged(params, x, cfg, partition=gp)``
     runs each stage as its own function.  ``quantize`` / ``apply_int8``
-    are the int8 weight datapath.
+    are the int8 weight datapath.  ``serve(params, frames, cfg, *,
+    input_rate, n_stages=1, config=ServeConfig(...), **kw)`` streams
+    frames through the stream engine (``serving.cnn_stream.serve_frames``)
+    on the API's device and returns ``(outputs, report)``.
 
     ``caches`` memoizes graphs per config and DSE plans per (config,
-    rate, stages, kwargs)."""
+    rate, stages, kwargs); ``serve`` keys its plans in the same dict per
+    (graph, rate, stages, kwargs), the graph being the config's."""
 
     family: str
     device: torch.device
@@ -134,7 +141,7 @@ class CNNApi:
     apply_int8: Callable             # (q_params, scales, x, cfg, ...) -> logits
     partition: Callable              # (cfg, input_rate, n_stages, **kw) -> GraphPlan
     apply_staged: Callable           # (params, x, cfg, *, partition, ...)
-    serve: Callable                  # not ported yet: raises
+    serve: Callable                  # (params, frames, cfg, *, input_rate, ...)
     caches: Any = None               # {"graphs", "plans"} memo dicts
 
 
@@ -189,6 +196,18 @@ def _cnn_api(family: str, make_config: Callable, mod, device) -> CNNApi:
         kwargs.setdefault("graph", graph(cfg))
         return mod.apply_int8(q_params, scales, on_device(x), cfg, **kwargs)
 
+    def serve(params, frames, cfg, **kwargs):
+        from repro_torch.serving.cnn_stream import serve_frames
+        from repro_torch.serving.config import ServeConfig
+
+        config = kwargs.pop("config", None)
+        if "dtype" not in kwargs and (config is None or config.dtype is None):
+            kwargs["dtype"] = cfg.dtype
+        kwargs["config"] = config if config is not None else ServeConfig()
+        kwargs.setdefault("plan_cache", plans)
+        kwargs.setdefault("device", device)
+        return serve_frames(graph(cfg), params, frames, **kwargs)
+
     return CNNApi(
         family=family,
         device=device,
@@ -201,7 +220,7 @@ def _cnn_api(family: str, make_config: Callable, mod, device) -> CNNApi:
         apply_int8=apply_int8,
         partition=partition,
         apply_staged=apply_staged,
-        serve=_not_yet("serve", "stream engine"),
+        serve=serve,
         caches={"graphs": graphs, "plans": plans},
     )
 

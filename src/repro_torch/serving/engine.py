@@ -76,8 +76,9 @@ class Engine:
             if is_cnn:
                 raise ValueError(
                     f"Engine serves token streams; CNN config "
-                    f"{type(cfg).__name__} streams frames (ROADMAP Queue 1: "
-                    "stream engine)"
+                    f"{type(cfg).__name__} streams frames through "
+                    "serving.cnn_stream.CNNStreamEngine (front door: "
+                    "registry.CNNApi.serve)"
                 )
             raise ValueError(
                 f"Engine supports text-in/text-out families; {family} "

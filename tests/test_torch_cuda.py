@@ -749,3 +749,74 @@ def test_reduced_ssm_prefill_on_card_matches_cpu(card, arch):
     leaves = (lambda st: list(st) if mod is mamba else [*st["ssm"], *st["kv"]])
     for g, w in zip(leaves(got_state), leaves(want_state)):
         _close_rms(g.cpu(), w)
+
+
+# --------------------------------------------------------------------------
+# the stream engine on the card
+# --------------------------------------------------------------------------
+
+
+def _served(family, card, link, *, check=True, sync_mode=None, frames=5):
+    """Serve ``frames`` 64x64 frames at micro-batch 2 on the card (the last
+    micro-batch padded) with the batch-pinned plan; returns the engine,
+    its report and outputs, the params and frames on the card, and the
+    plan.  ``sync_mode`` wraps ``run()`` in
+    ``torch.cuda.set_sync_debug_mode``."""
+    from repro_torch.serving import CNNStreamEngine, ServeConfig
+
+    api, cpu = get_cnn_api(family), get_cnn_api(family, device="cpu")
+    cfg = api.make_config(input_hw=(64, 64))
+    params = _card_params(cpu.init(cfg, torch.Generator().manual_seed(4)), card)
+    x = _rand((frames, 64, 64, 3), 9)
+    gp = api.partition(cfg, Fraction(3), 3)
+    kp = gp.kernel_plan(batch=2)
+    eng = CNNStreamEngine(api.graph(cfg), params, gp, ServeConfig(
+        microbatch=2, kernel_plan=kp, link_quant=link, check=check))
+    eng.submit_all(x)
+    torch.cuda.synchronize()
+    if sync_mode is not None:
+        torch.cuda.set_sync_debug_mode(sync_mode)
+    try:
+        rep = eng.run()
+        out = eng.outputs()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return api, cfg, eng, rep, out, params, x.to(card), gp, kp
+
+
+@pytest.mark.parametrize("link", [None, "int8"])
+@pytest.mark.parametrize("family", ["mobilenet_v2", "resnet18"])
+def test_stream_engine_on_card_equals_apply_staged(card, family, link):
+    """The engine's outputs on the card equal ``apply_staged`` on the same
+    zero-padded micro-batches bit for bit (both run every node at the
+    pinned batch of 2), fp32 and int8 links; ``outputs()`` is one tensor
+    on the card; every arithmetic node launched once per micro-batch."""
+    before = _kernel_launches()
+    api, cfg, eng, rep, out, params, x, gp, kp = _served(family, card, link)
+    arith = [ip for ip in kp.values() if ip.has_kernel]
+    per_batch = (sum(ip.kind in ("pointwise", "dense") for ip in arith),
+                 sum(ip.kind == "conv" for ip in arith),
+                 sum(ip.kind == "dwconv" for ip in arith))
+    assert tuple(a - b for a, b in zip(_kernel_launches(), before)) == tuple(
+        3 * n for n in per_batch)
+    assert rep.completed == 5 and rep.stall_free
+    assert out.is_cuda and out.shape == (5, cfg.num_classes)
+    pad = torch.zeros_like(x[:1])
+    batches = [x[0:2], x[2:4], torch.cat([x[4:5], pad])]
+    want = torch.cat([api.apply_staged(params, b, cfg, partition=gp, plan=kp,
+                                       link_quant=link) for b in batches])[:5]
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("check", [False, True])
+def test_stream_engine_reads_nothing_back_during_a_run(card, check):
+    """Between ``begin`` and ``finish`` nothing waits for the card: under
+    ``torch.cuda.set_sync_debug_mode("error")`` any synchronizing call
+    (a copy to the host, ``.item()``, a tensor's truth value) raises.
+    The node checks of ``check=True`` compare shapes and MAC counts, so
+    they do not sync either."""
+    for link in (None, "int8"):
+        _, _, _, rep, out, _, _, _, _ = _served("mobilenet_v2", card, link,
+                                                check=check, sync_mode="error")
+        assert rep.completed == 5 and bool(torch.isfinite(out).all())

@@ -151,18 +151,23 @@ def test_init_graph_params_from_generator():
 
 
 def test_unported_entry_points_raise():
-    """What later slices port raises with its ROADMAP name: the stream
-    engine (``serve``), stages on devices of their own (``placement=``)
-    and the cut-transfer hook (``StagePipeline.observe``)."""
+    """What later slices port raises with its ROADMAP name: stages on
+    devices of their own (``placement=``, and the stream engine's
+    ``execute="devices"``).  The stream engine (``serve``) and the
+    cut-transfer hook (``StagePipeline.observe``, which an unplaced
+    pipeline never calls) are ported."""
+    from repro_torch.serving import ServeConfig
+
     pa = get_cnn_api("resnet18", device="cpu")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP: stream engine"):
-        pa.serve()
     cfg = pa.make_config(input_hw=HW)
     params = pa.init(cfg, torch.Generator().manual_seed(0))
     gp = pa.partition(cfg, Fraction(3), 2)
     x = torch.zeros((1, *HW, 3))
     with pytest.raises(NotImplementedError, match=r"ROADMAP: Device pipeline"):
         pa.apply_staged(params, x, cfg, partition=gp, placement=True)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP: Device pipeline"):
+        pa.serve(params, x, cfg, input_rate=Fraction(3), n_stages=2,
+                 config=ServeConfig(execute="devices"))
     pipe = cnn.stage_functions(pa.graph(cfg), partition=gp)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP: Fleet and obs hooks"):
-        pipe.observe(print)
+    pipe.observe(print)
+    assert pipe._observer is print

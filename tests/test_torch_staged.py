@@ -482,8 +482,13 @@ def test_staged_rejects_bad_partitions_and_later_slices():
     pipe = cnn.stage_functions(g, partition=gp, placement=False)
     with pytest.raises(NotImplementedError, match="Device pipeline"):
         pipe.prefetch(1, {})
-    with pytest.raises(NotImplementedError, match="Fleet and obs hooks"):
-        pipe.observe(lambda **kw: None)
+    # the transfer hook is stored; an unplaced pipeline never calls it
+    calls = []
+    pipe.observe(lambda **kw: calls.append(kw))
+    pipe.run_stage(0, params, {}, x)
+    assert calls == []
+    pipe.observe(None)
+    assert pipe._observer is None
     assert cnn.resolve_stage_devices(None) is None
 
 
