@@ -70,8 +70,30 @@ printing JSON lines:
    stall-free at BestRate; finite logits; host syncs inside ``run()``
    counted under ``torch.cuda.set_sync_debug_mode("warn")``; wall ms and
    frames/s beside ``apply_staged``'s over the same micro-batches, the
-   twin's loop ms, and the busy share of one profiled run;
-7. lm, ssm, hybrid — qwen2-7b (bf16 KV cache: the config's int8 cache is
+   twin's loop ms, and the busy share of one profiled run; then run a at
+   S = 2 again with ``execute="devices"`` (stages on CUDA streams of their
+   own), traced, with fp32 and with int8 links: served == ``execute=True``
+   bit for bit and each ``transfer_bytes{edge,dtype}`` == the plan's cut
+   bytes x micro-batches;
+7. devices, fleet — the device pipeline (``distributed/device_pipeline.py``)
+   for MobileNetV2 and ResNet-18 at 224x224: DEVICES_FRAMES frames at
+   micro-batch DEVICES_MICROBATCH through ``DevicePipeline.build(...,
+   placement=True)`` at each of DEVICES_RUNS, every stage on cuda:0 on a
+   stream of its own (placement, distinct streams); the launch counts set
+   to 0 just before ``run()`` and read just after (nodes x micro-batches);
+   bit for bit ``apply_staged`` on the same micro-batches, no host sync
+   inside ``run()`` under ``set_sync_debug_mode("warn")``, two runs in a
+   row on fresh frames identical; ``measure(warmup=1,
+   repeats=DEVICES_REPEATS)`` and one profiled run whose timeline counts
+   the kernel pairs of different streams that overlap.  Then the fleet
+   (``fleet/``): MobileNetV2 at rate 3 and ResNet-18 at 3/4, 224x224,
+   packed by ``plan_pool`` at S = 2 on two big-BRAM and four stock
+   chips, FLEET_FRAMES frames each at BestRate, served with
+   ``execute=True`` and then ``"devices"``, each with a shared tracer:
+   stall-free, each tenant bit for bit its standalone engine, the reports
+   equal the ``execute=False`` twin's, ``audit_fleet`` clean, launches ==
+   nodes x micro-batches; chip occupancy and wall ms per tenant;
+8. lm, ssm, hybrid — qwen2-7b (bf16 KV cache: the config's int8 cache is
    not ported), then mamba2-780m, then zamba2-1.2b, each at full width
    and depth with random weights from a seeded CUDA generator: the token
    engine serves 4 prompts of 512-2048 tokens on 2 slots, 16 new tokens
@@ -80,7 +102,7 @@ printing JSON lines:
    per Mamba2 layer, per prefill); then each prompt's prefill logits on
    the kernels against the same prefill on their plain versions, and
    one prefill and one decode step under ``torch.profiler``;
-8. the ``kernels`` line, the card line, and the final ``ok`` line.
+9. the ``kernels`` line, the card line, and the final ``ok`` line.
 
 Any failure raises: the script then exits non-zero and prints no result.
 """
@@ -143,6 +165,15 @@ BUILDS = 20
 STREAM_FRAMES = 68
 STREAM_MICROBATCH = 8
 STREAM_DEADLINE = Fraction(24)
+# The devices phase: frames a run through DevicePipeline (8 micro-batches
+# of 8, M = 8), the (stages, links) runs, and measure()'s repeats.
+DEVICES_FRAMES = 64
+DEVICES_MICROBATCH = 8
+DEVICES_RUNS = ((2, None), (3, None), (3, "int8"))
+DEVICES_REPEATS = 5
+# The fleet phase: two tenants at 224x224 on a pool of two big-BRAM chips
+# and four stock XCVU37Ps, planned at S = 2, 64 frames each.
+FLEET_FRAMES = 64
 # The serving phases: prompts (tokens), new tokens each, engine shape.
 PROMPT_LENS = (512, 1000, 1536, 2048)
 MAX_NEW = 16
@@ -683,6 +714,30 @@ def cut_bytes(graph, stage_plan, batch: int) -> dict:
             "int8": sum(feats) + 4 * len(feats)}
 
 
+def edge_bytes(graph, stage_plan, batch: int, link) -> dict:
+    """Bytes a batch moves on each placed cut edge ``u->s{stage}`` (one
+    payload per producer and consuming stage), keyed as the engine's
+    ``transfer_bytes{edge,dtype}`` counter: fp32, or the int8 payload
+    (one int8 a feature plus the 4-byte scale), as ``cut_bytes`` prices
+    a producer's stream."""
+    stage_of = stage_plan.stage_index()
+    out = {}
+    for v in graph.topo_order():
+        for u in graph.preds(v):
+            if stage_of[u] != stage_of[v]:
+                spec = graph.spec(u)
+                feats = batch * spec.out_hw[0] * spec.out_hw[1] * spec.d_out
+                key = (f"transfer_bytes{{dtype={'int8' if link else 'float32'},"
+                       f"edge={u}->s{stage_of[v]}}}")
+                out[key] = feats + 4 if link else 4 * feats
+    return out
+
+
+def transfer_counts(report) -> dict:
+    return {k: v for k, v in report.metrics.snapshot().items()
+            if k.startswith("transfer_bytes")}
+
+
 def run_partition(api, cfg, family):
     """``api.partition`` at each S: stages, cuts, stream buffers, time."""
     from repro_torch.core.stage_partition import stream_buffers
@@ -902,10 +957,9 @@ def padded_batches(torch, frames, rids, microbatch):
 
 def run_stream(torch, family, kernels_mod, gen):
     """The stream engine (``serving/cnn_stream.py``) on the card, runs a-e
-    of one family at 224x224 (phase ``stream``); returns the launches of
-    its counted runs, per kernel."""
-    import warnings
-
+    of one family at 224x224, and run a at S = 2 again with
+    ``execute="devices"`` (phase ``stream``); returns the launches of its
+    counted runs, per kernel."""
     from repro_torch.obs import audit
     from repro_torch.serving import (CNNStreamEngine, PlanLadder, ServeConfig,
                                      ShedPolicy, SwitchPolicy, adversarial, bursty,
@@ -931,9 +985,13 @@ def run_stream(torch, family, kernels_mod, gen):
     runs.append(("c", 2, None, "adversarial", "shed", {}))
     runs.append(("d", 2, None, "bursty", "switch", {}))
     runs.append(("e", 2, None, "constant", "traced", {}))
+    # run a again with the stages on streams of their own, traced
+    runs.append(("a", 2, None, "constant", "devices", {}))
+    runs.append(("a", 2, "int8", "constant", "devices", {"link_dtype": "int8"}))
 
     for run, n_stages, link, traffic, policy, dse in runs:
-        label = f"{family}/stream/{run}/S={n_stages}/{link or 'fp32'}"
+        label = f"{family}/stream/{run}/S={n_stages}/{link or 'fp32'}/{policy}"
+        mode = "devices" if policy == "devices" else True
         gp = ladder.rungs[0].plan if policy == "switch" else api.partition(
             cfg, RATE, n_stages, **dse)
         br = best_rate_frames(gp)
@@ -944,9 +1002,9 @@ def run_stream(torch, family, kernels_mod, gen):
         kp = gp.kernel_plan(batch=STREAM_MICROBATCH)
         config = ServeConfig(microbatch=STREAM_MICROBATCH, kernel_plan=kp,
                              link_quant=True if link else None, arrival=arrival,
-                             overload=overload, trace=policy == "traced")
+                             overload=overload, trace=policy in ("traced", "devices"))
 
-        def engine(execute=True):
+        def engine(execute=mode):
             eng = CNNStreamEngine(graph, params, gp, config.with_(execute=execute))
             if execute:
                 eng.submit_all(frames_cpu)  # one copy of the whole stack
@@ -961,21 +1019,13 @@ def run_stream(torch, family, kernels_mod, gen):
             synchronized; with ``syncs`` (a list), the run and the output
             stack under the sync debug mode, its warnings appended."""
             t0 = time.perf_counter()
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                if syncs is not None:
-                    torch.cuda.set_sync_debug_mode("warn")
-                try:
-                    rep = eng.run()
-                    out = eng.outputs()
-                finally:
-                    torch.cuda.set_sync_debug_mode(0)
+            if syncs is None:
+                rep, out = eng.run(), eng.outputs()
+            else:
+                (rep, out), caught = sync_warnings(torch, lambda: (eng.run(), eng.outputs()))
+                syncs += caught
             torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3
-            if syncs is not None:
-                syncs += [str(w.message) for w in caught
-                          if "synchroniz" in str(w.message)]
-            return rep, out, ms
+            return rep, out, (time.perf_counter() - t0) * 1e3
 
         serve(engine())  # warm-up
         eng = engine()
@@ -1035,6 +1085,14 @@ def run_stream(torch, family, kernels_mod, gen):
                                      link_quant=True if link else None)
                 require(torch.equal(torch.stack([by_rid[r] for r in idx]), y[:len(idx)]),
                         f"{label}: served != apply_staged on the padded micro-batch")
+            if mode == "devices":
+                _, host_out, _ = serve(engine(True))
+                require(torch.equal(out, host_out), f"{label}: served != execute=True's")
+                want_bytes = {k: v * batches[0] for k, v in edge_bytes(
+                    graph, gp.stage_plan, STREAM_MICROBATCH, link).items()}
+                require(transfer_counts(rep) == want_bytes,
+                        f"{label}: transfer_bytes {transfer_counts(rep)} != the plan's "
+                        f"cut bytes x micro-batches {want_bytes}")
             t0 = time.perf_counter()
             for _, b in chunks:
                 api.apply_staged(params, b, cfg, partition=gp, plan=kp,
@@ -1042,13 +1100,14 @@ def run_stream(torch, family, kernels_mod, gen):
             torch.cuda.synchronize()
             staged_ms = (time.perf_counter() - t0) * 1e3
 
-        if policy is None or policy == "traced":
+        if policy in (None, "traced", "devices"):
             require(rep.stall_free, f"{label}: stalled at the plan's BestRate")
         summary = rep.summary()
         row = {
             "phase": "stream", "family": family, "stages": n_stages,
             "links": link or "fp32", "traffic": traffic, "policy": policy,
-            "run": run, "frames": STREAM_FRAMES, "microbatch": STREAM_MICROBATCH,
+            "run": run, "execute": mode, "frames": STREAM_FRAMES,
+            "microbatch": STREAM_MICROBATCH,
             "input_hw": list(cfg.input_hw), "rate": str(RATE),
             "wall_ms": wall_ms, "frames_per_s": len(rids) / (wall_ms / 1e3),
             "loop_ms": loop_ms, "loop_us_per_frame": loop_ms * 1e3 / STREAM_FRAMES,
@@ -1067,7 +1126,10 @@ def run_stream(torch, family, kernels_mod, gen):
         else:
             row["ladder"] = ladder.describe()
             row["ladder_plan_s"] = ladder_s
-        if policy == "traced":
+        if mode == "devices":
+            row["transfer_bytes"] = transfer_counts(rep)
+            row["served_eq_execute_true"] = True
+        if config.trace:
             ar = audit(rep.trace)
             require(ar.matches(summary) and ar.clean,
                     f"{label}: audit {ar.verdict_line()} disagrees with the summary")
@@ -1078,6 +1140,255 @@ def run_stream(torch, family, kernels_mod, gen):
         row["profiled_device_ms"] = device_ms
         row["device_busy_share"] = sum(device_ms.values()) / wall_ms if device_ms else None
         emit(row)
+    return total
+
+
+def kernel_overlaps(torch, fn):
+    """One call of ``fn`` under ``torch.profiler``, ending in a synchronize:
+    the host-clock ms; the device ms summed over kernels, copies and sets;
+    the ms the device was busy (the union of those intervals); the kernels
+    by CUDA stream; and the count of kernel pairs on different streams
+    whose intervals overlap (from the trace's timeline)."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    device = sorted((e["ts"], e["ts"] + e["dur"], e.get("cat"), e.get("args", {}).get("stream"))
+                    for e in events if e.get("ph") == "X"
+                    and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    kernels = [d for d in device if d[2] == "kernel"]
+    pairs = 0
+    for i, (start, end, _, stream) in enumerate(kernels):
+        for start2, _, _, stream2 in kernels[i + 1:]:
+            if start2 >= end:
+                break
+            pairs += stream2 != stream
+    busy, cur_start, cur_end = 0.0, None, None
+    for start, end, _, _ in device:
+        if cur_end is None or start > cur_end:
+            if cur_end is not None:
+                busy += cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    if cur_end is not None:
+        busy += cur_end - cur_start
+    by_stream = {}
+    for _, _, _, stream in kernels:
+        by_stream[str(stream)] = by_stream.get(str(stream), 0) + 1
+    return {"wall_ms": wall, "device_ms": sum(e - b for b, e, _, _ in device) / 1e3,
+            "device_busy_ms": busy / 1e3, "device_busy_share": busy / 1e3 / wall,
+            "kernels": len(kernels), "kernels_by_stream": by_stream,
+            "cross_stream_overlapping_kernel_pairs": pairs}
+
+
+def sync_warnings(torch, fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``: its
+    result and the host-sync warnings it raised."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, [str(w.message) for w in caught if "synchroniz" in str(w.message)]
+
+
+def run_devices(torch, family, kernels_mod, gen):
+    """The device pipeline (``distributed/device_pipeline.py``) of one
+    family at 224x224 on the card (phase ``devices``): DEVICES_FRAMES
+    frames at micro-batch DEVICES_MICROBATCH through the GPipe schedule,
+    every stage on cuda:0 on a CUDA stream of its own; returns the
+    launches of its counted runs, per kernel."""
+    from repro_torch.distributed.device_pipeline import DevicePipeline
+    from repro_torch.models.registry import get_cnn_api
+
+    api = get_cnn_api(family)
+    cfg = api.make_config()
+    graph = api.graph(cfg)
+    params = api.init(cfg, torch.Generator().manual_seed(0))
+    shape = (DEVICES_FRAMES, *cfg.input_hw, 3)
+    frames = torch.randn(shape, generator=gen).cuda()
+    mb = DEVICES_MICROBATCH
+    total = {k: 0 for k in KERNELS}
+    for n_stages, link in DEVICES_RUNS:
+        label = f"{family}/devices/S={n_stages}/{link or 'fp32'}"
+        dse = {"link_dtype": link} if link else {}
+        gp = api.partition(cfg, RATE, n_stages, **dse)
+        kp = gp.kernel_plan(batch=mb)
+        lq = True if link else None
+        dp = DevicePipeline.build(graph, params, partition=gp, plan=kp, link_quant=lq)
+        streams = [s.cuda_stream for s in dp.pipeline.streams]
+        require(dp.placement_ordinals() == (0,) * n_stages and dp.n_devices() == 1,
+                f"{label}: placed on {dp.placement_ordinals()}")
+        require(len(set(streams)) == n_stages
+                and torch.cuda.current_stream().cuda_stream not in streams,
+                f"{label}: the stages do not own distinct streams")
+        want = torch.cat([api.apply_staged(params, frames[i:i + mb], cfg, partition=gp,
+                                           plan=kp, link_quant=lq)
+                          for i in range(0, DEVICES_FRAMES, mb)])
+        dp.run(frames, microbatch=mb)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts(kernels_mod)
+        t0 = time.perf_counter()
+        out, syncs = sync_warnings(torch, lambda: dp.run(frames, microbatch=mb))
+        counts = read_counts(kernels_mod)
+        torch.cuda.synchronize()
+        run_ms = (time.perf_counter() - t0) * 1e3
+        for k, v in counts.items():
+            total[k] += v
+        require(counts == want_launches(kp, DEVICES_FRAMES // mb),
+                f"{label}: launches {counts} != nodes x micro-batches")
+        require(not syncs, f"{label}: host syncs inside run(): {syncs[:3]}")
+        require(tuple(out.shape) == (DEVICES_FRAMES, cfg.num_classes)
+                and bool(torch.isfinite(out).all()), f"{label}: logits {tuple(out.shape)}")
+        require(torch.equal(out, want), f"{label}: run != apply_staged per micro-batch")
+        # the record_stream check: two runs in a row on fresh frames, no
+        # wait between them, while the allocator recycles their boundaries
+        fresh = torch.randn(shape, generator=gen).cuda()
+        a = dp.run(fresh, microbatch=mb)
+        b = dp.run(fresh, microbatch=mb)
+        torch.cuda.synchronize()
+        require(torch.equal(a, b), f"{label}: two runs on the same frames differ")
+        rep = dp.measure(frames, microbatch=mb, warmup=1, repeats=DEVICES_REPEATS)
+        prof = kernel_overlaps(torch, lambda: dp.run(frames, microbatch=mb))
+        emit({
+            "phase": "devices", "family": family, "stages": n_stages,
+            "links": link or "fp32", "frames": DEVICES_FRAMES, "microbatch": mb,
+            "n_micro": rep.n_micro, "placement": list(rep.placement),
+            "n_devices": rep.n_devices, "streams_distinct": True,
+            "launches": counts, "bit_exact_vs_apply_staged": True,
+            "host_syncs_in_run": len(syncs), "two_runs_identical": True,
+            "run_ms": run_ms,
+            "overlap_ms": rep.overlap_s * 1e3, "sequential_ms": rep.sequential_s * 1e3,
+            "speedup": rep.speedup, "fps_overlap": rep.fps_overlap,
+            "fps_sequential": rep.fps_sequential,
+            "stage_busy_ms": [b * 1e3 for b in rep.stage_busy_s],
+            "stage_busy_frac": list(rep.stage_busy_frac),
+            "utilization_bound": rep.utilization_bound,
+            "profiled": prof,
+        })
+    return total
+
+
+def run_fleet(torch, kernels_mod, gen):
+    """The fleet (``fleet/pool.py``, ``fleet/scheduler.py``) on the card
+    (phase ``fleet``): two tenants at 224x224 packed on a chip pool at S =
+    2, FLEET_FRAMES frames each at BestRate, served by one scheduler on
+    one shared clock with ``execute=True`` and then ``"devices"``, each
+    with a shared tracer; returns the launches of its counted runs."""
+    from repro_torch.fleet import Chip, FleetScheduler, Tenant, TenantWorkload, chip_pool
+    from repro_torch.fleet import plan_pool
+    from repro_torch.models.registry import get_cnn_api
+    from repro_torch.obs import audit_fleet
+    from repro_torch.serving import CNNStreamEngine, ServeConfig, constant
+    from repro_torch.serving.cnn_stream import best_rate_frames
+
+    tenants = (Tenant("mnv2", "mobilenet_v2", RATE, input_hw=(224, 224), num_classes=1000),
+               Tenant("r18", "resnet18", Fraction(3, 4), input_hw=(224, 224),
+                      num_classes=1000))
+    chips = (Chip("big0", bram36=4096), Chip("big1", bram36=4096)) + chip_pool(4)
+    t0 = time.perf_counter()
+    pool = plan_pool(tenants, chips, s_options=(2,))
+    plan_s = time.perf_counter() - t0
+    labels = {n: c.label for n, c in pool.chosen.items()}
+    require(labels == {"mnv2": "mnv2:S2", "r18": "r18:S2"}, f"fleet: pool chose {labels}")
+    params, frames, configs = {}, {}, {}
+    for i, t in enumerate(tenants):
+        cand = pool.candidate_for(t.name)
+        params[t.name] = get_cnn_api(t.family).init(cand.cfg,
+                                                    torch.Generator().manual_seed(i))
+        frames[t.name] = torch.randn((FLEET_FRAMES, *t.input_hw, 3), generator=gen).cuda()
+        configs[t.name] = ServeConfig(
+            microbatch=STREAM_MICROBATCH,
+            kernel_plan=cand.plan.kernel_plan(batch=STREAM_MICROBATCH),
+            arrival=constant(best_rate_frames(cand.plan)))
+
+    def serve(execute, trace=True):
+        sched = FleetScheduler(pool, params=params,
+                               config=ServeConfig(execute=execute, trace=trace))
+        work = [TenantWorkload(n, frames[n], configs[n].with_(execute=execute))
+                for n in frames]
+        t0 = time.perf_counter()
+        rep = sched.serve(work)
+        torch.cuda.synchronize()
+        return rep, (time.perf_counter() - t0) * 1e3
+
+    twin, _ = serve(False, trace=False)
+    want = {k: 0 for k in KERNELS}
+    for name in frames:
+        kp = configs[name].kernel_plan
+        for k, v in want_launches(kp, FLEET_FRAMES // STREAM_MICROBATCH).items():
+            want[k] += v
+    total = {k: 0 for k in KERNELS}
+    served = {}
+    for execute in (True, "devices"):
+        label = f"fleet/execute={execute}"
+        serve(execute)  # warm-up
+        reset_counts(kernels_mod)
+        rep, wall_ms = serve(execute)
+        counts = read_counts(kernels_mod)
+        for k, v in counts.items():
+            total[k] += v
+        require(counts == want, f"{label}: launches {counts} != nodes x batches {want}")
+        require(rep.all_stall_free, f"{label}: a tenant stalled at its BestRate")
+        for name in frames:
+            require(_plain(rep.reports[name]) == _plain(twin.reports[name])
+                    and rep.reports[name]._stage_intervals
+                    == twin.reports[name]._stage_intervals,
+                    f"{label}/{name}: report != the execute=False twin's")
+            out, cand = rep.outputs[name], pool.candidate_for(name)
+            require(tuple(out.shape) == (FLEET_FRAMES, cand.cfg.num_classes) and out.is_cuda
+                    and bool(torch.isfinite(out).all()), f"{label}/{name}: outputs")
+            alone = CNNStreamEngine(cand.plan.graph, params[name], cand.plan,
+                                    configs[name].with_(execute=execute))
+            alone.submit_all(frames[name])
+            alone.run()
+            require(torch.equal(out, alone.outputs()),
+                    f"{label}/{name}: fleet outputs != the standalone engine's")
+            if execute == "devices":
+                require(torch.equal(out, served[True].outputs[name]),
+                        f"{label}/{name}: served != execute=True's")
+                want_bytes = {k: v * (FLEET_FRAMES // STREAM_MICROBATCH)
+                              for k, v in edge_bytes(cand.plan.graph, cand.plan.stage_plan,
+                                                     STREAM_MICROBATCH, None).items()}
+                require(transfer_counts(rep.reports[name]) == want_bytes,
+                        f"{label}/{name}: transfer_bytes != the plan's cut bytes")
+        require(rep.makespan_cycles == twin.makespan_cycles
+                and rep.chip_occupancy == twin.chip_occupancy,
+                f"{label}: makespan / occupancy != the twin's")
+        audits = audit_fleet(rep.trace)
+        require(sorted(audits) == sorted(frames)
+                and all(a.clean and a.matches(rep.reports[n].summary())
+                        for n, a in audits.items()),
+                f"{label}: audit {[a.verdict_line() for a in audits.values()]}")
+        served[execute] = rep
+        emit({
+            "phase": "fleet", "execute": execute, "frames_per_tenant": FLEET_FRAMES,
+            "microbatch": STREAM_MICROBATCH, "plan_s": plan_s, "chosen": labels,
+            "assignments": [[a.tenant, a.stage, a.chip] for a in pool.assignments],
+            "chip_occupancy": rep.chip_occupancy,
+            "tenant_wall_ms": {n: w * 1e3 for n, w in rep.tenant_wall_s.items()},
+            "measured_fps": {n: rep.measured_fps(n) for n in frames},
+            "fleet_wall_ms": wall_ms, "launches": counts,
+            "stall_free": True, "eq_standalone": "bit-identical",
+            "report_eq_execute_false_twin": True,
+            "audit": {n: a.verdict_line() for n, a in audits.items()},
+            "p99_ticks": {n: rep.p99_latency(n) for n in frames},
+        })
     return total
 
 
@@ -1546,6 +1857,12 @@ def main() -> int:
         for k, v in run_stream(torch, family, kernels_mod,
                                torch.Generator().manual_seed(2028)).items():
             launches[k] += v
+    for family in ("mobilenet_v2", "resnet18"):
+        for k, v in run_devices(torch, family, kernels_mod,
+                                torch.Generator().manual_seed(2029)).items():
+            launches[k] += v
+    for k, v in run_fleet(torch, kernels_mod, torch.Generator().manual_seed(2030)).items():
+        launches[k] += v
     for k, v in run_lm_paths(torch, kernels_mod).items():
         launches[k] += v
     require(all(launches.values()), f"a kernel never launched on the main path: {launches}")

@@ -355,9 +355,8 @@ class GraphStagePlan:
 
     ``placement`` (optional) records which device *ordinal* each stage
     runs on — device indices, not device objects, so the core stays
-    free of any array library.  The port's executor does not place
-    stages yet (``models.cnn.resolve_stage_devices`` raises for any
-    placement: the device pipeline is a later slice).
+    free of any array library (``models.cnn.resolve_stage_devices``
+    maps them onto the executor's pool).
     """
 
     order: Tuple[str, ...]

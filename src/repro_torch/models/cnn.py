@@ -16,6 +16,8 @@ the *same* graph as a network (NHWC, folded BN):
     across the stage boundaries, optionally as int8 or bf16 wire payloads;
   * ``stage_functions``     — the per-stage callables underneath
     ``staged_forward``, exposed one by one for a pipelining driver;
+    with ``placement=`` each stage runs on a device and a CUDA stream of
+    its own (``resolve_stage_devices``, ``StagePipeline.prefetch``);
   * ``quantize_params`` / ``apply_int8`` — the paper's 8-bit datapath;
   * ``default_impls`` / ``kernel_impls`` — the plain PyTorch versions vs
     the hand-written CUDA KPU / FCU / DW kernels, swappable per layer
@@ -33,6 +35,7 @@ the kernel executed equals the plan.  Violations raise
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, List, Mapping, Optional
 
 import numpy as np
@@ -618,16 +621,100 @@ def apply_graph(
 # ==========================================================================
 
 
-def resolve_stage_devices(placement) -> None:
-    """Check a ``placement`` option.  ``None`` / ``False`` mean every
-    stage on the input's device (no transfers); any other placement is
-    the device pipeline's, which the port does not carry yet."""
+def resolve_stage_devices(placement, n_stages: int, partition=None, device=None):
+    """Normalize a ``placement`` option to a per-stage device tuple.
+
+    ``None`` / ``False`` mean every stage on the input's device, with no
+    transfers and no streams of their own (``None`` is returned).  The
+    pool is every CUDA device (``cuda:0`` .. ``cuda:{n-1}``) when the
+    pipeline's home ``device`` is CUDA (``None`` is the card, as for
+    every entry point of the port), and the home alone otherwise (the
+    CPU).  The forms are the JAX package's:
+
+    * ``True`` — the partition's recorded ``placement`` ordinals
+      (``GraphStagePlan.placement``, e.g. from ``plan_graph(...,
+      n_devices=)``) when present, else round robin over the pool;
+    * an ``int`` n — round robin over the first ``min(n, len(pool))``
+      devices of the pool;
+    * a sequence of ordinals — indices into the pool, folded modulo its
+      size (fewer devices than stages degrade to co-resident stages,
+      never to an error);
+    * a sequence of devices (``torch.device`` or str) — used round robin.
+
+    A CUDA home where CUDA is absent raises: nothing falls back to the
+    CPU.
+    """
     if placement is None or placement is False:
         return None
-    raise NotImplementedError(
-        f"placement={placement!r} (stages on their own devices) is not "
-        f"ported yet (ROADMAP: Device pipeline)"
-    )
+    home = torch.device("cuda" if device is None else device)
+    if home.type == "cuda":
+        if not torch.cuda.is_available():
+            raise GraphExecutionError(
+                "placement on the card needs CUDA, which is not available; "
+                "nothing falls back to the CPU (pass device='cpu' to place "
+                "the stages there)"
+            )
+        pool = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    else:
+        pool = [home]
+    if placement is True:
+        recorded = getattr(partition, "placement", None)
+        placement = recorded if recorded is not None else len(pool)
+    if isinstance(placement, int):
+        if placement < 1:
+            raise GraphExecutionError(
+                f"placement needs >= 1 device, got {placement}"
+            )
+        pool = pool[: min(placement, len(pool))]
+        return tuple(pool[s % len(pool)] for s in range(n_stages))
+    seq = list(placement)
+    if not seq:
+        raise GraphExecutionError("placement sequence is empty")
+    if all(isinstance(p, int) for p in seq):
+        return tuple(pool[seq[s % len(seq)] % len(pool)] for s in range(n_stages))
+    return tuple(_explicit_device(seq[s % len(seq)]) for s in range(n_stages))
+
+
+def _explicit_device(d) -> torch.device:
+    """``d`` as a device with its index written out (``cuda`` is the
+    current card), so that co-resident stages compare equal."""
+    d = torch.device(d)
+    if d.type == "cuda" and d.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+# Stage s of every placed pipeline on a card runs on that card's stage-s
+# stream.  The caching allocator keeps freed memory per stream, so on a
+# fresh stream every first allocation is a cudaMalloc; shared stage
+# streams keep each new pipeline (an engine, its rungs, a fleet's
+# tenants) on memory already cached.  Two pipelines' stage s never
+# overlap each other on a card; different stages still do.
+_STAGE_STREAMS: Dict[tuple, "torch.cuda.Stream"] = {}
+
+
+def _stage_stream(device: torch.device, s: int):
+    stream = _STAGE_STREAMS.get((device, s))
+    if stream is None:
+        stream = _STAGE_STREAMS[(device, s)] = torch.cuda.Stream(device=device)
+    return stream
+
+
+def _payload_tensors(v) -> list:
+    """The tensors of a boundary value: an activation, or the two of an
+    int8 ``{"__q__", "__s__"}`` wire payload."""
+    return list(v.values()) if isinstance(v, dict) else [v]
+
+
+def _payload_map(v, fn):
+    return {k: fn(t) for k, t in v.items()} if isinstance(v, dict) else fn(v)
+
+
+def _payload_dtype(v) -> str:
+    """The wire format's name, as the JAX package labels its transfers
+    (``"float32"``, ``"bfloat16"``, ``"int8"``)."""
+    t = v["__q__"] if isinstance(v, dict) else v
+    return str(t.dtype).removeprefix("torch.")
 
 
 def _stage_io(graph: LayerGraph, partition, out_name: str) -> tuple:
@@ -662,6 +749,7 @@ def stage_functions(
     check: bool = True,
     link_quant=None,
     placement=None,
+    device=None,
 ) -> "StagePipeline":
     """Build the per-stage callables of a stage partition.
 
@@ -681,6 +769,17 @@ def stage_functions(
     per-producer {src: dtype}, or an edge-keyed {(src, dst): dtype} map.
     The graph output is never encoded.
 
+    ``placement`` places stage s on a device of its own (see
+    ``resolve_stage_devices`` for the forms; ``device`` is the home the
+    pool is taken from, the card unless the caller names the CPU): the
+    ``StagePipeline`` then runs each stage on a CUDA stream of its own on
+    its device, moves each stage's params there once and each imported
+    boundary tensor there per call (``prefetch``), so a driver that
+    queues stages without waiting (``distributed.device_pipeline``, the
+    stream engine's ``execute="devices"``) overlaps micro-batches on the
+    card.  With ``link_quant`` the transfers carry the int8 wire
+    payloads.
+
     Nothing is memoized: a build is Python bookkeeping over the graph
     (the stages are eager, with nothing compiled to keep), so every
     ``apply_staged`` call builds its pipeline afresh, as every
@@ -696,7 +795,9 @@ def stage_functions(
         partition = partition.stage_plan
     else:
         qmap = _resolve_link_quant(link_quant, graph, partition)
-    resolve_stage_devices(placement)
+    devices = resolve_stage_devices(
+        placement, partition.n_stages, partition, device=device
+    )
     wire: Dict[str, str] = {}  # producer -> wire dtype (one stream each)
     for (u, _v), dt in qmap.items():
         if wire.setdefault(u, dt) != dt:
@@ -750,6 +851,7 @@ def stage_functions(
         out_name=out_name,
         link_quant_edges=qmap,
         dtype=dtype,
+        devices=devices,
     )
 
 
@@ -759,8 +861,23 @@ class StagePipeline:
     ``run_stage(s, params, boundary, x)`` executes one stage against a
     per-batch ``boundary`` dict (imported tensors in, exported tensors
     merged back in); ``staged_forward``'s callable is the loop over s.
-    Every stage runs on the input's device: placing stages on devices of
-    their own (``prefetch``) belongs to a later slice and raises.
+
+    With ``devices`` (a per-stage device tuple from
+    ``resolve_stage_devices``) the pipeline is *placed*.  Stage params
+    move to their stage's device once and are cached by identity; every
+    ``run_stage`` first moves the stage's imports there (``prefetch``).
+    On CUDA each stage has a ``torch.cuda.Stream`` of its own on its
+    device (the counterpart of a JAX device queue; stage s of every
+    pipeline on a card shares that card's stage-s stream, so a new
+    pipeline finds the allocator's memory warm) and runs under it: before it
+    launches, a stage waits on the event each producer stage recorded
+    for this batch (stage 0 on the caller's stream, for ``x``), and every
+    tensor one stream made and another reads is ``record_stream``-ed for
+    the reader, so the caching allocator never hands a boundary tensor's
+    memory to another batch while a later stage may still read it.  A
+    driver may therefore drop a boundary entry after its last consumer
+    (``keep_after``), as the JAX package donates it.  Nothing waits on
+    the host: the caller's stream reads the outputs after ``join()``.
     """
 
     def __init__(
@@ -773,6 +890,7 @@ class StagePipeline:
         out_name,
         link_quant_edges=None,
         dtype: torch.dtype = torch.float32,
+        devices=None,
     ):
         self.partition = partition
         self.stage_fns = stage_fns
@@ -784,24 +902,53 @@ class StagePipeline:
         # activations — decode with ``decode_boundary`` before comparing.
         self.link_quant_edges = dict(link_quant_edges or {})
         self.dtype = dtype
+        self._stage_of = partition.stage_index()
+        # imports only stage s consumes: dropping them after stage s is
+        # the JAX package's donation (reported to the transfer hook)
+        self._donate = []
+        for s in range(len(imports)):
+            later = set().union(*imports[s + 1 :]) if imports[s + 1 :] else set()
+            self._donate.append({u for u in imports[s] if u not in later})
         self._observer = None
+        self.devices = None
+        self.streams = None
+        if devices:
+            self.place(devices)
 
     @property
     def n_stages(self) -> int:
         return self.partition.n_stages
+
+    def place(self, devices) -> None:
+        """Put stage s on ``devices[s]``; on CUDA each stage gets a stream
+        of its own on its device."""
+        devices = tuple(devices)
+        if len({d.type for d in devices}) != 1:
+            raise GraphExecutionError(
+                f"stages placed on devices of different types: {devices}"
+            )
+        self.devices = devices
+        self.streams = None
+        if devices[0].type == "cuda":
+            self.streams = tuple(_stage_stream(d, s) for s, d in enumerate(devices))
+        self._placed_params: Dict[int, tuple] = {}
+        # id(boundary) -> (boundary, {stage: event recorded after it}):
+        # the events a batch's later stages wait on, dropped after its
+        # last stage (the entry holds the dict, so its id stays unique)
+        self._ready: Dict[int, tuple] = {}
 
     def stage_params(self, s: int, params: Params) -> Params:
         nodes = self.partition.stage_nodes(s)
         return {n: params[n] for n in nodes if n in params}
 
     def observe(self, hook) -> None:
-        """Register ``hook(stage=, name=, nbytes=, dtype=, donated=)``, to
-        be called on every placed cut transfer ``prefetch`` issues (the
-        serving engine folds it into ``transfer_bytes{edge,dtype}``).
-        Pass ``None`` to detach.  A pipeline whose stages all run on the
-        input's device moves nothing across a cut, so it never calls the
-        hook, as in the JAX package; placed transfers come with the
-        device pipeline."""
+        """Register ``hook(stage=, name=, nbytes=, dtype=, donated=)``,
+        called on every placed cut transfer ``prefetch`` issues, even
+        between co-resident stages, as in the JAX package (the serving
+        engine folds it into ``transfer_bytes{edge,dtype}``).  ``nbytes``
+        is the payload's: an int8 crossing counts its int8 tensor and its
+        scale.  Pass ``None`` to detach.  An unplaced pipeline moves
+        nothing across a cut and never calls the hook."""
         self._observer = hook
 
     def keep_after(self) -> List[set]:
@@ -818,24 +965,138 @@ class StagePipeline:
             out[s] = set(keep)
         return out
 
-    def prefetch(self, s: int, boundary: Dict[str, torch.Tensor]) -> None:
-        """Move stage ``s``'s imports onto its own device ahead of time."""
-        raise NotImplementedError(
-            "StagePipeline.prefetch is not ported yet (ROADMAP: Device pipeline)"
-        )
+    def _stream(self, s: int):
+        return None if self.streams is None else self.streams[s]
+
+    def _on(self, s: int):
+        stream = self._stream(s)
+        return contextlib.nullcontext() if stream is None else torch.cuda.stream(stream)
+
+    def _move(self, t: torch.Tensor, s: int) -> torch.Tensor:
+        """``t`` on stage ``s``'s device, for stage ``s``'s stream to read
+        (called under that stream)."""
+        dev, stream = self.devices[s], self._stream(s)
+        if stream is None:
+            return t.to(dev)
+        if t.device == dev:
+            t.record_stream(stream)
+            return t
+        moved = t.to(dev, non_blocking=True)
+        if t.is_cuda:
+            # a copy between cards runs on the source card's current
+            # stream, fenced both ways with this one
+            t.record_stream(torch.cuda.current_stream(t.device))
+        return moved
+
+    def _placed_stage_params(self, s: int, params: Params) -> Params:
+        ent = self._placed_params.get(s)
+        if ent is not None and ent[0] is params:
+            return ent[1]
+        dev, stream = self.devices[s], self._stream(s)
+        sp = {n: {k: t.to(dev) for k, t in p.items()}
+              for n, p in self.stage_params(s, params).items()}
+        if stream is not None:
+            # the params (or their copies) were written on the caller's
+            # stream; the stage's stream reads them from now on
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            for p in sp.values():
+                for t in p.values():
+                    t.record_stream(stream)
+        self._placed_params[s] = (params, sp)
+        return sp
+
+    def prefetch(self, s: int, boundary: Dict[str, object]) -> None:
+        """Move stage ``s``'s imports onto its device now.
+
+        On CUDA the copy is queued on stage ``s``'s stream after the
+        events its producers recorded for this batch, so a driver that
+        issues it right after the producer (``DevicePipeline``) overlaps
+        it with other stages' work; between co-resident stages nothing
+        moves.  The moved value replaces the boundary entry; each
+        transfer is reported to the ``observe`` hook.  No-op when
+        unplaced.
+        """
+        if self.devices is None:
+            return
+        stream = self._stream(s)
+        if stream is not None:
+            self._await_producers(s, boundary, stream)
+        with self._on(s):
+            for u in sorted(self.imports[s]):
+                if u not in boundary:
+                    continue
+                v = boundary[u]
+                if self._observer is not None:
+                    self._observer(
+                        stage=s,
+                        name=u,
+                        nbytes=sum(t.numel() * t.element_size()
+                                   for t in _payload_tensors(v)),
+                        dtype=_payload_dtype(v),
+                        donated=(u in self._donate[s]),
+                    )
+                boundary[u] = _payload_map(v, lambda t: self._move(t, s))
+
+    def _await_producers(self, s: int, boundary, stream) -> None:
+        """Stage ``s``'s stream waits for this batch's producer stages;
+        imports the pipeline did not produce were made on the caller's
+        stream, which it waits for instead."""
+        ent = self._ready.get(id(boundary))
+        events = ent[1] if ent is not None and ent[0] is boundary else {}
+        for p in sorted({self._stage_of[u] for u in self.imports[s] if u in boundary}):
+            if p in events:
+                stream.wait_event(events[p])
+            else:
+                stream.wait_stream(torch.cuda.current_stream(self.devices[s]))
 
     def run_stage(
         self,
         s: int,
         params: Params,
-        boundary: Dict[str, torch.Tensor],
+        boundary: Dict[str, object],
         x: Optional[torch.Tensor] = None,
-    ) -> Dict[str, torch.Tensor]:
+    ) -> Dict[str, object]:
+        if self.devices is None:
+            sp = self.stage_params(s, params)
+        else:
+            self.prefetch(s, boundary)
+            sp = self._placed_stage_params(s, params)
+            if s == 0 and x is not None:
+                stream = self._stream(0)
+                if stream is not None and x.is_cuda:
+                    stream.wait_stream(torch.cuda.current_stream(x.device))
+                with self._on(0):
+                    x = self._move(x, 0)
         bnd_in = {u: boundary[u] for u in self.imports[s]}
-        out = self.stage_fns[s](self.stage_params(s, params), bnd_in,
-                                x if s == 0 else None)
+        stream = self._stream(s)
+        with self._on(s):
+            out = self.stage_fns[s](sp, bnd_in, x if s == 0 else None)
+        if stream is not None:
+            ent = self._ready.get(id(boundary))
+            if s == 0 or ent is None or ent[0] is not boundary:
+                ent = self._ready[id(boundary)] = (boundary, {})
+            ent[1][s] = stream.record_event()
+            if s == self.n_stages - 1:
+                del self._ready[id(boundary)]
         boundary.update(out)
         return boundary
+
+    def keep_for_caller(self, value):
+        """Record every tensor of ``value`` (an activation or a wire
+        payload) for the caller's current stream on its device, so its
+        memory outlives the caller's queued reads of it; returns
+        ``value``.  Wait for the stages with ``join`` before reading."""
+        if self.streams is not None:
+            for t in _payload_tensors(value):
+                t.record_stream(torch.cuda.current_stream(t.device))
+        return value
+
+    def join(self) -> None:
+        """The caller's current stream, on each stage's device, waits for
+        the work every stage has queued so far; the host does not wait.
+        A no-op unless the stages run on streams of their own."""
+        for stream in self.streams or ():
+            torch.cuda.current_stream(stream.device).wait_stream(stream)
 
     def decode_boundary(self, boundary: Dict[str, object]) -> Dict[str, torch.Tensor]:
         """The boundary dict with every wire payload decoded back into an
@@ -860,11 +1121,14 @@ def staged_forward(
     check: bool = True,
     link_quant=None,
     placement=None,
+    device=None,
 ) -> Callable[[Params, torch.Tensor], Dict[str, torch.Tensor]]:
     """Build the staged pipeline once; returns ``fn(params, x)``, which
     threads the boundary activations through the stages and returns every
     cut-crossing tensor plus the graph output, keyed by node name, wire
-    payloads decoded (the activations as the crossings delivered them)."""
+    payloads decoded (the activations as the crossings delivered them),
+    readable on the caller's stream.  ``placement`` / ``device`` as in
+    ``stage_functions``."""
     pipeline = stage_functions(
         graph,
         partition=partition,
@@ -876,6 +1140,7 @@ def staged_forward(
         check=check,
         link_quant=link_quant,
         placement=placement,
+        device=device,
     )
 
     def forward(params: Params, x: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -883,6 +1148,9 @@ def staged_forward(
         boundary: Dict[str, torch.Tensor] = {}
         for s in range(pipeline.n_stages):
             pipeline.run_stage(s, params, boundary, x if s == 0 else None)
+        pipeline.join()
+        for v in boundary.values():
+            pipeline.keep_for_caller(v)
         return pipeline.decode_boundary(boundary)
 
     return forward
@@ -912,7 +1180,8 @@ def apply_staged(
     skew-buffered shortcuts included — are threaded across the stage
     boundaries as the inter-chip stream buffers would carry them.
     ``impls`` / ``plan`` / ``overrides`` / ``check`` behave as in
-    ``apply_graph``.
+    ``apply_graph``.  ``placement`` places stage s on a device of its
+    own, from the pool of ``x``'s device (see ``stage_functions``).
 
     ``check_monolithic=True`` also runs the monolithic ``apply_graph``
     on the same inputs (with the identical fake-quant on the mapped
@@ -935,6 +1204,7 @@ def apply_staged(
         check=check,
         link_quant=link_quant,
         placement=placement,
+        device=x.device,
     )
     boundary = forward(params, x)
 
@@ -965,7 +1235,7 @@ def apply_staged(
                 # the staged boundary holds the delivered (decoded)
                 # activation: send the reference through the same wire
                 ref = _link_decode(ref, wire[name], dtype)
-            if not torch.equal(val, ref):
+            if not torch.equal(val.to(ref.device), ref):
                 raise GraphExecutionError(
                     f"staged output for {name!r} diverges from the "
                     f"monolithic apply_graph"

@@ -237,11 +237,22 @@ def cnn_families() -> Tuple[str, ...]:
     return tuple(sorted(_CNN_FAMILIES))
 
 
-def get_cnn_api(name: str, device=None) -> CNNApi:
+def _cnn_family(name: str) -> Tuple[Callable, Any]:
     try:
-        make_config, mod = _CNN_FAMILIES[name]
+        return _CNN_FAMILIES[name]
     except KeyError:
         raise KeyError(
             f"unknown CNN family {name!r}; known: {', '.join(cnn_families())}"
         ) from None
+
+
+def make_cnn_config(name: str, **overrides):
+    """The family's config (``CNNApi.make_config``) without an API: a
+    config names no device, so planning (``fleet.pool``) needs none."""
+    make_config, _ = _cnn_family(name)
+    return make_config(**overrides)
+
+
+def get_cnn_api(name: str, device=None) -> CNNApi:
+    make_config, mod = _cnn_family(name)
     return _cnn_api(name, make_config, mod, resolve_device(device))

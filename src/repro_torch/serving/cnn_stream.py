@@ -104,6 +104,11 @@ On the card:
   stacks the served rows, in rid order, into one tensor on the device.
   Nothing in the event loop reads a tensor back to the host, so the
   host runs ahead of the card while the kernels of earlier stages run.
+* **``execute="devices"``.**  Stage s runs on card s % n of the pool and
+  on a CUDA stream of its own (``models.cnn.StagePipeline``), so stages
+  of different micro-batches may run at once even on one card; every
+  placed cut crossing is counted into ``transfer_bytes{edge,dtype}``
+  when tracing is on.
 * **Bit-exactness.**  Every micro-batch runs at the pinned batch, so the
   served rows of a micro-batch equal ``models.cnn.apply_staged`` on the
   same zero-padded micro-batch bit for bit (fp32 and int8 links).  With
@@ -340,9 +345,8 @@ class _RunState:
     """Mutable state of one serving run (``begin`` .. ``finish``).
 
     Hoisted out of ``run``'s closure so the event loop is steppable:
-    a multi-tenant scheduler (the JAX package's ``fleet.scheduler``;
-    the port's is a later slice) drives several engines on one shared
-    clock via ``advance`` / ``next_event``.
+    a multi-tenant scheduler (``fleet.scheduler``) drives several
+    engines on one shared clock via ``advance`` / ``next_event``.
     ``queues``/``stages``/``qev``/``max_q`` always describe the *active*
     plan-switch segment; finished segments are archived in ``history``
     (empty unless a ``SwitchPolicy`` actually switched).
@@ -585,6 +589,7 @@ class _Rung:
         config: ServeConfig,
         base_slot: Fraction,
         dtype: torch.dtype,
+        device=None,
     ) -> None:
         self.graph = graph
         self.params = params
@@ -611,9 +616,10 @@ class _Rung:
                 dtype=dtype,
                 check=config.check,
                 link_quant=config.link_quant,
-                # "devices" (a device per stage) is the device pipeline's:
-                # resolve_stage_devices raises naming it
+                # "devices": stage s on card s % n of the engine's pool,
+                # each on a CUDA stream of its own
                 placement=(True if config.execute == "devices" else None),
+                device=device,
             )
             # after stage s, a batch only needs the tensors later stages
             # import (plus the graph output once the last stage ran)
@@ -739,6 +745,7 @@ class CNNStreamEngine:
             config=cfg,
             base_slot=self.slot,
             dtype=self.dtype,
+            device=self.device,
         )
         if self._switch is None:
             return [base]
@@ -771,6 +778,7 @@ class CNNStreamEngine:
                     config=cfg,
                     base_slot=self.slot,
                     dtype=self.dtype,
+                    device=self.device,
                 )
             )
         return rungs
@@ -869,9 +877,11 @@ class CNNStreamEngine:
         out = None
         if self.execute:
             # the output stays on the device: each frame keeps a view of
-            # its row, and nothing is copied to the host per batch
+            # its row, and nothing is copied to the host per batch (a
+            # placed pipeline keeps its memory for the caller's stream,
+            # which ``outputs()`` makes wait for the stages)
             rung = self._rungs[batch.rung]
-            out = batch.boundary[rung.pipeline.out_name]
+            out = rung.pipeline.keep_for_caller(batch.boundary[rung.pipeline.out_name])
         for i, f in enumerate(batch.frames):
             f.t_done = t
             f.rung = batch.rung
@@ -1487,6 +1497,8 @@ class CNNStreamEngine:
         )
         if not ordered:
             raise ServingError("every frame was shed — no outputs")
+        for rung in self._rungs:
+            rung.pipeline.join()
         return torch.stack([r.out for r in ordered])
 
 

@@ -54,8 +54,8 @@ class ServeConfig:
     dtype: Any = None  # a torch.dtype; None = torch.float32
     check: bool = True
     # False = the tick model alone (no tensors, no outputs); True = run
-    # the stages on the engine's device; "devices" (a device per stage)
-    # belongs to the device pipeline, which is not ported yet and raises.
+    # the stages on the engine's device; "devices" = stage s on card
+    # s % n of the engine's pool, each on a CUDA stream of its own.
     execute: Any = True
     # Quantized cut crossings (models.cnn.stage_functions link_quant):
     # None = full-precision boundaries (the default), True = the plan's

@@ -820,3 +820,124 @@ def test_stream_engine_reads_nothing_back_during_a_run(card, check):
         _, _, _, rep, out, _, _, _, _ = _served("mobilenet_v2", card, link,
                                                 check=check, sync_mode="error")
         assert rep.completed == 5 and bool(torch.isfinite(out).all())
+
+
+# --------------------------------------------------------------------------
+# the device pipeline on the card: stages on CUDA streams of their own
+# --------------------------------------------------------------------------
+
+
+def _device_pipeline(family, card, n_stages, link=None, microbatch=2, tracer=None):
+    """A placed 64x64 pipeline of ``family`` on the card (every stage on
+    cuda:0 on a one-card host), the batch-pinned plan, its params and 8
+    frames on the card."""
+    from repro_torch.distributed.device_pipeline import DevicePipeline
+
+    api, cpu = get_cnn_api(family), get_cnn_api(family, device="cpu")
+    cfg = api.make_config(input_hw=(64, 64))
+    params = _card_params(cpu.init(cfg, torch.Generator().manual_seed(4)), card)
+    dse = {"link_dtype": "int8"} if link else {}
+    gp = api.partition(cfg, Fraction(3), n_stages, **dse)
+    kp = gp.kernel_plan(batch=microbatch)
+    dp = DevicePipeline.build(api.graph(cfg), params, partition=gp, plan=kp,
+                              link_quant=True if link else None, tracer=tracer)
+    return api, cfg, dp, params, gp, kp, _rand((8, 64, 64, 3), 11).to(card)
+
+
+@pytest.mark.parametrize("family", ["mobilenet_v2", "resnet18"])
+def test_device_pipeline_launches_on_its_stage_streams(card, family, monkeypatch):
+    """Every stage owns a stream of its own on its card, and every kernel
+    the GPipe run launches goes on one of them (never the caller's); the
+    logits equal ``apply_staged`` per micro-batch bit for bit."""
+    api, cfg, dp, params, gp, kp, x = _device_pipeline(family, card, 3)
+    pipe = dp.pipeline
+    assert dp.placement_ordinals() == (0,) * 3
+    handles = {s.cuda_stream for s in pipe.streams}
+    assert len(handles) == 3
+    assert torch.cuda.current_stream().cuda_stream not in handles
+    used = []
+    real = _build.raw_stream
+
+    def spy(device):
+        used.append(real(device))
+        return used[-1]
+
+    monkeypatch.setattr(_build, "raw_stream", spy)
+    before = _kernel_launches()
+    out = dp.run(x, microbatch=2)
+    launched = sum(_kernel_launches()) - sum(before)
+    assert launched == len(used) > 0 and set(used) == handles
+    want = torch.cat([api.apply_staged(params, x[i:i + 2], cfg, partition=gp, plan=kp)
+                      for i in range(0, 8, 2)])
+    assert torch.equal(out, want)
+
+
+def test_device_pipeline_allocator_reuse_stress(card):
+    """Many one-frame micro-batches through three streams: boundary tensors
+    are dropped after their last consumer while later stages may still
+    read them, so without ``record_stream`` the caching allocator could
+    hand their memory to the next micro-batch.  Two runs on the same frames
+    are bit-identical, and equal ``apply_staged`` frame by frame."""
+    api, cfg, dp, params, gp, _, x = _device_pipeline("resnet18", card, 3,
+                                                      link="int8", microbatch=1)
+    x = torch.cat([x, x.flip(0), 2 * x, -x])  # 32 frames
+    kp = gp.kernel_plan(batch=1)
+    a = dp.run(x, microbatch=1)
+    scratch = [torch.randn((8, 64, 64, 64), device=card) for _ in range(4)]
+    b = dp.run(x, microbatch=1)
+    del scratch
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    want = torch.cat([api.apply_staged(params, x[i:i + 1], cfg, partition=gp, plan=kp,
+                                       link_quant=True) for i in range(len(x))])
+    assert torch.equal(a, want)
+
+
+@pytest.mark.parametrize("link", [None, "int8"])
+def test_device_pipeline_reads_nothing_back_during_a_run(card, link):
+    """``DevicePipeline.run`` never waits on the card: under
+    ``torch.cuda.set_sync_debug_mode("error")`` a synchronizing call
+    raises.  The host waits only after, for the comparison."""
+    api, cfg, dp, params, gp, kp, x = _device_pipeline("mobilenet_v2", card, 3, link)
+    dp.run(x, microbatch=2)  # warm-up: params placed, kernels loaded
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = dp.run(x, microbatch=2)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert out.is_cuda and bool(torch.isfinite(out).all())
+
+
+def test_placed_int8_transfer_bytes_equal_the_plans_cut_bytes(card):
+    """The stream engine's ``execute="devices"`` on the card with int8
+    links and tracing: each placed crossing counts its int8 payload and
+    its 4-byte scale, the plan's priced cut bytes x micro-batches; the
+    served outputs equal ``execute=True``'s bit for bit."""
+    from repro_torch.serving import ServeConfig
+
+    api, cpu = get_cnn_api("resnet18"), get_cnn_api("resnet18", device="cpu")
+    cfg = api.make_config(input_hw=(64, 64))
+    params = _card_params(cpu.init(cfg, torch.Generator().manual_seed(4)), card)
+    x = _rand((6, 64, 64, 3), 12)
+    gp = api.partition(cfg, Fraction(3), 3, link_dtype="int8")
+    config = ServeConfig(microbatch=2, kernel_plan=gp.kernel_plan(batch=2),
+                         link_quant=True, trace=True)
+    host, _ = api.serve(params, x, cfg, input_rate=Fraction(3), n_stages=3,
+                        link_dtype="int8", config=config)
+    placed, rep = api.serve(params, x, cfg, input_rate=Fraction(3), n_stages=3,
+                            link_dtype="int8", config=config.with_(execute="devices"))
+    assert torch.equal(placed, host)
+    graph, stage_of = api.graph(cfg), gp.stage_plan.stage_index()
+    want = {}
+    for v in graph.topo_order():
+        for u in graph.preds(v):
+            if stage_of[u] != stage_of[v]:
+                spec = graph.spec(u)
+                feats = 2 * spec.out_hw[0] * spec.out_hw[1] * spec.d_out
+                want[f"transfer_bytes{{dtype=int8,edge={u}->s{stage_of[v]}}}"] = \
+                    3 * (feats + 4)
+    got = {k: v for k, v in rep.metrics.snapshot().items()
+           if k.startswith("transfer_bytes")}
+    assert got == want and got

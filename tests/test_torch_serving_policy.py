@@ -217,7 +217,7 @@ def _plan(n_stages=2, family="mobilenet_v2"):
     return g, plan_graph(g, F(3), n_stages=n_stages)
 
 
-def test_engine_refusals():
+def test_engine_refusals(monkeypatch):
     g, plan = _plan()
     timing = ServeConfig(execute=False)
     with pytest.raises(ServingError, match="stage partition"):
@@ -243,8 +243,13 @@ def test_engine_refusals():
     with pytest.raises(ServingError, match="base rung"):
         CNNStreamEngine(g, None, plan_graph(g, F(3), n_stages=2),
                         timing.with_(overload=SwitchPolicy(ladder)))
-    with pytest.raises(NotImplementedError, match="Device pipeline"):
-        CNNStreamEngine(g, {}, plan, ServeConfig(execute="devices"), device="cpu")
+    # execute="devices" places every stage on the engine's pool: the CPU
+    # here; on the card's pool where CUDA is absent it raises
+    placed = CNNStreamEngine(g, {}, plan, ServeConfig(execute="devices"), device="cpu")
+    assert placed.pipeline.devices == (torch.device("cpu"),) * 2
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        CNNStreamEngine(g, {}, plan, ServeConfig(execute="devices"))
 
 
 def test_engine_refusals_match_the_reference():

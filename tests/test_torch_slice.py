@@ -151,23 +151,34 @@ def test_init_graph_params_from_generator():
 
 
 def test_unported_entry_points_raise():
-    """What later slices port raises with its ROADMAP name: stages on
-    devices of their own (``placement=``, and the stream engine's
-    ``execute="devices"``).  The stream engine (``serve``) and the
-    cut-transfer hook (``StagePipeline.observe``, which an unplaced
-    pipeline never calls) are ported."""
+    """What later slices port raises with its ROADMAP name (the LM
+    ``loss_fn``: training and infrastructure).  Stages on devices of
+    their own are ported: ``placement=`` and the stream engine's
+    ``execute="devices"`` run on the CPU's one-device pool, equal to the
+    unplaced path, and the cut-transfer hook (``StagePipeline.observe``)
+    is called on every placed transfer."""
+    from repro_torch.configs.registry import get_config, reduced
+    from repro_torch.models.registry import get_api
     from repro_torch.serving import ServeConfig
 
+    lm_cfg = reduced(get_config("qwen2-7b"), layers=1, d_model=32, vocab=64)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP: training and infrastructure"):
+        get_api(lm_cfg, device="cpu").loss_fn()
     pa = get_cnn_api("resnet18", device="cpu")
     cfg = pa.make_config(input_hw=HW)
     params = pa.init(cfg, torch.Generator().manual_seed(0))
     gp = pa.partition(cfg, Fraction(3), 2)
-    x = torch.zeros((1, *HW, 3))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP: Device pipeline"):
-        pa.apply_staged(params, x, cfg, partition=gp, placement=True)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP: Device pipeline"):
-        pa.serve(params, x, cfg, input_rate=Fraction(3), n_stages=2,
-                 config=ServeConfig(execute="devices"))
-    pipe = cnn.stage_functions(pa.graph(cfg), partition=gp)
-    pipe.observe(print)
-    assert pipe._observer is print
+    x = torch.randn((1, *HW, 3), generator=torch.Generator().manual_seed(1))
+    assert torch.equal(pa.apply_staged(params, x, cfg, partition=gp, placement=True),
+                       pa.apply_staged(params, x, cfg, partition=gp))
+    placed, _ = pa.serve(params, x, cfg, input_rate=Fraction(3), n_stages=2,
+                         config=ServeConfig(execute="devices"))
+    host, _ = pa.serve(params, x, cfg, input_rate=Fraction(3), n_stages=2)
+    assert torch.equal(placed, host)
+    pipe = cnn.stage_functions(pa.graph(cfg), partition=gp, placement=True,
+                               device="cpu")
+    calls = []
+    pipe.observe(lambda **kw: calls.append(kw))
+    boundary = pipe.run_stage(0, params, {}, x)
+    pipe.run_stage(1, params, boundary)
+    assert [c["name"] for c in calls] == sorted(pipe.imports[1]) and calls

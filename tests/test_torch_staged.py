@@ -460,7 +460,7 @@ def test_registry_memoizes_graphs_and_plans():
     assert torch.equal(y, pa.apply_staged(params, x, pc, partition=gp))
 
 
-def test_staged_rejects_bad_partitions_and_later_slices():
+def test_staged_rejects_bad_partitions_and_later_slices(monkeypatch):
     pa, pc, params, x = _port("resnet18")
     g = pa.graph(pc)
     with pytest.raises(cnn.GraphExecutionError, match="no stage partition"):
@@ -476,12 +476,15 @@ def test_staged_rejects_bad_partitions_and_later_slices():
         with pytest.raises(cnn.GraphExecutionError, match="conflicting link dtypes"):
             cnn.stage_functions(g, partition=gp, link_quant={edges[0]: "int8",
                                                               edges[1]: "bf16"})
-    for placement in (True, 2, [0, 1]):
-        with pytest.raises(NotImplementedError, match="Device pipeline"):
-            pa.apply_staged(params, x, pc, partition=gp, placement=placement)
+    # stages on devices of their own: on the CPU every form places all
+    # stages on its one-device pool, and the result is the unplaced one
+    unplaced = pa.apply_staged(params, x, pc, partition=gp)
+    for placement in (True, 2, [0, 1], ["cpu"]):
+        assert torch.equal(
+            pa.apply_staged(params, x, pc, partition=gp, placement=placement),
+            unplaced)
     pipe = cnn.stage_functions(g, partition=gp, placement=False)
-    with pytest.raises(NotImplementedError, match="Device pipeline"):
-        pipe.prefetch(1, {})
+    pipe.prefetch(1, {})  # unplaced: nothing to move
     # the transfer hook is stored; an unplaced pipeline never calls it
     calls = []
     pipe.observe(lambda **kw: calls.append(kw))
@@ -489,7 +492,12 @@ def test_staged_rejects_bad_partitions_and_later_slices():
     assert calls == []
     pipe.observe(None)
     assert pipe._observer is None
-    assert cnn.resolve_stage_devices(None) is None
+    assert cnn.resolve_stage_devices(None, 3) is None
+    # a placement on the card, where there is none, raises: nothing falls
+    # back to the CPU
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(cnn.GraphExecutionError, match="needs CUDA"):
+        cnn.stage_functions(g, partition=gp, placement=True)
 
 
 def test_family_wrappers_run_staged_and_int8():
