@@ -12,8 +12,9 @@ printing JSON lines:
    cuDNN convolutions (the yardsticks below), and the card's name and
    power limit are printed as ``nvidia-smi`` gives them;
 2. build — the kernels' nvcc build (``repro_torch.kernels._build``), and
-   ptxas's registers and spills for each instance of the bf16 flash
-   kernel (``flash_kernel_wgmma``), of the FCU and KPU tensor-core kernels
+   ptxas's registers and spills for each instance of the bf16 and f32
+   flash kernels (``flash_kernel_wgmma``, ``flash_kernel``; no d = 256
+   instance may spill), of the FCU and KPU tensor-core kernels
    (``fcu_kernel``, ``kpu_kernel``, f32 and bf16), of the depthwise
    kernel (``dw_kernel``, f32 and bf16) and of the SSD
    phases (``ssd_states``, ``ssd_pass``, ``ssd_output``) from the build's
@@ -21,8 +22,10 @@ printing JSON lines:
 3. kernels — every kernel against its plain PyTorch version on the card
    at every shape its main path gives it (MobileNetV2 and ResNet-18 at
    224x224, batch 8, the rate-3 plan's tiles, in f32 and again in bf16;
-   qwen2-7b's prefill attention and mamba2's and zamba2's SSD scans at
-   the served prompt lengths) plus odd-size extras (the SSD's also with
+   qwen2-7b's, gemma3-1b's global (d 256), internvl2-2b's and seamless's
+   encoder, decoder and cross prefill attention and its cross-attention
+   at decode, mamba2's and zamba2's SSD scans, at the served lengths)
+   plus odd-size extras (the SSD's also with
    bf16 inputs); each with its time, the plain version's, the library
    call's (``torch.matmul`` / ``F.conv2d`` with TF32 off, in the row's
    dtype, and ``F.scaled_dot_product_attention``; none for the SSD) and
@@ -102,7 +105,19 @@ printing JSON lines:
    per Mamba2 layer, per prefill); then each prompt's prefill logits on
    the kernels against the same prefill on their plain versions, and
    one prefill and one decode step under ``torch.profiler``;
-9. the ``kernels`` line, the card line, and the final ``ok`` line.
+9. lm_window, vlm, encdec — gemma3-1b through the token engine as in 8
+   (``MAX_LEN`` > window 512: 22 local layers on rings of 512 slots, the
+   flash kernel in the 4 global layers a prefill, none in decode), then
+   its ring gate (two requests at positions 512 and 1000 decoded in one
+   step, each row against the request decoded alone); internvl2-2b from
+   ``quantize_tree``'s int8 weights (its tree's bytes against bf16's)
+   and seamless-m4t-medium through ``get_api`` one request at a time
+   (the engine serves neither): 4 requests (256 patches + 256-1792
+   tokens; 512-2048 frames + 16 tokens), DECODE_STEPS greedy steps each,
+   the flash kernel counted per prefill (24; 36) and per decode step (0;
+   12); each prefill's logits against the plain path, and one prefill
+   and one decode step under ``torch.profiler``;
+10. the ``kernels`` line, the card line, and the final ``ok`` line.
 
 Any failure raises: the script then exits non-zero and prints no result.
 """
@@ -179,6 +194,12 @@ PROMPT_LENS = (512, 1000, 1536, 2048)
 MAX_NEW = 16
 SLOTS = 2
 MAX_LEN = 2304
+# The vlm and encdec phases, through get_api one request at a time (the
+# engine serves neither): internvl2's patches ahead of PROMPT_LENS - 256
+# text tokens; seamless's PROMPT_LENS frames and a prompt of ENCDEC_TOKENS
+# tokens; DECODE_STEPS greedy steps each.
+ENCDEC_TOKENS = 16
+DECODE_STEPS = 16
 KERNELS = {
     "fcu_matmul": ("src/repro_torch/kernels/csrc/fcu_matmul.cu",
                    "src/repro/kernels/fcu_matmul/fcu_matmul.py:45"),
@@ -1395,19 +1416,25 @@ def run_fleet(torch, kernels_mod, gen):
 def bench_flash(torch, bench, gen):
     """The flash kernel at the LM paths' prefill shapes (qwen2-7b's heads
     and zamba2's shared-attention heads, bf16, each served prompt length),
-    then extras off those paths (f32, group 1 at d 128, non-causal, GQA
+    at the windowed, vlm and encdec paths' shapes (gemma3-1b's global
+    layers at d 256; internvl2-2b over 256 patches + text; seamless's
+    encoder, non-causal over T frames, its decoder's 16-token prompt, and
+    its cross-attention, 16 queries or one against T keys), then extras
+    off those paths (f32, also at d 256, group 1 at d 128, non-causal, GQA
     at d = 64, a length below one block; checked, not timed), then the
-    bf16 kernel's time at every pair of blocks at the main-path shapes."""
+    bf16 kernel's time at every pair of blocks at the LM paths' shapes."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
 
-    def case(label, h, hkv, s, d, dtype, causal=True, timed=True):
-        q, k, v = (torch.randn((1, n, s, d), generator=gen).to("cuda", dtype)
-                   for n in (h, hkv, hkv))
+    def case(label, h, hkv, s, d, dtype, causal=True, timed=True, sk=None):
+        sk = s if sk is None else sk
+        q = torch.randn((1, h, s, d), generator=gen).to("cuda", dtype)
+        k, v = (torch.randn((1, hkv, sk, d), generator=gen).to("cuda", dtype)
+                for _ in range(2))
         kx, vx = (t.repeat_interleave(h // hkv, dim=1) for t in (k, v))
-        block_q, block_k = fa.flash_blocks(h, s, dtype)
-        pairs = s * (s + 1) // 2 if causal else s * s
+        block_q, block_k = fa.flash_blocks(h, s, dtype, d)
+        pairs = s * (s + 1) // 2 if causal else s * sk
         bf16 = dtype == torch.bfloat16
         bench.case(
             "flash_attention", label,
@@ -1426,7 +1453,22 @@ def bench_flash(torch, bench, gen):
         case(f"qwen2-7b/prefill{s}", 28, 4, s, 128, torch.bfloat16)
     for s in PROMPT_LENS:   # zamba2's shared-attention sites: MHA at d 64
         case(f"zamba2-1.2b/prefill{s}", 32, 32, s, 64, torch.bfloat16)
+    for s in PROMPT_LENS:   # gemma3's global layers (5, 11, 17, 23): d 256
+        case(f"gemma3-1b/global-prefill{s}", 4, 1, s, 256, torch.bfloat16)
+    for s in PROMPT_LENS:   # 256 patches + 256..1792 text tokens
+        case(f"internvl2-2b/prefill{s}", 16, 8, s, 128, torch.bfloat16)
+    for t in PROMPT_LENS:   # seamless: T frames, ENCDEC_TOKENS prompt tokens
+        case(f"seamless-m4t-medium/encoder{t}", 16, 16, t, 64, torch.bfloat16,
+             causal=False)
+        case(f"seamless-m4t-medium/cross-prefill{t}", 16, 16, ENCDEC_TOKENS, 64,
+             torch.bfloat16, causal=False, sk=t)
+        case(f"seamless-m4t-medium/cross-decode{t}", 16, 16, 1, 64, torch.bfloat16,
+             causal=False, sk=t)
+    case(f"seamless-m4t-medium/decoder-prefill{ENCDEC_TOKENS}", 16, 16, ENCDEC_TOKENS,
+         64, torch.bfloat16)
     case("extra/f32-s512", 28, 4, 512, 128, torch.float32, timed=False)
+    case("extra/f32-d256-s700", 4, 1, 700, 256, torch.float32, timed=False)
+    case("extra/d256-ragged-s333", 4, 1, 333, 256, torch.bfloat16, timed=False)
     case("extra/group1-s1024", 8, 8, 1024, 128, torch.bfloat16, timed=False)
     case("extra/noncausal-s512", 28, 4, 512, 128, torch.bfloat16, causal=False,
          timed=False)
@@ -1442,7 +1484,7 @@ def bench_flash(torch, bench, gen):
             q, k, v = (torch.randn((1, n, s, d), generator=gen).to("cuda", torch.bfloat16)
                        for n in (h, hkv, hkv))
             sweep[f"{name}/prefill{s}"] = {
-                "rule": "x".join(map(str, fa.flash_blocks(h, s, torch.bfloat16))),
+                "rule": "x".join(map(str, fa.flash_blocks(h, s, torch.bfloat16, d))),
                 **{f"{bq}x{bk}": cuda_ms(torch, lambda: fa.flash_attention(
                     q, k, v, block_q=bq, block_k=bk)) for bq in blocks for bk in blocks}}
     emit({"phase": "flash_block_sweep", "ms": sweep,
@@ -1534,8 +1576,29 @@ def _param_bytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
+def profile_calls(torch, calls) -> dict:
+    """Each of ``calls`` (name -> fn): the median host ms of 3 calls, each
+    ending in a synchronize, then one call under ``torch.profiler`` for
+    its device ms by kind (SERVE_DEVICE_FN) and busy share."""
+    out = {}
+    for name, fn in calls.items():
+        host_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+        device_ms, wall, top = device_ms_by_kernel(torch, fn, SERVE_DEVICE_FN)
+        out[name] = {
+            "ms": statistics.median(host_ms), "profiled_wall_ms": wall,
+            "device_ms": device_ms,
+            "device_busy_share": sum(device_ms.values()) / statistics.median(host_ms),
+            "top_device_fns": [(ms, n, key[:90]) for ms, n, key in top[:5]]}
+    return out
+
+
 def run_serve(torch, kernels_mod, phase, cfg, mod, per_prefill, plain_routes,
-              served_tol=BF16_TOL, f32_check=False):
+              served_tol=BF16_TOL, f32_check=False, gate=None):
     """``cfg`` served by the token engine on the card at full width and
     depth, random weights from a seeded CUDA generator: 4 prompts on 2
     slots, 16 new tokens each (smoke-size traffic), launch counts set to
@@ -1548,7 +1611,8 @@ def run_serve(torch, kernels_mod, phase, cfg, mod, per_prefill, plain_routes,
     The served dtype's logits are held at ``served_tol`` of their scale
     and, with ``f32_check``, an f32 copy of the same weights at TOL (see
     SSM_CHECK).  Each route is run once at each length before the prefill
-    that is timed.  Returns the launch counts of the serve run."""
+    that is timed.  ``gate(api, params, prompts)``, if given, runs last.
+    Returns the launch counts of the serve run."""
     import numpy as np
 
     from repro_torch.configs.base import param_count
@@ -1663,32 +1727,252 @@ def run_serve(torch, kernels_mod, phase, cfg, mod, per_prefill, plain_routes,
     step_toks = torch.zeros((SLOTS, 1), dtype=torch.long, device="cuda")
     calls = {"prefill": lambda: mod.prefill(params, toks, cfg, state),
              "decode": lambda: mod.decode_step(params, pool, step_toks, pos, cfg)}
-    profile = {"prefill_tokens": len(prompts[-1]), "decode_slots": SLOTS,
-               "decode_positions": pos.tolist()}
-    for name, fn in calls.items():
-        host_ms = []
-        for _ in range(3):
+    emit({"phase": f"{phase}_profile", "prefill_tokens": len(prompts[-1]),
+          "decode_slots": SLOTS, "decode_positions": pos.tolist(),
+          **profile_calls(torch, calls)})
+    if gate is not None:
+        gate(api, params, prompts)
+    return counts
+
+
+def ring_gate(torch, phase, cfg):
+    """The ring caches' per-row gate: the first two prompts prefilled
+    alone, written into a pool of SLOTS rows and decoded in one step at
+    their own positions (512 and 1000: one ring full, one wrapped), held
+    row by row against the same request decoded alone at one slot, at
+    BF16_TOL of the logits' scale.  A ring written or masked at one
+    position for the whole batch fails it."""
+    import numpy as np
+
+    from repro_torch.serving.engine import _write_slot
+
+    def gate(api, params, prompts):
+        pool = api.make_serve_state(cfg, SLOTS, MAX_LEN)
+        require(isinstance(pool, list), f"{phase}: no per-layer ring caches at "
+                f"max_len {MAX_LEN} > window {cfg.window}")
+        alone, toks = [], []
+        for slot, p in enumerate(prompts[:SLOTS]):
+            one = api.make_serve_state(cfg, 1, MAX_LEN)
+            logits, one = api.prefill(params, {"tokens": p[None]}, one, cfg)
+            _write_slot(pool, one, slot)
+            alone.append(one)
+            toks.append(int(torch.argmax(logits[0, -1])))
+        pos = np.asarray([len(p) for p in prompts[:SLOTS]])
+        got, _ = api.decode(params, pool, {"tokens": [[t] for t in toks]}, pos, cfg)
+        rows = []
+        for slot in range(SLOTS):
+            want, _ = api.decode(params, alone[slot], {"tokens": [[toks[slot]]]},
+                                 int(pos[slot]), cfg)
+            scale = max(1.0, want.abs().max().item())
+            err = (got[slot] - want[0]).abs().max().item()
+            require(err <= BF16_TOL * scale,
+                    f"{phase}: row {slot} at position {pos[slot]} of a batched decode "
+                    f"vs decoded alone: max|err| {err} > {BF16_TOL} x {scale}")
+            rows.append({"position": int(pos[slot]), "max_abs_err": err, "scale": scale,
+                         "greedy_agrees": int(got[slot].argmax()) == int(want[0].argmax())})
+        rings = sum(1 for i in range(cfg.n_layers) if cfg.window_for_layer(i))
+        emit({"phase": f"{phase}_ring_gate", "tolerance": BF16_TOL, "rows": rows,
+              "ring_layers": rings, "ring_slots": min(MAX_LEN, cfg.window)})
+
+    return gate
+
+
+def run_family_serve(torch, kernels_mod, phase, cfg, params, requests, per_prefill,
+                     per_decode, prefill_on, info):
+    """``cfg`` served through ``get_api`` one request at a time (the
+    engine refuses the family): each of ``requests`` (a batch of one row
+    on the card and its decode start position) prefilled, then
+    DECODE_STEPS greedy decode steps, the flash kernel's launches counted
+    per prefill and per decode step (``per_prefill`` and ``per_decode``),
+    every other kernel's zero; TTFT, decode ms a step and tokens/s from
+    the host clock around work ending in a host read of the sampled token.
+    Then each request's prefill logits on the kernels against the same
+    prefill on the plain versions (``prefill_on(batch, state, flash)`` ->
+    logits), at BF16_TOL of their scale, and one prefill and one decode
+    step under ``torch.profiler``.  Returns the launch counts."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.models.registry import get_api
+
+    api = get_api(cfg)
+    flash = kernels_mod["flash_attention"].flash_attention
+
+    def serve(batch, pos, steps):
+        state = api.make_serve_state(cfg, 1, MAX_LEN)
+        t0 = time.perf_counter()
+        logits, state = api.prefill(params, batch, state, cfg)
+        out = [int(torch.argmax(logits[0, -1]))]
+        ttft = (time.perf_counter() - t0) * 1e3
+        launched = [flash.launches]
+        step_ms = []
+        for i in range(steps):
             t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            host_ms.append((time.perf_counter() - t0) * 1e3)
-        device_ms, wall, top = device_ms_by_kernel(torch, fn, SERVE_DEVICE_FN)
-        profile[name] = {
-            "ms": statistics.median(host_ms), "profiled_wall_ms": wall,
-            "device_ms": device_ms,
-            "device_busy_share": sum(device_ms.values()) / statistics.median(host_ms),
-            "top_device_fns": [(ms, n, key[:90]) for ms, n, key in top[:5]]}
-    emit({"phase": f"{phase}_profile", **profile})
+            logits, state = api.decode(params, state, {"tokens": [[out[-1]]]}, pos + i, cfg)
+            out.append(int(torch.argmax(logits[0, -1])))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            launched.append(flash.launches)
+        return out, ttft, step_ms, launched, state
+
+    serve(*requests[0], 2)                      # warm-up, outside the counts
+    torch.cuda.synchronize()
+    reset_counts(kernels_mod)
+    t_start = time.perf_counter()
+    per_request = []
+    for batch, pos in requests:
+        before = flash.launches
+        out, ttft, step_ms, launched, _ = serve(batch, pos, DECODE_STEPS)
+        steps = [b - a for a, b in zip(launched, launched[1:])]
+        require(launched[0] - before == per_prefill and steps == [per_decode] * DECODE_STEPS,
+                f"{phase}: flash launches {launched[0] - before} a prefill, {steps} a "
+                f"decode step; want {per_prefill} and {per_decode}")
+        per_request.append({"prompt_positions": pos, "new_tokens": len(out), "ttft_ms": ttft,
+                            "decode_step_ms_median": statistics.median(step_ms),
+                            "decode_tokens_per_s": DECODE_STEPS / (sum(step_ms) / 1e3),
+                            "flash_launches_prefill": launched[0] - before,
+                            "flash_launches_decode_step": per_decode})
+    serve_s = time.perf_counter() - t_start
+    counts = read_counts(kernels_mod)
+    want = {k: 0 for k in KERNELS}
+    want["flash_attention"] = (per_prefill + per_decode * DECODE_STEPS) * len(requests)
+    require(counts == want, f"{phase}: launches {counts} != {want}")
+    emit({"phase": f"{phase}_serve", "model": cfg.name, "traffic": "smoke-size",
+          "requests": per_request, "launches": counts, "serve_s": serve_s,
+          "tokens_per_s": sum(r["new_tokens"] for r in per_request) / serve_s,
+          "decode_step_ms_median": statistics.median(
+              r["decode_step_ms_median"] for r in per_request),
+          "max_memory_allocated": torch.cuda.max_memory_allocated(), **info})
+
+    def flash_plain(q, k, v, causal=True):
+        return flash_attention_plain(q, k, v, causal=causal)
+
+    rows = []
+    for batch, pos in requests:
+        out = {}
+        for route, core in (("kernel", None), ("plain", flash_plain)):
+            for _ in range(2):          # warm at this length, then time
+                state = api.make_serve_state(cfg, 1, MAX_LEN)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits = prefill_on(batch, state, core)
+                torch.cuda.synchronize()
+            out[route] = (logits, (time.perf_counter() - t0) * 1e3)
+        got, want_ = out["kernel"][0], out["plain"][0]
+        require(tuple(got.shape) == (1, 1, cfg.vocab) and got.dtype == torch.float32,
+                f"{phase}: logits {tuple(got.shape)} {got.dtype}")
+        require(bool(torch.isfinite(got).all()), f"{phase}: non-finite prefill logits")
+        scale = max(1.0, want_.abs().max().item())
+        err = (got - want_).abs().max().item()
+        require(err <= BF16_TOL * scale, f"{phase}/prefill at {pos}: logits vs plain path "
+                f"max|err| {err} > {BF16_TOL} x {scale}")
+        rows.append({"prompt_positions": pos, "prefill_ms": out["kernel"][1],
+                     "plain_prefill_ms": out["plain"][1], "logits_max_abs_err": err,
+                     "logits_scale": scale,
+                     "greedy_agrees": int(got.argmax()) == int(want_.argmax())})
+    emit({"phase": f"{phase}_prefill_check", "prompts": rows, "tolerance": BF16_TOL,
+          "gate": f"{cfg.param_dtype} at BF16_TOL", "plain_routes": ["flash"]})
+
+    batch, pos = requests[-1]
+    state = api.make_serve_state(cfg, 1, MAX_LEN)
+    _, _, _, _, served = serve(batch, pos, 1)
+    calls = {"prefill": lambda: api.prefill(params, batch, state, cfg),
+             "decode": lambda: api.decode(params, served, {"tokens": [[1]]}, pos + 1, cfg)}
+    emit({"phase": f"{phase}_profile", "prefill_positions": pos,
+          **profile_calls(torch, calls)})
+    return counts
+
+
+def run_vlm(torch, kernels_mod):
+    """internvl2-2b from int8 weights (``quantize_tree`` of random bf16
+    weights): 4 requests of n_patches random patch embeddings and
+    PROMPT_LENS - n_patches text tokens, the flash kernel once per layer a
+    prefill and never in decode."""
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import vlm
+    from repro_torch.models.registry import get_api
+    from repro_torch.nn.quant import quantize_tree, tree_bytes
+
+    cfg = get_config("internvl2-2b")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    weights = get_api(cfg).init(cfg, gen)
+    bf16_bytes = tree_bytes(weights)
+    params = quantize_tree(weights)
+    del weights
+    torch.cuda.synchronize()
+    int8_bytes = tree_bytes(params)
+    emit({"phase": "vlm_build", "model": cfg.name, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "init_and_quantize_s": time.perf_counter() - t0,
+          "bf16_tree_bytes": bf16_bytes, "int8_tree_bytes": int8_bytes,
+          "int8_over_bf16": int8_bytes / bf16_bytes})
+    rng = np.random.default_rng(2026)
+    requests = []
+    for n in PROMPT_LENS:
+        text = n - cfg.n_patches
+        patches = torch.randn((1, cfg.n_patches, cfg.d_model), generator=gen,
+                              device="cuda").to(cfg.dtype)
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab, size=(1, text)), device="cuda")
+        requests.append(({"tokens": toks, "patches": patches}, n))
+
+    def prefill_on(batch, state, flash):
+        return vlm.prefill(params, batch["tokens"], batch["patches"], cfg, state,
+                           flash=flash)[0]
+
+    counts = run_family_serve(torch, kernels_mod, "vlm", cfg, params, requests,
+                              cfg.n_layers, 0, prefill_on,
+                              {"weights": "int8 (quantize_tree)", "patches": cfg.n_patches})
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_encdec(torch, kernels_mod):
+    """seamless-m4t-medium: 4 requests of PROMPT_LENS random frames and
+    ENCDEC_TOKENS prompt tokens, the flash kernel 3 x 12 times a prefill
+    (encoder, decoder self, cross) and 12 times a decode step (cross)."""
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import encdec
+    from repro_torch.models.registry import get_api
+
+    cfg = get_config("seamless-m4t-medium")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    params = get_api(cfg).init(cfg, gen)
+    torch.cuda.synchronize()
+    emit({"phase": "encdec_build", "model": cfg.name, "enc_layers": cfg.enc_layers,
+          "dec_layers": cfg.dec_layers, "d_model": cfg.d_model,
+          "param_bytes": _param_bytes(params), "init_s": time.perf_counter() - t0})
+    rng = np.random.default_rng(2026)
+    requests = []
+    for t in PROMPT_LENS:
+        frames = torch.randn((1, t, cfg.d_model), generator=gen, device="cuda").to(cfg.dtype)
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab, size=(1, ENCDEC_TOKENS)),
+                               device="cuda")
+        requests.append(({"tokens": toks, "frames": frames}, ENCDEC_TOKENS))
+
+    def prefill_on(batch, state, flash):
+        return encdec.prefill(params, batch["tokens"], batch["frames"], cfg,
+                              state["cache"], flash=flash)[0]
+
+    counts = run_family_serve(torch, kernels_mod, "encdec", cfg, params, requests,
+                              cfg.enc_layers + 2 * cfg.dec_layers, cfg.dec_layers, prefill_on,
+                              {"frames": list(PROMPT_LENS), "prompt_tokens": ENCDEC_TOKENS})
+    del params
+    torch.cuda.empty_cache()
     return counts
 
 
 def run_lm_paths(torch, kernels_mod):
-    """The three served models, each through ``run_serve``: qwen2-7b (bf16
-    KV cache: the config's int8 cache is not ported; the flash kernel
-    once per layer per prefill), mamba2-780m (the SSD kernel once per
-    layer) and zamba2-1.2b (the SSD kernel once per Mamba2 layer, the
-    flash kernel once per shared-attention site).  Returns the summed
-    launch counts."""
+    """The four models the token engine serves, each through
+    ``run_serve``: qwen2-7b (bf16 KV cache: the config's int8 cache is not
+    ported; the flash kernel once per layer per prefill), mamba2-780m (the
+    SSD kernel once per layer), zamba2-1.2b (the SSD kernel once per
+    Mamba2 layer, the flash kernel once per shared-attention site) and
+    gemma3-1b (``lm_window``: 22 local layers on rings of 512 slots, the
+    flash kernel in the 4 global layers, then ``ring_gate``).  Returns the
+    summed launch counts."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.kernels.ssd_chunk import ssd_chunk_plain
@@ -1699,6 +1983,8 @@ def run_lm_paths(torch, kernels_mod):
 
     qwen2 = dataclasses.replace(get_config("qwen2-7b"), kv_quant=False)
     mamba2, zamba2 = get_config("mamba2-780m"), get_config("zamba2-1.2b")
+    gemma3 = get_config("gemma3-1b")
+    n_global = sum(gemma3.window_for_layer(i) == 0 for i in range(gemma3.n_layers))
 
     def ssm_check(cfg):
         return {"served_tol": SSM_BF16_FACTOR * SSM_BF16_WITNESS[cfg.name], "f32_check": True}
@@ -1710,6 +1996,8 @@ def run_lm_paths(torch, kernels_mod):
         ("hybrid", zamba2, hybrid,
          {"ssd_chunk": zamba2.n_layers, "flash_attention": hybrid.n_sites(zamba2)},
          {"ssd": ssd_chunk_plain, "flash": flash_plain}, ssm_check(zamba2)),
+        ("lm_window", gemma3, lm, {"flash_attention": n_global}, {"flash": flash_plain},
+         {"gate": ring_gate(torch, "lm_window", gemma3)}),
     ]
     total = {k: 0 for k in KERNELS}
     for phase, cfg, mod, per_prefill, plain_routes, kw in paths:
@@ -1791,12 +2079,20 @@ def main() -> int:
     lib = _build.library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": os.path.relpath(lib._name, root)})
+    flash_rows = {"flash_kernel_wgmma": ptxas_report(lib._name, "flash_kernel_wgmma"),
+                  "flash_kernel": ptxas_report(lib._name, "flash_kernel")}
     emit({"phase": "ptxas", "kernel": "flash_kernel_wgmma",
           "template": "<head dim, block_k, consumer warpgroups>",
           "registers_note": "with 2 consumer warpgroups, registers at entry; "
                             "setmaxnreg then gives the consumers 232 and the "
                             "producer warpgroup 40",
-          "instances": ptxas_report(lib._name, "flash_kernel_wgmma")})
+          "instances": flash_rows["flash_kernel_wgmma"]})
+    emit({"phase": "ptxas", "kernel": "flash_kernel", "dtype": "float32",
+          "template": "<head dim>", "instances": flash_rows["flash_kernel"]})
+    for kernel, rows in flash_rows.items():   # head dim 256 (gemma3), new in this build
+        d256 = [r for r in rows if r["template"][:1] == [256]]
+        require(d256 and all(r.get("spill_stores", 1) == 0 and r.get("spill_loads", 1) == 0
+                             for r in d256), f"{kernel}: a d = 256 instance spills: {d256}")
     templates = {
         "fcu_kernel": "<element, wgmma width BN, 64-row atoms a consumer warpgroup, "
                       "consumer warpgroups>",
@@ -1865,6 +2161,9 @@ def main() -> int:
         launches[k] += v
     for k, v in run_lm_paths(torch, kernels_mod).items():
         launches[k] += v
+    for run in (run_vlm, run_encdec):
+        for k, v in run(torch, kernels_mod).items():
+            launches[k] += v
     require(all(launches.values()), f"a kernel never launched on the main path: {launches}")
     for family in ("mobilenet_v2", "resnet18"):
         run_slice(torch, family, kernels_mod, gen, bench, torch.bfloat16)

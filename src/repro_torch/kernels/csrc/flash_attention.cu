@@ -218,6 +218,9 @@ int launch(const float* q, const float* k, const float* v, float* o,
     case 128:
       return launch_d<128>(q, k, v, o, batch, heads, group, sq, sk, bq, bk,
                            causal, scale, stream);
+    case 256:
+      return launch_d<256>(q, k, v, o, batch, heads, group, sq, sk, bq, bk,
+                           causal, scale, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -10,8 +10,11 @@ TMA stages, P in two bf16 terms so that it keeps the reference's f32
 precision.  f32 runs ``csrc/flash_attention.cu`` on the CUDA cores
 (wgmma has no f32 operand).  At prefill lengths the function is bound by
 operations (989 TFLOP/s on bf16 tensor cores).  Both kernels also take
-grouped KV heads (``group`` query heads per KV head) and lengths that no
-block divides.
+grouped KV heads (``group`` query heads per KV head), lengths that no
+block divides, and Sq != Sk without the causal mask (cross-attention, a
+decode step's one query against T keys).  Head dims 16 to 256; at 256 a
+pair of blocks must fit a block's shared memory (``smem_bytes``), which
+leaves the bf16 kernel block_k 64 only.
 
 ``flash_attention_plain`` is the same function in plain PyTorch (KV
 repeated per group, f32 scores and softmax); the wrapper runs it only for
@@ -29,7 +32,7 @@ from repro_torch.core.hw import H100_SXM
 from repro_torch.core.tiles import TileChoice
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (16, 32, 64, 128)   # the kernels' instantiations
+HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernels' instantiations
 # block_q / block_k each kernel takes: f32, a 16 x 16 thread grid of <= 4 x 4
 # tiles; bf16, one or two warpgroups of 64 query rows and wgmma's 64- or
 # 128-key tiles.
@@ -55,17 +58,31 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.matmul(torch.softmax(s, dim=-1), v).to(q.dtype)
 
 
-def flash_blocks(bh: int, sq: int, dtype: torch.dtype) -> Tuple[int, int]:
-    """The card's (block_q, block_k) for ``bh`` heads of ``sq`` queries in
-    ``dtype``: the widest key tile, and the widest query tile that still
-    launches a block for every SM (tall tiles reuse each staged key tile
-    more).  Every pair of ``BLOCKS[dtype]`` fits a block's shared memory,
-    even at d = 128."""
+def smem_bytes(dtype: torch.dtype, d: int, block_q: int, block_k: int) -> int:
+    """The dynamic shared memory a launch asks for (each ``.cu`` file's
+    ``launch``): bf16, 1 KiB of alignment, the q tile and two k + v stages;
+    f32, the skewed q, k, v and p tiles."""
+    if dtype == torch.bfloat16:
+        return 1024 + block_q * d * 2 + 2 * 2 * block_k * d * 2
+    return 4 * ((block_q + block_k) * (d + 1) + block_k * d + block_q * (block_k + 1))
+
+
+def fits(dtype: torch.dtype, d: int, block_q: int, block_k: int) -> bool:
+    return smem_bytes(dtype, d, block_q, block_k) <= H100_SXM.smem_per_block
+
+
+def flash_blocks(bh: int, sq: int, dtype: torch.dtype, d: int) -> Tuple[int, int]:
+    """The card's (block_q, block_k) for ``bh`` heads of ``sq`` queries of
+    head dim ``d`` in ``dtype``: the widest key tile that fits, and the
+    widest query tile that fits beside it and still launches a block for
+    every SM (tall tiles reuse each staged key tile more).  Every pair of
+    ``BLOCKS[dtype]`` fits up to d = 128; at d = 256 bf16 takes block_k 64."""
     blocks = BLOCKS[dtype]
+    block_k = max(b for b in blocks if fits(dtype, d, blocks[0], b))
     for block_q in reversed(blocks):
-        if bh * -(-sq // block_q) >= H100_SXM.sms:
+        if fits(dtype, d, block_q, block_k) and bh * -(-sq // block_q) >= H100_SXM.sms:
             break
-    return block_q, blocks[-1]
+    return block_q, block_k
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -89,6 +106,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if block_q not in blocks or block_k not in blocks:
         raise ValueError(f"flash_attention: blocks (block_q={block_q}, "
                          f"block_k={block_k}) must be in {blocks} for {q.dtype}")
+    if not fits(q.dtype, d, block_q, block_k):
+        raise ValueError(f"flash_attention: blocks ({block_q}, {block_k}) at head "
+                         f"dim {d} need {smem_bytes(q.dtype, d, block_q, block_k)} "
+                         f"bytes of shared memory, over {H100_SXM.smem_per_block}")
     if not _build.on_card(q):
         return flash_attention_plain(q, k, v, causal=causal)
     lib = _build.library()
@@ -116,15 +137,16 @@ def attention_impl(
     package's ``kernels/attention/ops.py::attention_impl``): ``tile``
     maps bm -> block_q and bk -> block_k, else ``flash_blocks`` picks them
     from the shapes; ``record(block_q=, block_k=, seq=)`` reports the
-    executed blocking.  ``impl(q, k, v)`` takes ``[B, H, S, d]`` and
-    ``[B, Hkv, S, d]``."""
+    executed blocking.  ``impl(q, k, v, causal=causal)`` takes ``[B, H,
+    Sq, d]`` and ``[B, Hkv, Sk, d]``; the call's ``causal`` overrides the
+    adapter's."""
 
-    def impl(q, k, v):
+    def impl(q, k, v, causal=causal):
         if tile is not None:
             block_q, block_k = tile.bm, tile.bk
         else:
             block_q, block_k = flash_blocks(q.shape[0] * q.shape[1], q.shape[2],
-                                            q.dtype)
+                                            q.dtype, q.shape[3])
         y = flash_attention(q, k, v, causal=causal, block_q=block_q,
                             block_k=block_k)
         if record is not None:

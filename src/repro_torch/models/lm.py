@@ -1,25 +1,32 @@
 """Decoder-only transformer LM; the port's copy of the JAX package's
-``models/lm.py`` for dense layers with full causal attention (qwen2,
-deepseek-coder, starcoder2).
+``models/lm.py`` for dense layers: full causal attention (qwen2,
+deepseek-coder, starcoder2) and gemma3's 5:1 local:global windows.
 
 Params are a dict of tensors with one dict per layer under ``"blocks"``
 (the JAX package stacks them ``[L, ...]`` for ``lax.scan``; here a Python
-loop runs the layers).  Entry points:
+loop runs the layers).  A tree from ``nn.quant.quantize_tree`` (int8
+serve weights, ``serve_weight_quant``) is served as it is: the serve
+passes dequantize one layer's weights at a time, and the embedding table
+at each use.  Entry points:
 
   forward      — tokens [B, S] -> (logits, aux) over every position
   prefill      — tokens [B, S] + empty caches -> (last-position logits,
                  caches); attention runs the flash kernel in every layer
+                 without a window
   decode_step  — one token per row against the caches, at one position
                  for all rows or one per row (the engine's slots)
 
-The caches are one stacked pair ``[L, B, Smax, n_kv, D]`` in the model's
-dtype, written in place.  Not ported yet, each raising with its ROADMAP
-item: MoE layers, sliding-window layers with their per-layer ring caches,
-the int8 KV cache and int8 serve weights.
+The caches, in the model's dtype and written in place, are one stacked
+pair ``[L, B, Smax, n_kv, D]``, or, for a windowed model whose context
+outgrows its window (``global_every > 0``, ``window > 0``, ``max_len >
+window``), a list of per-layer pairs ``[B, S_i, n_kv, D]``: local layers
+get rings of ``min(max_len, window)`` slots, global layers full caches.
+Not ported yet, each raising with its ROADMAP item: MoE layers and the
+int8 KV cache.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -29,8 +36,9 @@ from repro_torch.nn.attention import AttnSpec, attention, init_attention
 from repro_torch.nn.embeddings import embed, init_embedding, unembed
 from repro_torch.nn.layers import ffn, init_ffn
 from repro_torch.nn.norms import init_rms, rms_norm
+from repro_torch.nn.quant import dequantize_tree
 
-Cache = Tuple[torch.Tensor, torch.Tensor]
+Cache = Union[Tuple[torch.Tensor, torch.Tensor], List[Tuple[torch.Tensor, torch.Tensor]]]
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -38,18 +46,10 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.moe_every in (1, 2):   # the JAX package's _layer_kinds
         raise NotImplementedError(
             f"{cfg.name}: MoE layers are not ported yet (ROADMAP Queue 1: nn/moe.py)")
-    if cfg.global_every > 0 and cfg.window > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: sliding-window layers and their per-layer ring caches "
-            "are not ported yet (ROADMAP Queue 1: ring/windowed caches)")
     if cfg.kv_quant:
         raise NotImplementedError(
             f"{cfg.name}: the int8 KV cache is not ported yet (ROADMAP Queue 1: "
             "int8 KV cache); serve with dataclasses.replace(cfg, kv_quant=False)")
-    if cfg.serve_weight_quant:
-        raise NotImplementedError(
-            f"{cfg.name}: int8 serve weights are not ported yet (ROADMAP Queue 1: "
-            "serve_weight_quant)")
 
 
 def _attn_spec(cfg: ModelConfig) -> AttnSpec:
@@ -110,28 +110,36 @@ def tree_to_torch(tree, device=None):
 
 
 def params_from_reference(ref: dict, cfg: ModelConfig, device=None) -> dict:
-    """The JAX package's param tree (``lm.init``: stacked ``[L, ...]``
-    blocks, as numpy arrays) as the port's per-layer dicts."""
+    """The JAX package's param tree (``lm.init``, or ``quantize_tree`` of
+    it: stacked ``[L, ...]`` blocks, as numpy arrays) as the port's
+    per-layer dicts; ``{"__q__", "__s__"}`` leaves are unstacked like any
+    other."""
     check_supported(cfg)
-    out = {name: _to_torch(ref[name], device)
+    out = {name: tree_to_torch(ref[name], device)
            for name in ("embed", "unembed", "final_norm") if name in ref}
     out["blocks"] = unstack_layers(ref["blocks_dense"], cfg.n_layers, device)
     return out
 
 
 def _block(p: dict, x, positions, cfg: ModelConfig, kv_cache=None,
-           cache_len=None, flash=None):
+           cache_len=None, window: int = 0, ring: bool = False, flash=None):
     h, new_cache = attention(p["attn"], rms_norm(x, p["ln1"], eps=cfg.norm_eps),
                              positions, _attn_spec(cfg), kv_cache=kv_cache,
-                             cache_len=cache_len, flash=flash)
+                             cache_len=cache_len, window=window, ring=ring,
+                             flash=flash)
     x = x + h
     y = ffn(p["ffn"], rms_norm(x, p["ln2"], eps=cfg.norm_eps), kind=cfg.ffn_kind)
     return x + y, new_cache
 
 
+def _table(params: dict, name: str, cfg: ModelConfig) -> torch.Tensor:
+    """An embedding table, dequantized if it is int8."""
+    return dequantize_tree(params[name], cfg.dtype)
+
+
 def _head(params: dict, x, cfg: ModelConfig) -> torch.Tensor:
     x = rms_norm(x, params["final_norm"], eps=cfg.norm_eps)
-    return unembed(params["embed" if cfg.tie_embeddings else "unembed"], x)
+    return unembed(_table(params, "embed" if cfg.tie_embeddings else "unembed", cfg), x)
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
@@ -140,41 +148,80 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     """tokens [B, S] -> (f32 logits, aux loss, 0 for dense layers)."""
     check_supported(cfg)
     x = embed(params["embed"], tokens)
-    for p in params["blocks"]:
-        x, _ = _block(p, x, None, cfg, flash=flash)      # queries at 0..S-1
+    for i, p in enumerate(params["blocks"]):             # queries at 0..S-1
+        x, _ = _block(p, x, None, cfg, window=cfg.window_for_layer(i), flash=flash)
     if not full_logits:
         x = x[:, -1:]
     return _head(params, x, cfg), torch.zeros((), device=tokens.device)
 
 
+def _per_layer(cfg: ModelConfig, max_len: int) -> bool:
+    return cfg.global_every > 0 and cfg.window > 0 and max_len > cfg.window
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device=None) -> Cache:
-    """One stacked (k, v) pair ``[L, B, max_len, n_kv, head_dim]``."""
+    """One stacked (k, v) pair ``[L, B, max_len, n_kv, head_dim]``, or, for
+    a windowed model whose ``max_len`` outgrows its window, a list of
+    per-layer pairs: rings of ``min(max_len, window)`` slots for local
+    layers, ``max_len`` for global ones (the KV memory a layer that only
+    ever reads its last w positions needs)."""
     check_supported(cfg)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv, cfg.head_dim)
     dtype = dtype or cfg.dtype
-    return (torch.zeros(shape, dtype=dtype, device=device),
-            torch.zeros(shape, dtype=dtype, device=device))
+
+    def pair(*shape):
+        return (torch.zeros(shape, dtype=dtype, device=device),
+                torch.zeros(shape, dtype=dtype, device=device))
+
+    if _per_layer(cfg, max_len):
+        sizes = [min(max_len, w) if w else max_len
+                 for w in map(cfg.window_for_layer, range(cfg.n_layers))]
+        return [pair(batch, size, cfg.n_kv, cfg.head_dim) for size in sizes]
+    return pair(cfg.n_layers, batch, max_len, cfg.n_kv, cfg.head_dim)
+
+
+def _layer_caches(cache: Cache, cfg: ModelConfig):
+    """(k, v, ring) of each layer: the stacked pair's slices, or the
+    per-layer list's pairs, a local layer's ring where it holds no more
+    than its window."""
+    if isinstance(cache, list):
+        for i, (ck, cv) in enumerate(cache):
+            w = cfg.window_for_layer(i)
+            yield ck, cv, 0 < w and ck.shape[1] <= w
+    else:
+        for ck, cv in zip(*cache):
+            yield ck, cv, False
+
+
+def cache_positions(cache: Cache, cfg: ModelConfig) -> int:
+    """How many positions the caches hold: a ring holds any number, so a
+    per-layer list holds its full caches' length (rings alone: any)."""
+    if isinstance(cache, list):
+        full = [ck.shape[1] for ck, _, ring in _layer_caches(cache, cfg) if not ring]
+        return min(full) if full else np.iinfo(np.int64).max // 2
+    return cache[0].shape[2]
 
 
 def _serve_pass(params: dict, x, positions, cache: Cache, cache_len,
                 cfg: ModelConfig, flash=None):
-    """Run the layers against the stacked caches (layer i writes its
-    slice in place).  Returns (x, cache)."""
-    ck, cv = cache
-    for i, p in enumerate(params["blocks"]):
-        x, _ = _block(p, x, positions, cfg, kv_cache=(ck[i], cv[i]),
-                      cache_len=cache_len, flash=flash)
+    """Run the layers against the caches (layer i writes its own in
+    place), each layer's weights dequantized as it runs.  Returns (x,
+    cache)."""
+    for i, (p, (ck, cv, ring)) in enumerate(zip(params["blocks"],
+                                                  _layer_caches(cache, cfg))):
+        x, _ = _block(dequantize_tree(p, cfg.dtype), x, positions, cfg,
+                      kv_cache=(ck, cv), cache_len=cache_len,
+                      window=cfg.window_for_layer(i), ring=ring, flash=flash)
     return x, cache
 
 
 def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, cache: Cache,
             *, flash: Optional[Callable] = None) -> Tuple[torch.Tensor, Cache]:
     """tokens [B, S] + empty caches -> (last-position f32 logits [B, 1, V],
-    caches).  ``flash`` replaces the attention kernel in every layer
-    (``nn.attention.attention``)."""
+    caches).  ``flash`` replaces the attention kernel in every layer that
+    runs it (``nn.attention.attention``)."""
     check_supported(cfg)
-    x = embed(params["embed"], tokens)
+    x = embed(_table(params, "embed", cfg), tokens)
     x, cache = _serve_pass(params, x, None, cache, 0, cfg, flash=flash)  # 0..S-1
     return _head(params, x[:, -1:], cfg), cache
 
@@ -182,7 +229,7 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, cache: Cache,
 def decode_positions(pos, b: int, s: int, smax: int, device):
     """A decode step's ``pos`` (the current length: one int for every row,
     or one per row on the host, as the engine's slots give it), checked
-    against a cache of ``smax`` positions -> ``(cache_len, positions
+    against caches of ``smax`` positions -> ``(cache_len, positions
     [b, s])``: an int or a [b] tensor on ``device``."""
     pos = np.asarray(pos.cpu() if torch.is_tensor(pos) else pos, dtype=np.int64)
     if pos.ndim > 1 or (pos.ndim == 1 and pos.shape != (b,)):
@@ -205,8 +252,8 @@ def decode_step(params: dict, cache: Cache, tokens: torch.Tensor, pos,
     the cache -> (f32 logits [B, 1, V], caches)."""
     check_supported(cfg)
     b, s = tokens.shape
-    cache_len, positions = decode_positions(pos, b, s, cache[0].shape[2],
+    cache_len, positions = decode_positions(pos, b, s, cache_positions(cache, cfg),
                                             tokens.device)
-    x = embed(params["embed"], tokens)
+    x = embed(_table(params, "embed", cfg), tokens)
     x, cache = _serve_pass(params, x, positions, cache, cache_len, cfg)
     return _head(params, x, cfg), cache

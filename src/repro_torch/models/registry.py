@@ -6,6 +6,8 @@ and ``get_cnn_api`` for the CNN families.
     state = api.make_serve_state(cfg, batch, max_len)
     logits, state = api.prefill(params, {"tokens": toks}, state, cfg)
     logits, state = api.decode(params, state, {"tokens": tok}, pos, cfg)
+    # encdec: batch {"tokens", "frames" [B, T, d]}; vlm: {"tokens",
+    # "patches" [B, n_patches, d]}, then decode at pos + n_patches
 
     api = get_cnn_api("mobilenet_v2")          # on the card ("cuda")
     cfg = api.make_config()                    # 224x224, 1000 classes
@@ -38,7 +40,7 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 
 from repro_torch.core.graph import plan_graph
-from repro_torch.models import hybrid, lm, mamba, mobilenet, resnet
+from repro_torch.models import encdec, hybrid, lm, mamba, mobilenet, resnet, vlm
 
 
 def resolve_device(device=None) -> torch.device:
@@ -71,41 +73,84 @@ class ModelAPI:
     decode: Callable                  # (params, state, batch, pos, cfg)
 
 
-# family -> (model module, its serve-state constructor (cfg, batch, max_len, device))
-_LM_FAMILIES: Dict[str, Tuple[Any, Callable]] = {
-    "lm": (lm, lambda cfg, b, ml, dev: lm.init_cache(cfg, b, ml, device=dev)),
-    "ssm": (mamba, lambda cfg, b, ml, dev: mamba.init_state(cfg, b, device=dev)),
-    "hybrid": (hybrid, lambda cfg, b, ml, dev: hybrid.init_state(cfg, b, ml, device=dev)),
+def _tokens(batch, dev) -> torch.Tensor:
+    return torch.as_tensor(batch["tokens"]).to(dev, torch.long)
+
+
+def _tensor(batch, key: str, dev) -> torch.Tensor:
+    return torch.as_tensor(batch[key]).to(dev)
+
+
+def _text_api(mod, make_state: Callable) -> Callable:
+    """Families whose batch is tokens alone; ``make_state(cfg, batch,
+    max_len, device)``."""
+    def api(dev) -> ModelAPI:
+        return ModelAPI(
+            init=lambda cfg, generator: mod.init(cfg, generator, dev),
+            loss_fn=_not_yet("loss_fn", "training and infrastructure"),
+            make_serve_state=lambda cfg, b, ml: make_state(cfg, b, ml, dev),
+            prefill=lambda p, batch, st, cfg: mod.prefill(p, _tokens(batch, dev), cfg, st),
+            decode=lambda p, st, batch, pos, cfg: mod.decode_step(
+                p, st, _tokens(batch, dev), pos, cfg),
+        )
+    return api
+
+
+def _encdec_api(dev) -> ModelAPI:
+    """The serve state carries the decoder's cache and the encoder's
+    ``memory`` (zeros of ``(batch, max_len, d_model)`` until the prefill
+    replaces it), so that decode steps are self-contained."""
+    def make_state(cfg, b, ml):
+        return {"cache": encdec.init_cache(cfg, b, ml, device=dev),
+                "memory": torch.zeros((b, ml, cfg.d_model), dtype=cfg.dtype, device=dev)}
+
+    def prefill(p, batch, st, cfg):
+        logits, cache, memory = encdec.prefill(
+            p, _tokens(batch, dev), _tensor(batch, "frames", dev), cfg, st["cache"])
+        return logits, {"cache": cache, "memory": memory}
+
+    def decode(p, st, batch, pos, cfg):
+        logits, cache = encdec.decode_step(p, st["cache"], st["memory"],
+                                           _tokens(batch, dev), pos, cfg)
+        return logits, {"cache": cache, "memory": st["memory"]}
+
+    return ModelAPI(
+        init=lambda cfg, generator: encdec.init(cfg, generator, dev),
+        loss_fn=_not_yet("loss_fn", "training and infrastructure"),
+        make_serve_state=make_state, prefill=prefill, decode=decode)
+
+
+def _vlm_api(dev) -> ModelAPI:
+    return ModelAPI(
+        init=lambda cfg, generator: vlm.init(cfg, generator, dev),
+        loss_fn=_not_yet("loss_fn", "training and infrastructure"),
+        make_serve_state=lambda cfg, b, ml: vlm.init_cache(cfg, b, ml, device=dev),
+        prefill=lambda p, batch, st, cfg: vlm.prefill(
+            p, _tokens(batch, dev), _tensor(batch, "patches", dev), cfg, st),
+        decode=lambda p, st, batch, pos, cfg: vlm.decode_step(
+            p, st, _tokens(batch, dev), pos, cfg),
+    )
+
+
+# family -> (device -> ModelAPI)
+_LM_FAMILIES: Dict[str, Callable] = {
+    "lm": _text_api(lm, lambda cfg, b, ml, dev: lm.init_cache(cfg, b, ml, device=dev)),
+    "ssm": _text_api(mamba, lambda cfg, b, ml, dev: mamba.init_state(cfg, b, device=dev)),
+    "hybrid": _text_api(hybrid, lambda cfg, b, ml, dev: hybrid.init_state(
+        cfg, b, ml, device=dev)),
+    "encdec": _encdec_api,
+    "vlm": _vlm_api,
 }
-_NOT_PORTED_FAMILIES = {"encdec": "encdec and vlm families",
-                        "vlm": "encdec and vlm families"}
 
 
 def get_api(cfg, device=None) -> ModelAPI:
-    """The LM API for ``cfg`` (families lm, ssm and hybrid), its tensors on
-    ``device`` (the card unless the caller asks for the CPU).
-    ``batch["tokens"]`` may be any integer array; it is moved to the
-    device."""
-    if cfg.family in _NOT_PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family} family is not ported yet (ROADMAP Queue 1: "
-            f"{_NOT_PORTED_FAMILIES[cfg.family]})")
+    """The LM API for ``cfg`` (families lm, ssm, hybrid, encdec and vlm),
+    its tensors on ``device`` (the card unless the caller asks for the
+    CPU).  ``batch["tokens"]`` may be any integer array, ``"frames"`` and
+    ``"patches"`` any float array; they are moved to the device."""
     if cfg.family not in _LM_FAMILIES:
         raise KeyError(f"unknown family {cfg.family!r}")
-    mod, make_state = _LM_FAMILIES[cfg.family]
-    dev = resolve_device(device)
-
-    def tokens(batch):
-        return torch.as_tensor(batch["tokens"]).to(dev, torch.long)
-
-    return ModelAPI(
-        init=lambda cfg, generator: mod.init(cfg, generator, dev),
-        loss_fn=_not_yet("loss_fn", "training and infrastructure"),
-        make_serve_state=lambda cfg, b, ml: make_state(cfg, b, ml, dev),
-        prefill=lambda p, batch, st, cfg: mod.prefill(p, tokens(batch), cfg, st),
-        decode=lambda p, st, batch, pos, cfg: mod.decode_step(
-            p, st, tokens(batch), pos, cfg),
-    )
+    return _LM_FAMILIES[cfg.family](resolve_device(device))
 
 
 @dataclasses.dataclass(frozen=True)

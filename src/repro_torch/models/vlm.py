@@ -1,0 +1,44 @@
+"""internvl2-2b backbone: an InternLM2-style causal LM behind a stub
+vision tower; the port's copy of the JAX package's ``models/vlm.py``
+serve path.
+
+The frontend is a stub: the caller supplies precomputed patch embeddings
+``[B, n_patches, d_model]`` (InternViT's output after the projector),
+which are concatenated ahead of the text embeddings; everything after
+that is ``models/lm.py``.  The image lives in the KV cache after the
+prefill, so decode is the LM's decode at ``pos = n_patches + text
+length``.  The params are the LM's, int8 (``serve_weight_quant``) or not.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import lm
+from repro_torch.nn.embeddings import embed, unembed
+from repro_torch.nn.norms import rms_norm
+
+init = lm.init                    # the vision tower is stubbed
+init_cache = lm.init_cache
+decode_step = lm.decode_step      # decode never sees the patches
+params_from_reference = lm.params_from_reference
+
+
+def _merge(params: dict, tokens: torch.Tensor, patches: torch.Tensor,
+           cfg: ModelConfig) -> torch.Tensor:
+    """[B, St] tokens + [B, Np, d] patches -> [B, Np + St, d] embeddings."""
+    tok_x = embed(lm._table(params, "embed", cfg), tokens)
+    return torch.cat([patches.to(tok_x.dtype), tok_x], dim=1)
+
+
+def prefill(params: dict, tokens: torch.Tensor, patches: torch.Tensor,
+            cfg: ModelConfig, cache, *, flash: Optional[Callable] = None):
+    """Patches then tokens, from position 0, into empty caches ->
+    (last-position f32 logits [B, 1, V], caches)."""
+    lm.check_supported(cfg)
+    x = _merge(params, tokens, patches, cfg)
+    x, cache = lm._serve_pass(params, x, None, cache, 0, cfg, flash=flash)
+    x = rms_norm(x[:, -1:], params["final_norm"], eps=cfg.norm_eps)
+    return unembed(lm._table(params, "embed", cfg), x), cache

@@ -1,26 +1,43 @@
-"""Attention layer: GQA, RoPE, the bf16/f32 KV cache; the port's copy of
-the JAX package's ``nn/attention.py``.
+"""Attention layer: GQA, RoPE, sliding windows, the bf16/f32 KV cache and
+the ring-buffer cache of windowed layers; the port's copy of the JAX
+package's ``nn/attention.py``.
 
 Two routes compute the same function, chosen by the call's structure:
 
-* **the kernel** (``kernels/flash_attention.py``): causal self-attention
-  with no window whose queries sit at positions 0..S-1 against keys
-  0..S-1 — ``forward`` (no cache) and ``prefill`` (a cache written from
-  position 0).  With a cache the JAX package attends over all ``Smax``
-  cached keys and masks those at ``>= kv_len = S``: a masked score adds
-  ``exp(-1e30 - m) = 0``, so that is exactly attention over the first S
-  keys, which is what the kernel gets.  The route is taken only when
-  the queries sit at 0..S-1 in every row: ``q_positions=None`` says so
-  (``lm.forward`` and ``lm.prefill`` pass it); given positions are
-  checked on the host, one synchronisation per call, and any others go
-  to the dense path, as in the JAX package.
+* **the kernel** (``kernels/flash_attention.py``), for every call inside
+  ``flash_attention_p``'s contract:
+  - causal self-attention with no window whose queries sit at positions
+    0..S-1 against keys 0..S-1 — ``forward`` (no cache) and ``prefill``
+    (a cache written from position 0).  With a cache the JAX package
+    attends over all ``Smax`` cached keys and masks those at ``>= kv_len
+    = S``: a masked score adds ``exp(-1e30 - m) = 0``, so that is exactly
+    attention over the first S keys, which is what the kernel gets.  The
+    route is taken only when the queries sit at 0..S-1 in every row:
+    ``q_positions=None`` says so (the models' prefills pass it); given
+    positions are checked on the host, one synchronisation per call, and
+    any others go to the dense path, as in the JAX package;
+  - non-causal attention in which every key is valid: no cache (so no
+    length mask) and no window — an encoder's self-attention, and
+    cross-attention to a memory at prefill and at decode (Sq = 1 against
+    T keys).  Positions play no part in its mask.
 * **the dense masked path** (``_attend_dense``) for everything else:
-  decode (one query at a per-row position against a per-row ``kv_len``)
-  lies outside ``flash_attention_p``'s contract, whose causal mask puts
-  query row 0 at position 0; the JAX package runs no kernel there either.
+  decode against a cache (one query at a per-row position against a
+  per-row ``kv_len``) lies outside ``flash_attention_p``'s contract, whose
+  causal mask puts query row 0 at position 0; windowed layers, which the
+  JAX package computes in plain jnp, as ``flash_attention_p`` has no
+  window.
 
-The cache is updated in place (the JAX package returns a new one) and
-returned.  A write past the cache's end raises, where the JAX package's
+A windowed layer whose cache is a ring of ``w`` slots (``ring=True``)
+holds position t at slot ``t mod w``.  Prefill keeps the last ``min(w,
+S)`` tokens there and attends over the current k/v under the window mask.
+Decode writes each row at ``pos_b mod w`` and masks slot i of row b by the
+position it holds, ``pos_b - ((pos_b - i) mod w)``, empty slots (negative)
+masked by causality.  The JAX package writes and masks every row at one
+position (the batch's largest, ``models/lm.py::_serve_pass_per_layer``),
+which is the same where all rows share it.
+
+The caches are updated in place (the JAX package returns new ones) and
+returned.  A write past a full cache's end raises, where the JAX package's
 ``dynamic_update_slice`` would clamp the start.
 """
 from __future__ import annotations
@@ -36,6 +53,7 @@ from repro_torch.kernels.flash_attention import attention_impl
 from repro_torch.nn.embeddings import rope
 
 _NEG = -1e30
+_EMPTY = 2 ** 30   # an empty ring slot's position: causality masks it
 
 
 def init_attention(generator: torch.Generator, d_model: int, n_heads: int,
@@ -139,6 +157,38 @@ def _write_cache(ck, cv, k, v, cache_len, sq):
     return start + sq, False
 
 
+def _write_ring(ck, cv, k, v, cache_len, sq):
+    """Write k/v [B, Sq, nkv, D] into a ring [B, w, nkv, D] in place,
+    position t at slot t mod w -> ``(k, v, k_pos)`` to attend over: at
+    prefill (Sq > 1, one start for every row) the current k/v at their
+    positions; at decode the ring at the positions its slots hold, ``[w]``
+    for one position or ``[B, w]`` for one per row."""
+    w = ck.shape[1]
+    dev = ck.device
+    per_row = (cache_len.dim() if torch.is_tensor(cache_len) else np.ndim(cache_len)) > 0
+    if sq > 1:
+        if per_row:
+            raise ValueError("a ring prefill takes one start position for every row")
+        start = int(cache_len)
+        keep = min(w, sq)
+        slots = (start + torch.arange(sq - keep, sq, device=dev)) % w
+        ck[:, slots] = k[:, -keep:].to(ck.dtype)
+        cv[:, slots] = v[:, -keep:].to(cv.dtype)
+        return k, v, start + torch.arange(sq, device=dev)
+    if per_row:
+        start = torch.as_tensor(cache_len, dtype=torch.long, device=dev)
+        rows = torch.arange(ck.shape[0], device=dev)
+        ck[rows, start % w] = k[:, 0].to(ck.dtype)
+        cv[rows, start % w] = v[:, 0].to(cv.dtype)
+        start = start[:, None]
+    else:
+        start = int(cache_len)
+        ck[:, start % w] = k[:, 0].to(ck.dtype)
+        cv[:, start % w] = v[:, 0].to(cv.dtype)
+    t = start - ((start - torch.arange(w, device=dev)) % w)
+    return ck, cv, torch.where(t >= 0, t, _EMPTY)
+
+
 def _positions_from_zero(q_positions, sq: int) -> bool:
     """True when every row of ``q_positions`` is 0..sq-1 (one host sync
     for a device tensor)."""
@@ -157,19 +207,16 @@ def attention(
     kv_cache: Optional[Tuple[torch.Tensor, ...]] = None,  # [B, Smax, n_kv, D]
     cache_len=None,                     # int, or [B] per-slot positions
     window: Optional[int] = None,       # 0/None = global
-    ring: bool = False,
+    ring: bool = False,                 # kv_cache is a ring of window slots
     flash: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
     """Returns (out [B, Sq, d_model], updated kv_cache or None).
 
-    ``flash`` replaces the kernel route's core, ``impl(q [B, H, S, D],
-    k, v [B, Hkv, S, D]) -> [B, H, S, D]`` (default: the CUDA kernel's
-    ``attention_impl(causal=True)``).
+    ``flash`` replaces the kernel route's core, ``impl(q [B, H, Sq, D],
+    k, v [B, Hkv, Sk, D]) -> [B, H, Sq, D]`` for causal self-attention and
+    ``impl(q, k, v, causal=False)`` for the non-causal calls (default: the
+    CUDA kernel's ``attention_impl()``).
     """
-    if kv_cache is not None and ring:
-        raise NotImplementedError(
-            "ring-buffer KV caches of windowed layers are not ported yet "
-            "(ROADMAP Queue 1: ring/windowed caches)")
     if kv_cache is not None and len(kv_cache) == 4:
         raise NotImplementedError(
             "the int8 KV cache is not ported yet (ROADMAP Queue 1: int8 KV cache)")
@@ -198,29 +245,39 @@ def attention(
         k = rope(k, q_positions, theta=spec.rope_theta)
 
     new_cache = None
-    kv_len, from_zero = None, True
-    if kv_cache is not None:
+    kv_len, from_zero, k_pos = None, True, None
+    n_keys = k.shape[1]                  # the keys the kernel route attends over
+    if kv_cache is not None and ring:
+        ck, cv = kv_cache
+        k, v, k_pos = _write_ring(ck, cv, k, v, cache_len, sq)
+        new_cache = (ck, cv)
+    elif kv_cache is not None:
         ck, cv = kv_cache
         kv_len, from_zero = _write_cache(ck, cv, k, v, cache_len, sq)
         new_cache = (ck, cv)
         k, v = ck, cv
 
     causal = spec.causal and x_kv is None
-    kernel_route = causal and from_zero and not window
-    if kernel_route and positions_given:
-        kernel_route = _positions_from_zero(q_positions, sq)
+    if causal:
+        kernel_route = from_zero and not window and not ring
+        if kernel_route and positions_given:
+            kernel_route = _positions_from_zero(q_positions, sq)
+    else:
+        kernel_route = kv_cache is None and not window
     if kernel_route:
         dt = torch.promote_types(q.dtype, k.dtype)
-        qh = q.transpose(1, 2).to(dt).contiguous()                 # [B, H, S, D]
-        kh = k[:, :sq].transpose(1, 2).to(dt).contiguous()         # [B, Hkv, S, D]
-        vh = v[:, :sq].transpose(1, 2).to(dt).contiguous()
-        core = flash if flash is not None else attention_impl(causal=True)
-        out = core(qh, kh, vh).transpose(1, 2).reshape(b, sq, h * dh)
+        qh = q.transpose(1, 2).to(dt).contiguous()                    # [B, H, Sq, D]
+        kh = k[:, :n_keys].transpose(1, 2).to(dt).contiguous()        # [B, Hkv, Sk, D]
+        vh = v[:, :n_keys].transpose(1, 2).to(dt).contiguous()
+        core = flash if flash is not None else attention_impl()
+        out = core(qh, kh, vh, **({} if causal else {"causal": False}))
+        out = out.transpose(1, 2).reshape(b, sq, h * dh)
     else:
         qh = q.reshape(b, sq, nkv, g, dh).permute(0, 2, 3, 1, 4)  # [B, Hkv, G, Sq, D]
         kh = k.transpose(1, 2)                                     # [B, Hkv, Sk, D]
         vh = v.transpose(1, 2)
-        k_pos = torch.arange(kh.shape[2], device=x.device)
+        if k_pos is None:
+            k_pos = torch.arange(kh.shape[2], device=x.device)
         out = _attend_dense(qh, kh, vh, q_positions, k_pos, causal=causal,
                             window=window, kv_len=kv_len,
                             scale=1.0 / math.sqrt(dh))

@@ -1,24 +1,34 @@
-"""Int8 activation links: the port's copy of the link half of the JAX
-package's ``nn/quant.py``.
+"""Int8 quantization for serving: the port's copy of the JAX package's
+``nn/quant.py``.  Two facilities share the ``{"__q__", "__s__"}`` format:
 
-One activation tensor crossing a pipeline-stage cut becomes
-``{"__q__": int8 tensor, "__s__": 0-d f32 tensor}`` — per-tensor dynamic
-symmetric, the ``core.stage_partition.StreamBuffer`` int8 wire format, so
-the staged executor moves 8 bits per feature between stages.
-``fake_quant_link`` is the quantize-dequantize round trip in one call:
-the monolithic reference applies it in place so the staged int8 path can
-be compared bit for bit.
+* **Weight trees** (``quantize_tree`` / ``dequantize_tree``): matrix
+  leaves become ``{"__q__": int8, "__s__": f32 per-output-channel scales}``
+  and everything else stays as it is.  The serve passes dequantize one
+  layer at a time, so only one layer's weights ever sit in the compute
+  dtype and the weights a decode step reads stay int8.  The reference
+  decides which leaves to quantize on its *stacked* ``[L, ...]`` leaves;
+  the port keeps a list of per-layer dicts, and a leaf inside such a list
+  is judged by the stacked shape ``(len(list),) + shape``, so the port
+  quantizes exactly the leaves the reference does.
+* **Activation links** (``quantize_link`` / ``dequantize_link``): one
+  activation tensor crossing a pipeline-stage cut becomes
+  ``{"__q__": int8 tensor, "__s__": 0-d f32 tensor}`` — per-tensor dynamic
+  symmetric, the ``core.stage_partition.StreamBuffer`` int8 wire format,
+  so the staged executor moves 8 bits per feature between stages.
+  ``fake_quant_link`` is the quantize-dequantize round trip in one call:
+  the monolithic reference applies it in place so the staged int8 path
+  can be compared bit for bit.  One scale spans the whole tensor, so a
+  frame's int8 payload depends on the other frames of its micro-batch, as
+  in the reference.
 
 The arithmetic is the reference's step for step, in f32: s = max(amax,
 1e-12) / 127, q = clip(round(x / s), -127, 127) with ``torch.round``'s
 half-to-even ties (``jnp.round``'s) and true quotients on the CPU and on
 the card (``exact_divisor``), so both packages give the same bits.
-One scale spans the whole tensor, so a frame's int8 payload depends on
-the other frames of its micro-batch, as in the reference.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict
 
 import torch
 
@@ -54,3 +64,69 @@ def fake_quant_link(x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """Quantize-dequantize round trip in one call — what the monolithic
     reference applies at each would-be cut."""
     return dequantize_link(quantize_link(x), dtype=dtype)
+
+
+def _is_qleaf(x) -> bool:
+    return isinstance(x, dict) and set(x.keys()) == {"__q__", "__s__"}
+
+
+def _should_quantize(leaf, shape) -> bool:
+    """The reference's rule on the leaf's stacked ``shape``: ndim >= 3 (a
+    layer's matrix under its L dim) with both last dims >= 16, or ndim 2
+    (an embedding table) with both dims >= 1024.  Stacked norms and biases
+    (``[L, d]``) and tiny heads stay full precision."""
+    if not (torch.is_tensor(leaf) and leaf.is_floating_point()):
+        return False
+    if len(shape) >= 3:
+        return shape[-1] >= 16 and shape[-2] >= 16
+    if len(shape) == 2:
+        return min(shape) >= 1024
+    return False
+
+
+def quantize_tree(params: Any, **_) -> Any:
+    """Per-output-channel symmetric int8 for matmul and embedding weights:
+    the scale is the amax over the row dim (-2), one per output column."""
+    def quantize(leaf, lead):
+        if isinstance(leaf, dict):
+            return {k: quantize(v, lead) for k, v in leaf.items()}
+        if isinstance(leaf, list):          # per-layer dicts: the stacked L dim
+            return [quantize(v, lead + (len(leaf),)) for v in leaf]
+        if not _should_quantize(leaf, lead + tuple(leaf.shape)):
+            return leaf
+        x = leaf.float()
+        amax = x.abs().amax(dim=-2, keepdim=True)
+        s = torch.clamp(amax, min=1e-12) / exact_divisor(127.0, amax)
+        q = torch.clamp(torch.round(x / s), -127, 127).to(torch.int8)
+        return {"__q__": q, "__s__": s}
+
+    return quantize(params, ())
+
+
+def dequantize_tree(tree: Any, dtype=torch.bfloat16) -> Any:
+    """Full-precision weights from a (slice of a) quantized tree: an f32
+    product, then a cast to ``dtype``; other leaves come back as they are,
+    uncopied.  The serve passes call it on one layer at a time."""
+    if _is_qleaf(tree):
+        return (tree["__q__"].float() * tree["__s__"]).to(dtype)
+    if isinstance(tree, dict):
+        return {k: dequantize_tree(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [dequantize_tree(v, dtype) for v in tree]
+    return tree
+
+
+def _children(tree) -> list:
+    if isinstance(tree, dict):
+        return list(tree.values())
+    return list(tree) if isinstance(tree, list) else []
+
+
+def is_quantized(tree: Any) -> bool:
+    return _is_qleaf(tree) or any(is_quantized(v) for v in _children(tree))
+
+
+def tree_bytes(tree: Any) -> int:
+    if isinstance(tree, (dict, list)):
+        return sum(tree_bytes(v) for v in _children(tree))
+    return tree.numel() * tree.element_size()

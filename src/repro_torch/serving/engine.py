@@ -33,20 +33,21 @@ class Request:
     t_done: Optional[float] = None
 
 
-def _write_slot(pool, one, slot: int) -> None:
+def _write_slot(pool, one, slot: int, bdim: int = 1) -> None:
     """Write a one-row serve state into row ``slot`` of the pool, tensor by
-    tensor through any nesting of tuples and dicts (the JAX engine's tree
-    map), cast to the pool's dtype: stacked caches and states carry the
-    batch at dim 1; leaves of fewer than 2 dims carry no batch and stay
-    as they are."""
+    tensor through any nesting of lists, tuples and dicts (the JAX engine's
+    tree map), cast to the pool's dtype: stacked caches and states carry
+    the batch at dim 1, a per-layer list of caches (windowed models) at
+    dim 0; leaves of fewer than 2 dims carry no batch and stay as they
+    are."""
     if isinstance(pool, dict):
         for key in pool:
-            _write_slot(pool[key], one[key], slot)
-    elif isinstance(pool, tuple):
+            _write_slot(pool[key], one[key], slot, bdim)
+    elif isinstance(pool, (list, tuple)):
         for p, o in zip(pool, one):
-            _write_slot(p, o, slot)
+            _write_slot(p, o, slot, 0 if isinstance(pool, list) else bdim)
     elif pool.dim() >= 2:
-        pool[:, slot] = one[:, 0].to(pool.dtype)
+        pool.select(bdim, slot).copy_(one.select(bdim, 0))
 
 
 class Engine:

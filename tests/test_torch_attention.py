@@ -27,7 +27,7 @@ from repro.nn.norms import rms_norm as ref_rms_norm  # noqa: E402
 from repro_torch.core.hw import H100_SXM  # noqa: E402
 from repro_torch.core.tiles import TileChoice  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    BLOCKS, attention_impl, flash_attention, flash_blocks)
+    BLOCKS, attention_impl, fits, flash_attention, flash_blocks)
 from repro_torch.nn import attention as port_attn  # noqa: E402
 from repro_torch.nn.embeddings import rope, unembed  # noqa: E402
 from repro_torch.nn.layers import apply_dense, ffn  # noqa: E402
@@ -106,12 +106,30 @@ def test_attention_impl_tile_record_protocol():
 @pytest.mark.parametrize("bh,sq", [(28, 512), (28, 2048), (28, 100), (1, 9), (8, 64)])
 def test_flash_blocks_fill_the_card(bh, sq, dtype):
     blocks = BLOCKS[dtype]
-    block_q, block_k = flash_blocks(bh, sq, dtype)
+    block_q, block_k = flash_blocks(bh, sq, dtype, 128)
     assert block_q in blocks and block_k == max(blocks)
     # the widest query tile that still gives every SM a block
     wider = [b for b in blocks if b > block_q]
     assert all(bh * -(-sq // b) < H100_SXM.sms for b in wider)
     assert block_q == blocks[0] or bh * -(-sq // block_q) >= H100_SXM.sms
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,sq", [(4, 2048), (4, 512), (1, 9)])
+def test_flash_blocks_fit_shared_memory_at_head_dim_256(bh, sq, dtype):
+    """At d = 256 the bf16 kernel's two stages of 128 keys (256 KiB) do not
+    fit a block's 227 KiB: block_k 64, and the wrapper refuses 128 before
+    any launch; every f32 pair fits."""
+    block_q, block_k = flash_blocks(bh, sq, dtype, 256)
+    assert fits(dtype, 256, block_q, block_k)
+    assert block_k == (64 if dtype == torch.bfloat16 else max(BLOCKS[dtype]))
+    assert all(fits(torch.float32, 256, a, b) for a in BLOCKS[torch.float32]
+               for b in BLOCKS[torch.float32])
+    q = torch.zeros(1, 2, 8, 256, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="shared memory"):
+        flash_attention(q, q, q, block_q=64, block_k=128)
+    got = flash_attention(q, q, q, block_q=64, block_k=64)
+    assert got.shape == q.shape
 
 
 def _split_p_flash(q, k, v, *, causal, block_k=128, terms=2):
@@ -321,12 +339,46 @@ def test_cache_write_past_the_end_raises(cache_len):
                             kv_cache=cache, cache_len=cache_len)
 
 
-@pytest.mark.parametrize("cache", ["ring", "int8"])
+@pytest.mark.parametrize("cache", ["int8"])
 def test_unported_caches_raise(cache):
     p = {n: _t(a) for n, a in _attn_params().items()}
     spec = port_attn.AttnSpec(n_heads=H, n_kv=HKV, head_dim=DH, qkv_bias=True)
-    kv = tuple(torch.zeros(2, 8, HKV, DH) for _ in range(2 if cache == "ring" else 4))
+    kv = tuple(torch.zeros(2, 8, HKV, DH) for _ in range(4))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_attn.attention(p, torch.zeros(2, 1, D_MODEL),
                             torch.zeros(2, 1, dtype=torch.long), spec, kv_cache=kv,
-                            cache_len=0, ring=cache == "ring")
+                            cache_len=0)
+
+
+@pytest.mark.parametrize("sq", [1, 16])
+def test_cross_attention_matches_jax_on_the_kernel_route(sq):
+    """Cross-attention (non-causal, every key valid): Sq queries against
+    29 keys of another sequence, at a decode step (1) and a prefill (16),
+    runs the kernel route."""
+    p, x = _attn_params(), _rand(50, 2, sq, D_MODEL)
+    mem = _rand(51, 2, 29, D_MODEL)
+    pos = np.broadcast_to(np.arange(sq, dtype=np.int32) + 5, (2, sq)).copy()
+    spec_r = ref_attn.AttnSpec(n_heads=H, n_kv=HKV, head_dim=DH, causal=False, qkv_bias=True)
+    spec_p = port_attn.AttnSpec(n_heads=H, n_kv=HKV, head_dim=DH, causal=False, qkv_bias=True)
+    want, _ = ref_attn.attention({n: jnp.asarray(a) for n, a in p.items()}, jnp.asarray(x),
+                                 jnp.asarray(pos), spec_r, x_kv=jnp.asarray(mem))
+    seen, impl = _recorder()
+    got, _ = port_attn.attention({n: _t(a) for n, a in p.items()}, _t(x),
+                                 torch.from_numpy(pos), spec_p, x_kv=_t(mem), flash=impl)
+    _close(got, want)
+    assert [kw["seq"] for kw in seen] == [sq]
+
+
+def test_windowed_and_non_causal_cached_calls_take_the_dense_path():
+    """A window, or a cache under a non-causal mask, lies outside the
+    kernel's contract."""
+    p = {n: _t(a) for n, a in _attn_params().items()}
+    x = _t(_rand(52, 2, 12, D_MODEL))
+    seen, impl = _recorder()
+    spec = port_attn.AttnSpec(n_heads=H, n_kv=HKV, head_dim=DH, qkv_bias=True)
+    port_attn.attention(p, x, None, spec, window=4, flash=impl)
+    spec_nc = port_attn.AttnSpec(n_heads=H, n_kv=HKV, head_dim=DH, causal=False,
+                                 qkv_bias=True)
+    cache = tuple(torch.zeros(2, 16, HKV, DH) for _ in range(2))
+    port_attn.attention(p, x, None, spec_nc, kv_cache=cache, cache_len=0, flash=impl)
+    assert seen == []

@@ -594,17 +594,25 @@ def test_replicated_plan_on_card(card):
         (6, 3, 77, 77, 32, False),
         (28, 4, 2048, 2048, 128, True),  # qwen2-7b's full heads, longest prompt
         (32, 32, 1543, 1543, 64, True),  # zamba2's heads, ragged 1536 + 7
+        (4, 1, 2048, 2048, 256, True),   # gemma3-1b's global layers: d 256, group 4
+        (4, 1, 333, 333, 256, True),     # d 256, ragged
+        (4, 2, 100, 260, 256, False),    # d 256, non-causal, Sq != Sk
+        (16, 16, 1, 1000, 64, False),    # seamless's cross-attention at decode
+        (16, 16, 16, 1500, 64, False),   # and at prefill: 16 tokens, T frames
+        (16, 8, 1, 77, 128, False),      # one query, GQA, ragged keys
     ],
 )
 def test_flash_kernel_matches_plain(card, dtype, h, hkv, sq, sk, d, causal):
-    """Every pair of blocks the dtype's kernel takes: bf16 (wgmma) 64 or
-    128 query rows by 64 or 128 keys; f32 (CUDA cores) tall and wide."""
+    """Every pair of blocks the dtype's kernel takes at the head dim: bf16
+    (wgmma) 64 or 128 query rows by 64 or 128 keys (64 at d = 256); f32
+    (CUDA cores) tall and wide."""
     q = _rand((2, h, sq, d), sq + d).to(card, dtype)
     k = _rand((2, hkv, sk, d), sk).to(card, dtype)
     v = _rand((2, hkv, sk, d), sk + 1).to(card, dtype)
     want = fa.flash_attention_plain(q, k, v, causal=causal)
     pairs = {(64, 64), (128, 64), (64, 128)} if dtype == torch.bfloat16 else {(16, 64), (64, 16)}
-    for block_q, block_k in pairs | {fa.flash_blocks(2 * h, sq, dtype)}:
+    pairs = {p for p in pairs if fa.fits(dtype, d, *p)}
+    for block_q, block_k in pairs | {fa.flash_blocks(2 * h, sq, dtype, d)}:
         y = _launched(fa.flash_attention, lambda: fa.flash_attention(
             q, k, v, causal=causal, block_q=block_q, block_k=block_k))
         assert y.dtype == dtype and y.shape == q.shape
@@ -660,6 +668,43 @@ def test_reduced_qwen2_prefill_on_card_matches_cpu(card):
     _close(got.cpu(), want)
     for g, w in zip(cache, want_cache):
         _close(g.cpu(), w)
+
+
+@pytest.mark.parametrize("arch,launches", [
+    ("gemma3-1b", lambda cfg: sum(cfg.window_for_layer(i) == 0 for i in range(cfg.n_layers))),
+    ("internvl2-2b", lambda cfg: cfg.n_layers),
+    ("seamless-m4t-medium", lambda cfg: cfg.enc_layers + 2 * cfg.dec_layers),
+])
+def test_reduced_window_vlm_encdec_prefill_on_card_matches_cpu(card, arch, launches):
+    """get_api's prefill on the card (gemma3 with ring caches, internvl2
+    from int8 weights) against the same prefill on the CPU, f32, the flash
+    kernel launched once per layer that runs it; then a decode step."""
+    from repro_torch.models import registry
+    from repro_torch.nn.quant import quantize_tree
+
+    cfg = reduced(get_config(arch), layers=4, d_model=64, vocab=128)
+    params = registry.get_api(cfg, device="cpu").init(cfg, torch.Generator().manual_seed(0))
+    if cfg.serve_weight_quant:
+        params = quantize_tree(params)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, 128, (2, 37))}
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal((2, 45, 64)).astype(np.float32)
+    if cfg.family == "vlm":
+        batch["patches"] = rng.standard_normal((2, cfg.n_patches, 64)).astype(np.float32)
+    out = {}
+    for dev in ("cpu", card):
+        api = registry.get_api(cfg, device=dev)
+        before = fa.flash_attention.launches
+        logits, state = api.prefill(_to(params, dev), batch,
+                                    api.make_serve_state(cfg, 2, 48), cfg)
+        assert fa.flash_attention.launches == before + (launches(cfg) if dev == card else 0)
+        pos = 37 + cfg.n_patches
+        step, _ = api.decode(_to(params, dev), state, {"tokens": [[1], [2]]},
+                             np.asarray([pos, pos]), cfg)
+        out[str(dev)] = (logits.cpu(), step.cpu())
+    for got, want in zip(out["cuda"], out["cpu"]):
+        _close(got, want)
 
 
 def _ssd_inputs(b, l, h, p, g, n, seed, model_decay):

@@ -178,10 +178,8 @@ def test_engine_refuses_a_prompt_past_max_len(setup):
 
 @pytest.mark.parametrize("arch,change", [
     ("qwen2-7b", {"kv_quant": True}),
-    ("gemma3-1b", {}),                 # sliding-window layers
     ("grok-1-314b", {}),               # MoE every layer
     ("llama4-maverick-400b-a17b", {}), # MoE every other layer
-    ("deepseek-coder-33b", {"serve_weight_quant": True}),
 ])
 def test_unported_configs_raise(arch, change):
     cfg = dataclasses.replace(reduced(get_config(arch), **SMALL), **change)
@@ -191,10 +189,43 @@ def test_unported_configs_raise(arch, change):
         lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
 
 
+@pytest.mark.parametrize("arch,change", [
+    ("gemma3-1b", {}),                 # sliding-window layers, ring caches
+    ("deepseek-coder-33b", {"serve_weight_quant": True}),
+])
+def test_configs_that_now_serve(arch, change):
+    """Configs that raised until the ring caches and int8 serve weights
+    were ported: a prefill and a decode step through ``get_api`` on the
+    CPU (gemma3-1b with per-layer caches, rings of its window)."""
+    cfg = dataclasses.replace(reduced(get_config(arch), **SMALL), **change)
+    api = registry.get_api(cfg, device="cpu")
+    params = api.init(cfg, torch.Generator().manual_seed(0))
+    state = api.make_serve_state(cfg, 2, 16)
+    assert isinstance(state, list) == (arch == "gemma3-1b")
+    logits, state = api.prefill(params, {"tokens": np.ones((2, 11), np.int32)}, state, cfg)
+    logits, state = api.decode(params, state, {"tokens": np.ones((2, 1), np.int32)},
+                               np.asarray([11, 11]), cfg)
+    assert logits.shape == (2, 1, 128) and bool(torch.isfinite(logits).all())
+
+
 @pytest.mark.parametrize("arch", ["seamless-m4t-medium", "internvl2-2b"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.get_api(reduced(get_config(arch)), device="cpu")
+def test_encdec_and_vlm_families_serve(arch):
+    """The encdec and vlm families, which raised until they were ported:
+    ``get_api`` serves them on the CPU when asked (their parity with the
+    JAX package: tests/test_torch_encdec_vlm.py)."""
+    cfg = reduced(get_config(arch))
+    api = registry.get_api(cfg, device="cpu")
+    params = api.init(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (1, 5))}
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal((1, 7, cfg.d_model)).astype(np.float32)
+    else:
+        batch["patches"] = rng.standard_normal((1, cfg.n_patches, cfg.d_model)).astype(
+            np.float32)
+    logits, state = api.prefill(params, batch, api.make_serve_state(cfg, 1, 32), cfg)
+    logits, _ = api.decode(params, state, {"tokens": [[1]]}, 5 + cfg.n_patches, cfg)
+    assert logits.shape == (1, 1, cfg.vocab) and bool(torch.isfinite(logits).all())
 
 
 def test_get_api_needs_cuda_by_default(monkeypatch):
