@@ -22,9 +22,10 @@ printing JSON lines:
 3. kernels — every kernel against its plain PyTorch version on the card
    at every shape its main path gives it (MobileNetV2 and ResNet-18 at
    224x224, batch 8, the rate-3 plan's tiles, in f32 and again in bf16;
-   qwen2-7b's, gemma3-1b's global (d 256), internvl2-2b's and seamless's
-   encoder, decoder and cross prefill attention and its cross-attention
-   at decode, mamba2's and zamba2's SSD scans, at the served lengths)
+   qwen2-7b's, gemma3-1b's global (d 256, also at 8192 tokens), grok-1's,
+   llama4-maverick's, internvl2-2b's and seamless's encoder, decoder and
+   cross prefill attention and its cross-attention at decode, mamba2's and
+   zamba2's SSD scans, at the served lengths)
    plus odd-size extras (the SSD's also with
    bf16 inputs); each with its time, the plain version's, the library
    call's (``torch.matmul`` / ``F.conv2d`` with TF32 off, in the row's
@@ -96,33 +97,51 @@ printing JSON lines:
    stall-free, each tenant bit for bit its standalone engine, the reports
    equal the ``execute=False`` twin's, ``audit_fleet`` clean, launches ==
    nodes x micro-batches; chip occupancy and wall ms per tenant;
-8. lm, ssm, hybrid — qwen2-7b (bf16 KV cache: the config's int8 cache is
-   not ported), then mamba2-780m, then zamba2-1.2b, each at full width
-   and depth with random weights from a seeded CUDA generator: the token
-   engine serves 4 prompts of 512-2048 tokens on 2 slots, 16 new tokens
-   each, launch counts set to 0 just before and read just after (the
-   flash kernel once per attention layer or site, the SSD kernel once
-   per Mamba2 layer, per prefill); then each prompt's prefill logits on
-   the kernels against the same prefill on their plain versions, and
+8. lm, lm_kvq, ssm, hybrid — qwen2-7b with a bf16 KV cache (``lm``) and,
+   on the same weights, as shipped with its int8 KV cache (``lm_kvq``),
+   then mamba2-780m, then zamba2-1.2b, each at full width and depth with
+   random weights from a seeded CUDA generator: the token engine serves 4
+   prompts of 512-2048 tokens on 2 slots, 16 new tokens each, launch
+   counts set to 0 just before and read just after (the flash kernel once
+   per attention layer or site, the SSD kernel once per Mamba2 layer, per
+   prefill); then each prompt's prefill logits on the kernels against the
+   same prefill on their plain versions, and one prefill and one decode
+   step under ``torch.profiler``; ``lm_kvq_slot_gate`` holds a batched
+   decode at positions 512 and 1000 row by row against each request
+   alone and prints the int8 cache's bytes beside the bf16 cache's;
+9. lm_window, moe, moe_shared, blockwise, moe_forms, vlm, encdec —
+   gemma3-1b through the token engine as in 8 (``MAX_LEN`` > window 512:
+   22 local layers on rings of 512 slots, the flash kernel in the 4
+   global layers a prefill, none in decode), then its ring gate (as
+   ``lm_kvq``'s slot gate); grok-1 (``moe``, 4 of 64 layers) and
+   llama4-maverick (``moe_shared``, 2 of 48: one dense, one MoE layer with
+   its shared expert) at full width from int8 serve weights as shipped
+   (``lm.init(quantize=True)``: each layer quantized as it is drawn; the
+   build line gives the int8 tree's bytes beside bf16's and the peak
+   memory) through the engine as in 8, the flash kernel once per layer a
+   prefill, each prefill check counting the tokens whose experts differ
+   between the kernel and the plain run (a hook on the router's input);
+   ``blockwise``: gemma3-1b on one BLOCKWISE_TOKENS-token prompt through
+   ``get_api``'s prefill, 22 local layers on the blockwise route and the
+   flash kernel in the 4 global ones, against ``impl="dense"``
+   (BLOCKWISE_CHECK), each route's peak memory and device ms;
+   ``moe_forms``: one grok-1 MoE layer in bf16 on MOE_FORM_TOKENS tokens at
+   a dropless capacity under the einsum, scatter and ragged dispatch, held
+   against each other at BF16_TOL, each form's device ms;
+   internvl2-2b from ``quantize_tree``'s int8 weights (its tree's bytes
+   against bf16's) and seamless-m4t-medium through ``get_api`` one request
+   at a time (the engine serves neither): 4 requests (256 patches +
+   256-1792 tokens; 512-2048 frames + 16 tokens), DECODE_STEPS greedy
+   steps each, the flash kernel counted per prefill (24; 36) and per
+   decode step (0; 12); each prefill's logits against the plain path, and
    one prefill and one decode step under ``torch.profiler``;
-9. lm_window, vlm, encdec — gemma3-1b through the token engine as in 8
-   (``MAX_LEN`` > window 512: 22 local layers on rings of 512 slots, the
-   flash kernel in the 4 global layers a prefill, none in decode), then
-   its ring gate (two requests at positions 512 and 1000 decoded in one
-   step, each row against the request decoded alone); internvl2-2b from
-   ``quantize_tree``'s int8 weights (its tree's bytes against bf16's)
-   and seamless-m4t-medium through ``get_api`` one request at a time
-   (the engine serves neither): 4 requests (256 patches + 256-1792
-   tokens; 512-2048 frames + 16 tokens), DECODE_STEPS greedy steps each,
-   the flash kernel counted per prefill (24; 36) and per decode step (0;
-   12); each prefill's logits against the plain path, and one prefill
-   and one decode step under ``torch.profiler``;
 10. the ``kernels`` line, the card line, and the final ``ok`` line.
 
 Any failure raises: the script then exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -200,6 +219,22 @@ MAX_LEN = 2304
 # tokens; DECODE_STEPS greedy steps each.
 ENCDEC_TOKENS = 16
 DECODE_STEPS = 16
+# The MoE phases: grok-1 and llama4-maverick cut to the layers one 80 GB
+# card holds with int8 weights (4 of 64: one MoE layer each; 2 of 48: one
+# dense, one MoE), and moe_forms' tokens through one grok-1 layer.
+MOE_LAYERS = {"grok-1-314b": 4, "llama4-maverick-400b-a17b": 2}
+MOE_FORM_TOKENS = 2048
+# The blockwise phase: one gemma3-1b prompt past dense_max (2048) squared.
+# Its gate: the blockwise and dense routes are one function, held at TOL
+# on an f32 copy of the weights; in bf16 each rounds its probabilities
+# once (dense: normalised; blockwise: against the running maximum, as the
+# JAX package's routes do), and after 26 layers over 8192 tokens the two
+# bf16 routes' gap need not fall within BF16_TOL of each other, so the
+# bf16 blockwise route is held at BF16_TOL of the f32 dense logits, and
+# the bf16 gaps are printed.
+BLOCKWISE_TOKENS = 8192
+BLOCKWISE_CHECK = ("f32 copy: blockwise vs dense at TOL; bf16 blockwise vs f32 dense at "
+                   "BF16_TOL")
 KERNELS = {
     "fcu_matmul": ("src/repro_torch/kernels/csrc/fcu_matmul.cu",
                    "src/repro/kernels/fcu_matmul/fcu_matmul.py:45"),
@@ -1416,8 +1451,9 @@ def run_fleet(torch, kernels_mod, gen):
 def bench_flash(torch, bench, gen):
     """The flash kernel at the LM paths' prefill shapes (qwen2-7b's heads
     and zamba2's shared-attention heads, bf16, each served prompt length),
-    at the windowed, vlm and encdec paths' shapes (gemma3-1b's global
-    layers at d 256; internvl2-2b over 256 patches + text; seamless's
+    at the windowed, vlm, MoE and encdec paths' shapes (gemma3-1b's global
+    layers at d 256, also at the blockwise phase's 8192 tokens;
+    internvl2-2b over 256 patches + text; grok-1's and maverick's heads; seamless's
     encoder, non-causal over T frames, its decoder's 16-token prompt, and
     its cross-attention, 16 queries or one against T keys), then extras
     off those paths (f32, also at d 256, group 1 at d 128, non-causal, GQA
@@ -1457,6 +1493,11 @@ def bench_flash(torch, bench, gen):
         case(f"gemma3-1b/global-prefill{s}", 4, 1, s, 256, torch.bfloat16)
     for s in PROMPT_LENS:   # 256 patches + 256..1792 text tokens
         case(f"internvl2-2b/prefill{s}", 16, 8, s, 128, torch.bfloat16)
+    for s in PROMPT_LENS:   # the MoE models' attention: 48 / 8 and 40 / 8 heads, d 128
+        case(f"grok-1-314b/prefill{s}", 48, 8, s, 128, torch.bfloat16)
+        case(f"llama4-maverick-400b-a17b/prefill{s}", 40, 8, s, 128, torch.bfloat16)
+    case(f"gemma3-1b/global-prefill{BLOCKWISE_TOKENS}", 4, 1, BLOCKWISE_TOKENS, 256,
+         torch.bfloat16)
     for t in PROMPT_LENS:   # seamless: T frames, ENCDEC_TOKENS prompt tokens
         case(f"seamless-m4t-medium/encoder{t}", 16, 16, t, 64, torch.bfloat16,
              causal=False)
@@ -1597,37 +1638,70 @@ def profile_calls(torch, calls) -> dict:
     return out
 
 
+class RouteLog:
+    """The experts each MoE layer's router picks, recorded while
+    ``record()`` is open by a hook on the router's input
+    (``nn.moe._route``, wrapped for the length of the phase), so that
+    nothing in the model's signature changes."""
+
+    def __init__(self):
+        from repro_torch.nn import moe
+
+        self.moe, self.route, self.calls = moe, moe._route, None
+
+    def __enter__(self):
+        def hooked(params, x2d, spec):
+            out = self.route(params, x2d, spec)
+            if self.calls is not None:
+                self.calls.append(out[1].sort(dim=-1).values)
+            return out
+
+        self.moe._route = hooked
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route = self.route
+
+    def record(self):
+        self.calls = []
+        return self.calls
+
+    @staticmethod
+    def flips(got, want) -> dict:
+        """Routed choices (token, layer: the set of k experts) that differ
+        between two runs of the same prefill, per layer."""
+        per_layer = [int((a != b).any(-1).sum()) for a, b in zip(got, want)]
+        return {"tokens_rerouted_per_layer": per_layer, "tokens_rerouted": sum(per_layer),
+                "routed_tokens": sum(a.shape[0] for a in got)}
+
+
 def run_serve(torch, kernels_mod, phase, cfg, mod, per_prefill, plain_routes,
-              served_tol=BF16_TOL, f32_check=False, gate=None):
-    """``cfg`` served by the token engine on the card at full width and
-    depth, random weights from a seeded CUDA generator: 4 prompts on 2
-    slots, 16 new tokens each (smoke-size traffic), launch counts set to
-    0 just before and read just after, each kernel launched exactly
-    ``per_prefill[kernel]`` times a prefill; then each prompt's prefill
-    logits on the kernels against the same prefill on their plain
-    versions (``plain_routes``, keyword arguments of ``mod.prefill``),
-    and one prefill and one decode step under ``torch.profiler``.
+              served_tol=BF16_TOL, f32_check=False, gate=None, params=None, routes=None):
+    """``cfg`` served by the token engine on the card at full width,
+    random weights from a seeded CUDA generator (``params``, or
+    ``api.init``'s): 4 prompts on 2 slots, 16 new tokens each (smoke-size
+    traffic), launch counts set to 0 just before and read just after, each
+    kernel launched exactly ``per_prefill[kernel]`` times a prefill; then
+    each prompt's prefill logits on the kernels against the same prefill
+    on their plain versions (``plain_routes``, keyword arguments of
+    ``mod.prefill``), and one prefill and one decode step under
+    ``torch.profiler``.
 
     The served dtype's logits are held at ``served_tol`` of their scale
     and, with ``f32_check``, an f32 copy of the same weights at TOL (see
     SSM_CHECK).  Each route is run once at each length before the prefill
-    that is timed.  ``gate(api, params, prompts)``, if given, runs last.
-    Returns the launch counts of the serve run."""
+    that is timed.  With ``routes`` (a RouteLog), each check also counts
+    the MoE routing choices that differ between the two routes.
+    ``gate(api, params, prompts)``, if given, runs last.  Returns the
+    launch counts of the serve run."""
     import numpy as np
 
-    from repro_torch.configs.base import param_count
     from repro_torch.models.registry import get_api
     from repro_torch.serving.engine import Engine, Request
 
     api = get_api(cfg)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = api.init(cfg, torch.Generator(device="cuda").manual_seed(0))
-    torch.cuda.synchronize()
-    emit({"phase": f"{phase}_build", "model": cfg.name, "layers": cfg.n_layers,
-          "d_model": cfg.d_model, "params": param_count(cfg),
-          "param_bytes": _param_bytes(params), "init_s": time.perf_counter() - t0,
-          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    if params is None:
+        params = build_params(torch, phase, cfg)
 
     rng = np.random.default_rng(2026)
     prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32) for n in PROMPT_LENS]
@@ -1637,6 +1711,7 @@ def run_serve(torch, kernels_mod, phase, cfg, mod, per_prefill, plain_routes,
     del warm
     torch.cuda.synchronize()
 
+    torch.cuda.reset_peak_memory_stats()
     eng = Engine(cfg, params, slots=SLOTS, max_len=MAX_LEN)
     reqs = [Request(rid=i, prompt=p, max_new=MAX_NEW) for i, p in enumerate(prompts)]
     reset_counts(kernels_mod)
@@ -1691,11 +1766,12 @@ def run_serve(torch, kernels_mod, phase, cfg, mod, per_prefill, plain_routes,
             for route, kw in (("kernel", {}), ("plain", plain_routes)):
                 for _ in range(2):          # warm at this length, then time
                     state = api.make_serve_state(c, 1, MAX_LEN)
+                    chosen = routes.record() if routes is not None else None
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
                     logits, _ = mod.prefill(prm, toks, c, state, **kw)
                     torch.cuda.synchronize()
-                out[route] = (logits, (time.perf_counter() - t0) * 1e3)
+                out[route] = (logits, (time.perf_counter() - t0) * 1e3, chosen)
             got, want_ = out["kernel"][0], out["plain"][0]
             require(tuple(got.shape) == (1, 1, c.vocab) and got.dtype == torch.float32,
                     f"{phase}: logits {tuple(got.shape)} {got.dtype}")
@@ -1711,6 +1787,8 @@ def run_serve(torch, kernels_mod, phase, cfg, mod, per_prefill, plain_routes,
                          "prefill_ms": out["kernel"][1], "plain_prefill_ms": out["plain"][1],
                          "logits_max_abs_err": err, "logits_scale": scale,
                          "greedy_agrees": same}
+            if routes is not None:
+                row[name]["routing"] = RouteLog.flips(out["kernel"][2], out["plain"][2])
             if name == "served":
                 agree += same
                 row[name]["served_first_token_agrees"] = r.out[0] == int(got.argmax())
@@ -1735,21 +1813,37 @@ def run_serve(torch, kernels_mod, phase, cfg, mod, per_prefill, plain_routes,
     return counts
 
 
-def ring_gate(torch, phase, cfg):
-    """The ring caches' per-row gate: the first two prompts prefilled
-    alone, written into a pool of SLOTS rows and decoded in one step at
-    their own positions (512 and 1000: one ring full, one wrapped), held
-    row by row against the same request decoded alone at one slot, at
-    BF16_TOL of the logits' scale.  A ring written or masked at one
-    position for the whole batch fails it."""
+def slot_gate(torch, phase, cfg, cache_kind):
+    """The per-slot gate: the first two prompts prefilled alone, written
+    into a pool of SLOTS rows and decoded in one step at their own
+    positions (512 and 1000), held row by row against the same request
+    decoded alone at one slot, at BF16_TOL of the logits' scale.  A cache
+    written or masked at one position for the whole batch fails it.
+    ``cache_kind``: "rings" (gemma3: 512-slot rings, one full and one
+    wrapped at those positions) or "int8" (the int8 KV cache; its bytes,
+    scales included, printed beside the bf16 cache's)."""
     import numpy as np
 
+    from repro_torch.nn.quant import tree_bytes
     from repro_torch.serving.engine import _write_slot
 
     def gate(api, params, prompts):
         pool = api.make_serve_state(cfg, SLOTS, MAX_LEN)
-        require(isinstance(pool, list), f"{phase}: no per-layer ring caches at "
-                f"max_len {MAX_LEN} > window {cfg.window}")
+        info = {}
+        if cache_kind == "rings":
+            require(isinstance(pool, list), f"{phase}: no per-layer ring caches at "
+                    f"max_len {MAX_LEN} > window {cfg.window}")
+            info = {"ring_layers": sum(1 for i in range(cfg.n_layers) if cfg.window_for_layer(i)),
+                    "ring_slots": min(MAX_LEN, cfg.window)}
+        else:
+            require(len(pool) == 4 and pool[0].dtype == torch.int8,
+                    f"{phase}: no int8 KV cache: {[t.dtype for t in pool]}")
+            bf16 = api.make_serve_state(dataclasses.replace(cfg, kv_quant=False), SLOTS,
+                                        MAX_LEN)
+            info = {"cache_bytes": tree_bytes(list(pool)), "bf16_cache_bytes": tree_bytes(
+                list(bf16)), "cache_shape": list(pool[0].shape)}
+            info["cache_over_bf16"] = info["cache_bytes"] / info["bf16_cache_bytes"]
+            del bf16
         alone, toks = [], []
         for slot, p in enumerate(prompts[:SLOTS]):
             one = api.make_serve_state(cfg, 1, MAX_LEN)
@@ -1770,9 +1864,8 @@ def ring_gate(torch, phase, cfg):
                     f"vs decoded alone: max|err| {err} > {BF16_TOL} x {scale}")
             rows.append({"position": int(pos[slot]), "max_abs_err": err, "scale": scale,
                          "greedy_agrees": int(got[slot].argmax()) == int(want[0].argmax())})
-        rings = sum(1 for i in range(cfg.n_layers) if cfg.window_for_layer(i))
-        emit({"phase": f"{phase}_ring_gate", "tolerance": BF16_TOL, "rows": rows,
-              "ring_layers": rings, "ring_slots": min(MAX_LEN, cfg.window)})
+        name = "ring_gate" if cache_kind == "rings" else "slot_gate"
+        emit({"phase": f"{phase}_{name}", "tolerance": BF16_TOL, "rows": rows, **info})
 
     return gate
 
@@ -1964,48 +2057,275 @@ def run_encdec(torch, kernels_mod):
     return counts
 
 
-def run_lm_paths(torch, kernels_mod):
-    """The four models the token engine serves, each through
-    ``run_serve``: qwen2-7b (bf16 KV cache: the config's int8 cache is not
-    ported; the flash kernel once per layer per prefill), mamba2-780m (the
-    SSD kernel once per layer), zamba2-1.2b (the SSD kernel once per
-    Mamba2 layer, the flash kernel once per shared-attention site) and
-    gemma3-1b (``lm_window``: 22 local layers on rings of 512 slots, the
-    flash kernel in the 4 global layers, then ``ring_gate``).  Returns the
-    summed launch counts."""
-    from repro_torch.configs.registry import get_config
+def _bf16_bytes(tree) -> int:
+    """The bytes of ``tree`` with each int8 leaf in bf16 instead."""
+    if isinstance(tree, dict) and set(tree) == {"__q__", "__s__"}:
+        return tree["__q__"].numel() * 2
+    if isinstance(tree, dict):
+        return sum(_bf16_bytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(_bf16_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def build_params(torch, phase, cfg, quantize=False):
+    """Random weights on the card from a seeded CUDA generator (``quantize``:
+    int8 serve weights, each layer quantized as it is drawn, so no more
+    than one layer is ever in bf16), and the phase's build line: the tree's
+    bytes (int8 trees beside the same tree in bf16), seconds, peak memory."""
+    from repro_torch.configs.base import param_count
+    from repro_torch.models import lm
+    from repro_torch.models.registry import get_api
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = (lm.init(cfg, gen, "cuda", quantize=True) if quantize
+              else get_api(cfg).init(cfg, gen))
+    torch.cuda.synchronize()
+    line = {"phase": f"{phase}_build", "model": cfg.name, "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "params": param_count(cfg),
+            "param_bytes": _param_bytes(params), "init_s": time.perf_counter() - t0,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    if quantize:
+        line.update(weights="int8 (lm.init(quantize=True), as shipped)",
+                    bf16_param_bytes=_bf16_bytes(params),
+                    int8_over_bf16=line["param_bytes"] / _bf16_bytes(params))
+    emit(line)
+    return params
+
+
+def flash_plain(q, k, v):
     from repro_torch.kernels.flash_attention import flash_attention_plain
+
+    return flash_attention_plain(q, k, v, causal=True)
+
+
+def run_lm_paths(torch, kernels_mod):
+    """The models the token engine serves without MoE layers, each through
+    ``run_serve``: qwen2-7b with a bf16 KV cache (``lm``) and then, on the
+    same weights, as shipped with its int8 KV cache (``lm_kvq``, then
+    ``slot_gate``), the flash kernel once per layer per prefill;
+    mamba2-780m (the SSD kernel once per layer), zamba2-1.2b (the SSD
+    kernel once per Mamba2 layer, the flash kernel once per
+    shared-attention site) and gemma3-1b (``lm_window``: 22 local layers on
+    rings of 512 slots, the flash kernel in the 4 global layers, then the
+    ring gate).  Returns the summed launch counts."""
+    from repro_torch.configs.registry import get_config
     from repro_torch.kernels.ssd_chunk import ssd_chunk_plain
     from repro_torch.models import hybrid, lm, mamba
 
-    def flash_plain(q, k, v):
-        return flash_attention_plain(q, k, v, causal=True)
-
-    qwen2 = dataclasses.replace(get_config("qwen2-7b"), kv_quant=False)
+    qwen2q = get_config("qwen2-7b")
+    qwen2 = dataclasses.replace(qwen2q, kv_quant=False)
     mamba2, zamba2 = get_config("mamba2-780m"), get_config("zamba2-1.2b")
     gemma3 = get_config("gemma3-1b")
     n_global = sum(gemma3.window_for_layer(i) == 0 for i in range(gemma3.n_layers))
+    require(qwen2q.kv_quant, "qwen2-7b ships with kv_quant")
 
     def ssm_check(cfg):
         return {"served_tol": SSM_BF16_FACTOR * SSM_BF16_WITNESS[cfg.name], "f32_check": True}
 
+    qwen2_params = build_params(torch, "lm", qwen2)
     paths = [
-        ("lm", qwen2, lm, {"flash_attention": qwen2.n_layers}, {"flash": flash_plain}, {}),
+        ("lm", qwen2, lm, {"flash_attention": qwen2.n_layers}, {"flash": flash_plain},
+         {"params": qwen2_params}),
+        ("lm_kvq", qwen2q, lm, {"flash_attention": qwen2q.n_layers}, {"flash": flash_plain},
+         {"params": qwen2_params, "gate": slot_gate(torch, "lm_kvq", qwen2q, "int8")}),
         ("ssm", mamba2, mamba, {"ssd_chunk": mamba2.n_layers}, {"ssd": ssd_chunk_plain},
          ssm_check(mamba2)),
         ("hybrid", zamba2, hybrid,
          {"ssd_chunk": zamba2.n_layers, "flash_attention": hybrid.n_sites(zamba2)},
          {"ssd": ssd_chunk_plain, "flash": flash_plain}, ssm_check(zamba2)),
         ("lm_window", gemma3, lm, {"flash_attention": n_global}, {"flash": flash_plain},
-         {"gate": ring_gate(torch, "lm_window", gemma3)}),
+         {"gate": slot_gate(torch, "lm_window", gemma3, "rings")}),
     ]
+    del qwen2_params
     total = {k: 0 for k in KERNELS}
-    for phase, cfg, mod, per_prefill, plain_routes, kw in paths:
+    while paths:
+        phase, cfg, mod, per_prefill, plain_routes, kw = paths.pop(0)
         for k, v in run_serve(torch, kernels_mod, phase, cfg, mod, per_prefill,
                               plain_routes, **kw).items():
             total[k] += v
+        del kw
         torch.cuda.empty_cache()
     return total
+
+
+def run_moe_paths(torch, kernels_mod):
+    """grok-1 (``moe``, MoE every layer, 8 experts top-2) and
+    llama4-maverick (``moe_shared``, a dense layer then an MoE layer of 128
+    experts top-1 with a shared expert) at full width, cut to MOE_LAYERS,
+    from int8 serve weights as shipped, through ``run_serve``: the flash
+    kernel once per layer a prefill; each prefill check counts the routing
+    choices that differ between the kernel and the plain run.  Returns the
+    summed launch counts."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import lm
+
+    total = {k: 0 for k in KERNELS}
+    for phase, name in (("moe", "grok-1-314b"), ("moe_shared", "llama4-maverick-400b-a17b")):
+        cfg = dataclasses.replace(get_config(name), n_layers=MOE_LAYERS[name])
+        require(cfg.serve_weight_quant, f"{name} ships with int8 serve weights")
+        params = build_params(torch, phase, cfg, quantize=True)
+        with RouteLog() as routes:
+            counts = run_serve(torch, kernels_mod, phase, cfg, lm,
+                               {"flash_attention": cfg.n_layers}, {"flash": flash_plain},
+                               params=params, routes=routes)
+        for k, v in counts.items():
+            total[k] += v
+        del params
+        torch.cuda.empty_cache()
+    return total
+
+
+def run_moe_forms(torch):
+    """One grok-1 MoE layer at full width in bf16 on MOE_FORM_TOKENS tokens
+    under each dispatch form, at a dropless capacity (capacity_factor =
+    E / k, as the reference's einsum-vs-ragged test): the three outputs
+    held against each other at BF16_TOL of their scale, the aux losses
+    equal, each form's device ms (CUDA events)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import lm
+    from repro_torch.nn import moe
+
+    cfg = get_config("grok-1-314b")
+    spec = dataclasses.replace(lm._moe_spec(cfg), capacity_factor=cfg.moe_experts / cfg.moe_top_k)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    torch.cuda.reset_peak_memory_stats()
+    params = moe.init_moe(gen, spec, torch.bfloat16, "cuda")
+    x = torch.randn((1, MOE_FORM_TOKENS, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    outs, rows = {}, {}
+    for form in ("ragged", "einsum", "scatter"):
+        sp = dataclasses.replace(spec, impl=form)
+        y, aux = moe.moe(params, x, sp)
+        torch.cuda.synchronize()
+        require(y.shape == x.shape and y.dtype == torch.bfloat16
+                and bool(torch.isfinite(y).all()), f"moe_forms/{form}: {y.shape} {y.dtype}")
+        outs[form] = (y.float(), float(aux))
+        rows[form] = {"ms": cuda_ms(torch, lambda sp=sp: moe.moe(params, x, sp), launches=3,
+                                    repeats=3)}
+    want, aux_want = outs["ragged"]
+    scale = max(1.0, want.abs().max().item())
+    for form, (y, aux) in outs.items():
+        err = (y - want).abs().max().item()
+        require(err <= BF16_TOL * scale, f"moe_forms: {form} vs ragged max|err| {err} > "
+                f"{BF16_TOL} x {scale}")
+        require(abs(aux - aux_want) <= 1e-5 * abs(aux_want), f"moe_forms: {form} aux {aux} "
+                f"vs {aux_want}")
+        rows[form].update(max_abs_err_vs_ragged=err, aux=aux)
+    _, idx, _ = moe._route(params, x.reshape(-1, cfg.d_model), spec)
+    emit({"phase": "moe_forms", "model": cfg.name, "tokens": MOE_FORM_TOKENS,
+          "experts": cfg.moe_experts, "top_k": cfg.moe_top_k,
+          "capacity_factor": spec.capacity_factor, "einsum_group": spec.group_size,
+          "tolerance": BF16_TOL, "scale": scale, "forms": rows,
+          "tokens_per_expert": torch.bincount(idx.reshape(-1), minlength=cfg.moe_experts)
+          .tolist(), "max_memory_allocated": torch.cuda.max_memory_allocated()})
+
+
+@contextlib.contextmanager
+def attention_route(lm, impl):
+    """``lm``'s attention spec with ``impl`` set while open."""
+    spec_of = lm._attn_spec
+    lm._attn_spec = lambda cfg: dataclasses.replace(spec_of(cfg), impl=impl)
+    try:
+        yield
+    finally:
+        lm._attn_spec = spec_of
+
+
+def run_blockwise(torch, kernels_mod):
+    """gemma3-1b at full width and depth, one BLOCKWISE_TOKENS-token prompt
+    through ``get_api``'s prefill: its 22 local layers past dense_max² take
+    the blockwise route (counted by a wrapper on ``_attend_blockwise``),
+    its 4 global layers the flash kernel (launch counts set to 0 just
+    before and read just after the bf16 run).  The same prefill with
+    ``impl="dense"``, and both routes again on an f32 copy of the weights:
+    the two routes held against each other at TOL in f32 (the same
+    function), each bf16 route against the f32 dense logits at BF16_TOL,
+    and the bf16 routes' gap printed (see BLOCKWISE_CHECK); each bf16
+    route's peak memory, host ms and device ms by kind.  Returns the
+    launch counts."""
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.registry import get_api
+    from repro_torch.nn import attention
+
+    cfg = get_config("gemma3-1b")
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    api = get_api(cfg)
+    params = api.init(cfg, torch.Generator(device="cuda").manual_seed(0))
+    toks = np.random.default_rng(2026).integers(0, cfg.vocab, (1, BLOCKWISE_TOKENS))
+    n_local = sum(cfg.window_for_layer(i) > 0 for i in range(cfg.n_layers))
+    routes = {"_attend_blockwise": 0, "_attend_dense": 0}
+    originals = {name: getattr(attention, name) for name in routes}
+
+    def counted(name):
+        def fn(*args, **kwargs):
+            routes[name] += 1
+            return originals[name](*args, **kwargs)
+        return fn
+
+    def prefill(c=cfg, prm=params):
+        state = api.make_serve_state(c, 1, BLOCKWISE_TOKENS)
+        return api.prefill(prm, {"tokens": toks}, state, c)[0]
+
+    for name in routes:
+        setattr(attention, name, counted(name))
+    try:
+        prefill()                                      # warm, outside the counts
+        torch.cuda.synchronize()
+        out, peak, profiled, launches = {}, {}, {}, None
+        for route, impl in (("blockwise", "auto"), ("dense", "dense")):
+            with attention_route(lm, impl):
+                routes.update({k: 0 for k in routes})
+                reset_counts(kernels_mod)
+                torch.cuda.reset_peak_memory_stats()
+                out[route] = prefill()
+                torch.cuda.synchronize()
+                peak[route] = torch.cuda.max_memory_allocated()
+                counts = read_counts(kernels_mod)
+                want = {k: 0 for k in KERNELS}
+                want["flash_attention"] = cfg.n_layers - n_local
+                require(counts == want, f"blockwise/{route}: launches {counts} != {want}")
+                require(routes[f"_attend_{route}"] == n_local and sum(routes.values()) == n_local,
+                        f"blockwise/{route}: masked routes {routes}, want {n_local} {route}")
+                launches = launches or counts
+                profiled.update(profile_calls(torch, {route: prefill}))
+        params32 = _cast(params, torch.float32)
+        for route, impl in (("blockwise", "auto"), ("dense", "dense")):
+            with attention_route(lm, impl):
+                out[f"{route}_f32"] = prefill(cfg32, params32)
+        del params32
+    finally:
+        for name, fn in originals.items():
+            setattr(attention, name, fn)
+    for key, logits in out.items():
+        require(tuple(logits.shape) == (1, 1, cfg.vocab) and bool(torch.isfinite(logits).all()),
+                f"blockwise/{key}: logits {tuple(logits.shape)}")
+
+    def gap(a, b):
+        scale = max(1.0, out[b].abs().max().item())
+        err = (out[a] - out[b]).abs().max().item()
+        return {"max_abs_err": err, "scale": scale, "share_of_scale": err / scale,
+                "greedy_agrees": int(out[a].argmax()) == int(out[b].argmax())}
+
+    gaps = {"blockwise_f32_vs_dense_f32": gap("blockwise_f32", "dense_f32"),
+            "blockwise_vs_dense_f32": gap("blockwise", "dense_f32"),
+            "dense_vs_dense_f32": gap("dense", "dense_f32"),
+            "blockwise_vs_dense": gap("blockwise", "dense")}
+    for name, tol in (("blockwise_f32_vs_dense_f32", TOL), ("blockwise_vs_dense_f32", BF16_TOL)):
+        require(gaps[name]["share_of_scale"] <= tol,
+                f"blockwise: {name} max|err| {gaps[name]['max_abs_err']} > {tol} x "
+                f"{gaps[name]['scale']}")
+    emit({"phase": "blockwise", "model": cfg.name, "prompt_tokens": BLOCKWISE_TOKENS,
+          "local_layers_blockwise": n_local, "launches": launches, "gate": BLOCKWISE_CHECK,
+          "gaps": gaps, "max_memory_allocated": peak, **profiled})
+    del params
+    torch.cuda.empty_cache()
+    return launches
 
 
 def summarise(name, rows) -> dict:
@@ -2159,8 +2479,10 @@ def main() -> int:
             launches[k] += v
     for k, v in run_fleet(torch, kernels_mod, torch.Generator().manual_seed(2030)).items():
         launches[k] += v
-    for k, v in run_lm_paths(torch, kernels_mod).items():
-        launches[k] += v
+    for run in (run_lm_paths, run_moe_paths, run_blockwise):
+        for k, v in run(torch, kernels_mod).items():
+            launches[k] += v
+    run_moe_forms(torch)
     for run in (run_vlm, run_encdec):
         for k, v in run(torch, kernels_mod).items():
             launches[k] += v

@@ -31,7 +31,8 @@ from repro_torch.nn.norms import init_rms, rms_norm
 
 def _spec(cfg: ModelConfig, causal: bool) -> AttnSpec:
     return AttnSpec(n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.head_dim,
-                    rope_theta=cfg.rope_theta, causal=causal)
+                    rope_theta=cfg.rope_theta, causal=causal,
+                    q_block=cfg.q_block, k_block=cfg.k_block)
 
 
 def init(cfg: ModelConfig, generator: torch.Generator, device=None) -> dict:

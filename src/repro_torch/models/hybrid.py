@@ -29,7 +29,8 @@ from repro_torch.nn.norms import init_rms, rms_norm
 
 def _attn_spec(cfg: ModelConfig) -> AttnSpec:
     return AttnSpec(n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.head_dim,
-                    rope_theta=cfg.rope_theta)
+                    rope_theta=cfg.rope_theta, q_block=cfg.q_block,
+                    k_block=cfg.k_block)
 
 
 def n_sites(cfg: ModelConfig) -> int:

@@ -1,11 +1,15 @@
 """Decoder-only transformer LM; the port's copy of the JAX package's
-``models/lm.py`` for dense layers: full causal attention (qwen2,
-deepseek-coder, starcoder2) and gemma3's 5:1 local:global windows.
+``models/lm.py``: full causal attention (qwen2, deepseek-coder,
+starcoder2), gemma3's 5:1 local:global windows, and MoE layers (grok-1:
+every layer; llama4-maverick: dense and MoE in turn, with a shared
+expert).
 
-Params are a dict of tensors with one dict per layer under ``"blocks"``
-(the JAX package stacks them ``[L, ...]`` for ``lax.scan``; here a Python
-loop runs the layers).  A tree from ``nn.quant.quantize_tree`` (int8
-serve weights, ``serve_weight_quant``) is served as it is: the serve
+Params are a dict of tensors with one dict per layer under ``"blocks"``,
+an ``"ffn"`` or a ``"moe"`` dict each (the JAX package stacks them ``[L,
+...]`` per kind, ``blocks_dense`` and ``blocks_moe``, for ``lax.scan``;
+here a Python loop runs the layers).  A tree from
+``nn.quant.quantize_tree`` (int8 serve weights, ``serve_weight_quant``;
+``init(..., quantize=True)``) is served as it is: the serve
 passes dequantize one layer's weights at a time, and the embedding table
 at each use.  Entry points:
 
@@ -16,13 +20,13 @@ at each use.  Entry points:
   decode_step  — one token per row against the caches, at one position
                  for all rows or one per row (the engine's slots)
 
-The caches, in the model's dtype and written in place, are one stacked
-pair ``[L, B, Smax, n_kv, D]``, or, for a windowed model whose context
-outgrows its window (``global_every > 0``, ``window > 0``, ``max_len >
-window``), a list of per-layer pairs ``[B, S_i, n_kv, D]``: local layers
-get rings of ``min(max_len, window)`` slots, global layers full caches.
-Not ported yet, each raising with its ROADMAP item: MoE layers and the
-int8 KV cache.
+The caches, written in place, are one stacked pair ``[L, B, Smax, n_kv,
+D]`` in the model's dtype; with ``kv_quant`` (and no window pattern) the
+int8 cache ``(ck, cv, sk, sv)``: int8 values and f32 scales ``[L, B, Smax,
+n_kv]``; or, for a windowed model whose context outgrows its window
+(``global_every > 0``, ``window > 0``, ``max_len > window``), a list of
+per-layer pairs ``[B, S_i, n_kv, D]``: local layers get rings of
+``min(max_len, window)`` slots, global layers full caches.
 """
 from __future__ import annotations
 
@@ -35,52 +39,70 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.nn.attention import AttnSpec, attention, init_attention
 from repro_torch.nn.embeddings import embed, init_embedding, unembed
 from repro_torch.nn.layers import ffn, init_ffn
+from repro_torch.nn.moe import MoESpec, init_moe, moe
 from repro_torch.nn.norms import init_rms, rms_norm
-from repro_torch.nn.quant import dequantize_tree
+from repro_torch.nn.quant import dequantize_tree, quantize_tree
 
-Cache = Union[Tuple[torch.Tensor, torch.Tensor], List[Tuple[torch.Tensor, torch.Tensor]]]
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what of the JAX package's LM the port does not run yet."""
-    if cfg.moe_every in (1, 2):   # the JAX package's _layer_kinds
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet (ROADMAP Queue 1: nn/moe.py)")
-    if cfg.kv_quant:
-        raise NotImplementedError(
-            f"{cfg.name}: the int8 KV cache is not ported yet (ROADMAP Queue 1: "
-            "int8 KV cache); serve with dataclasses.replace(cfg, kv_quant=False)")
+Cache = Union[Tuple[torch.Tensor, ...], List[Tuple[torch.Tensor, torch.Tensor]]]
 
 
 def _attn_spec(cfg: ModelConfig) -> AttnSpec:
     return AttnSpec(n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.head_dim,
-                    rope_theta=cfg.rope_theta, qkv_bias=cfg.qkv_bias)
+                    rope_theta=cfg.rope_theta, qkv_bias=cfg.qkv_bias,
+                    q_block=cfg.q_block, k_block=cfg.k_block)
 
 
-def init(cfg: ModelConfig, generator: torch.Generator, device=None) -> dict:
+def _moe_spec(cfg: ModelConfig) -> MoESpec:
+    return MoESpec(n_experts=cfg.moe_experts, top_k=cfg.moe_top_k, d_model=cfg.d_model,
+                   d_ff=cfg.d_ff, ffn_kind=cfg.ffn_kind,
+                   capacity_factor=cfg.moe_capacity, shared_expert=cfg.moe_shared,
+                   impl=cfg.moe_impl)
+
+
+def _layer_kinds(cfg: ModelConfig):
+    """('dense',) | ('moe',) | ('dense', 'moe'): layer i is kinds[i % len]."""
+    if cfg.moe_every == 1:
+        return ("moe",)
+    if cfg.moe_every == 2:
+        return ("dense", "moe")
+    return ("dense",)
+
+
+def init(cfg: ModelConfig, generator: torch.Generator, device=None, *,
+         quantize: bool = False) -> dict:
     """Random weights drawn on ``device`` from ``generator`` (a generator on
-    that device), one tensor at a time."""
-    check_supported(cfg)
+    that device), one tensor at a time.  ``quantize=True`` gives
+    ``quantize_tree`` of the same weights bit for bit, each layer
+    quantized as soon as it is drawn, so that no more than one layer ever
+    sits in the model's dtype (a 4-layer grok-1 is 39 GB in bf16)."""
     dt = cfg.dtype
+    q = quantize_tree if quantize else (lambda tree: tree)
     params: Dict = {
-        "embed": init_embedding(generator, cfg.vocab, cfg.d_model, dt, device),
+        "embed": q(init_embedding(generator, cfg.vocab, cfg.d_model, dt, device)),
         "final_norm": init_rms(cfg.d_model, dt, device=device),
     }
     if not cfg.tie_embeddings:
-        params["unembed"] = init_embedding(generator, cfg.vocab, cfg.d_model, dt,
-                                           device)
-    params["blocks"] = [
-        {
+        params["unembed"] = q(init_embedding(generator, cfg.vocab, cfg.d_model, dt,
+                                             device))
+    kinds = _layer_kinds(cfg)
+    params["blocks"] = []
+    for i in range(cfg.n_layers):
+        block = {
             "ln1": init_rms(cfg.d_model, dt, device=device),
             "attn": init_attention(generator, cfg.d_model, cfg.n_heads, cfg.n_kv,
                                    cfg.head_dim, qkv_bias=cfg.qkv_bias, dtype=dt,
                                    device=device),
             "ln2": init_rms(cfg.d_model, dt, device=device),
-            "ffn": init_ffn(generator, cfg.d_model, cfg.d_ff, kind=cfg.ffn_kind,
-                            dtype=dt, device=device),
         }
-        for _ in range(cfg.n_layers)
-    ]
+        if kinds[i % len(kinds)] == "moe":
+            block["moe"] = init_moe(generator, _moe_spec(cfg), dt, device)
+        else:
+            block["ffn"] = init_ffn(generator, cfg.d_model, cfg.d_ff, kind=cfg.ffn_kind,
+                                    dtype=dt, device=device)
+        # a one-layer list: quantize_tree judges its leaves as stacked [L, ...];
+        # the layer's bf16 tensors go before the next layer is drawn
+        params["blocks"].append(q([block])[0])
+        del block
     return params
 
 
@@ -111,25 +133,36 @@ def tree_to_torch(tree, device=None):
 
 def params_from_reference(ref: dict, cfg: ModelConfig, device=None) -> dict:
     """The JAX package's param tree (``lm.init``, or ``quantize_tree`` of
-    it: stacked ``[L, ...]`` blocks, as numpy arrays) as the port's
-    per-layer dicts; ``{"__q__", "__s__"}`` leaves are unstacked like any
-    other."""
-    check_supported(cfg)
+    it: stacked ``[L/len(kinds), ...]`` blocks under ``blocks_dense`` and
+    ``blocks_moe``, as numpy arrays) as the port's per-layer dicts, the
+    kinds interleaved as ``_layer_kinds`` orders them;
+    ``{"__q__", "__s__"}`` leaves are unstacked like any other."""
     out = {name: tree_to_torch(ref[name], device)
            for name in ("embed", "unembed", "final_norm") if name in ref}
-    out["blocks"] = unstack_layers(ref["blocks_dense"], cfg.n_layers, device)
+    kinds = _layer_kinds(cfg)
+    n_groups = cfg.n_layers // len(kinds)
+    stacks = {kind: unstack_layers(ref[f"blocks_{kind}"], n_groups, device)
+              for kind in kinds}
+    out["blocks"] = [stacks[kinds[i % len(kinds)]][i // len(kinds)]
+                     for i in range(cfg.n_layers)]
     return out
 
 
 def _block(p: dict, x, positions, cfg: ModelConfig, kv_cache=None,
            cache_len=None, window: int = 0, ring: bool = False, flash=None):
+    """-> (x, aux, cache): aux is the MoE layer's load-balancing loss, 0
+    for a dense layer."""
     h, new_cache = attention(p["attn"], rms_norm(x, p["ln1"], eps=cfg.norm_eps),
                              positions, _attn_spec(cfg), kv_cache=kv_cache,
                              cache_len=cache_len, window=window, ring=ring,
                              flash=flash)
     x = x + h
-    y = ffn(p["ffn"], rms_norm(x, p["ln2"], eps=cfg.norm_eps), kind=cfg.ffn_kind)
-    return x + y, new_cache
+    y = rms_norm(x, p["ln2"], eps=cfg.norm_eps)
+    if "moe" in p:
+        y, aux = moe(p["moe"], y, _moe_spec(cfg))
+    else:
+        y, aux = ffn(p["ffn"], y, kind=cfg.ffn_kind), torch.zeros((), device=x.device)
+    return x + y, aux, new_cache
 
 
 def _table(params: dict, name: str, cfg: ModelConfig) -> torch.Tensor:
@@ -145,14 +178,15 @@ def _head(params: dict, x, cfg: ModelConfig) -> torch.Tensor:
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
             full_logits: bool = True, flash: Optional[Callable] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens [B, S] -> (f32 logits, aux loss, 0 for dense layers)."""
-    check_supported(cfg)
+    """tokens [B, S] -> (f32 logits, aux loss summed over the MoE layers)."""
     x = embed(params["embed"], tokens)
+    aux = torch.zeros((), device=tokens.device)
     for i, p in enumerate(params["blocks"]):             # queries at 0..S-1
-        x, _ = _block(p, x, None, cfg, window=cfg.window_for_layer(i), flash=flash)
+        x, a, _ = _block(p, x, None, cfg, window=cfg.window_for_layer(i), flash=flash)
+        aux = aux + a
     if not full_logits:
         x = x[:, -1:]
-    return _head(params, x, cfg), torch.zeros((), device=tokens.device)
+    return _head(params, x, cfg), aux
 
 
 def _per_layer(cfg: ModelConfig, max_len: int) -> bool:
@@ -161,13 +195,20 @@ def _per_layer(cfg: ModelConfig, max_len: int) -> bool:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device=None) -> Cache:
-    """One stacked (k, v) pair ``[L, B, max_len, n_kv, head_dim]``, or, for
-    a windowed model whose ``max_len`` outgrows its window, a list of
-    per-layer pairs: rings of ``min(max_len, window)`` slots for local
+    """One stacked (k, v) pair ``[L, B, max_len, n_kv, head_dim]``; with
+    ``kv_quant`` (the reference's condition: no window pattern) the int8
+    cache ``(ck, cv, sk, sv)``, scales ``[L, B, max_len, n_kv]`` in f32;
+    or, for a windowed model whose ``max_len`` outgrows its window, a list
+    of per-layer pairs: rings of ``min(max_len, window)`` slots for local
     layers, ``max_len`` for global ones (the KV memory a layer that only
     ever reads its last w positions needs)."""
-    check_supported(cfg)
     dtype = dtype or cfg.dtype
+    if cfg.kv_quant and not (cfg.global_every > 0 and cfg.window > 0):
+        shape = (cfg.n_layers, batch, max_len, cfg.n_kv)
+        return tuple(torch.zeros(shape + extra, dtype=dt, device=device)
+                     for extra, dt in (((cfg.head_dim,), torch.int8),
+                                       ((cfg.head_dim,), torch.int8),
+                                       ((), torch.float32), ((), torch.float32)))
 
     def pair(*shape):
         return (torch.zeros(shape, dtype=dtype, device=device),
@@ -181,23 +222,23 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
 
 
 def _layer_caches(cache: Cache, cfg: ModelConfig):
-    """(k, v, ring) of each layer: the stacked pair's slices, or the
-    per-layer list's pairs, a local layer's ring where it holds no more
-    than its window."""
+    """(kv, ring) of each layer: the stacked caches' slices, (k, v) or the
+    int8 (ck, cv, sk, sv), or the per-layer list's pairs, a local layer's
+    ring where it holds no more than its window."""
     if isinstance(cache, list):
-        for i, (ck, cv) in enumerate(cache):
+        for i, kv in enumerate(cache):
             w = cfg.window_for_layer(i)
-            yield ck, cv, 0 < w and ck.shape[1] <= w
+            yield kv, 0 < w and kv[0].shape[1] <= w
     else:
-        for ck, cv in zip(*cache):
-            yield ck, cv, False
+        for kv in zip(*cache):
+            yield kv, False
 
 
 def cache_positions(cache: Cache, cfg: ModelConfig) -> int:
     """How many positions the caches hold: a ring holds any number, so a
     per-layer list holds its full caches' length (rings alone: any)."""
     if isinstance(cache, list):
-        full = [ck.shape[1] for ck, _, ring in _layer_caches(cache, cfg) if not ring]
+        full = [kv[0].shape[1] for kv, ring in _layer_caches(cache, cfg) if not ring]
         return min(full) if full else np.iinfo(np.int64).max // 2
     return cache[0].shape[2]
 
@@ -207,11 +248,10 @@ def _serve_pass(params: dict, x, positions, cache: Cache, cache_len,
     """Run the layers against the caches (layer i writes its own in
     place), each layer's weights dequantized as it runs.  Returns (x,
     cache)."""
-    for i, (p, (ck, cv, ring)) in enumerate(zip(params["blocks"],
-                                                  _layer_caches(cache, cfg))):
-        x, _ = _block(dequantize_tree(p, cfg.dtype), x, positions, cfg,
-                      kv_cache=(ck, cv), cache_len=cache_len,
-                      window=cfg.window_for_layer(i), ring=ring, flash=flash)
+    for i, (p, (kv, ring)) in enumerate(zip(params["blocks"], _layer_caches(cache, cfg))):
+        x, _, _ = _block(dequantize_tree(p, cfg.dtype), x, positions, cfg,
+                         kv_cache=kv, cache_len=cache_len,
+                         window=cfg.window_for_layer(i), ring=ring, flash=flash)
     return x, cache
 
 
@@ -220,7 +260,6 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, cache: Cache,
     """tokens [B, S] + empty caches -> (last-position f32 logits [B, 1, V],
     caches).  ``flash`` replaces the attention kernel in every layer that
     runs it (``nn.attention.attention``)."""
-    check_supported(cfg)
     x = embed(_table(params, "embed", cfg), tokens)
     x, cache = _serve_pass(params, x, None, cache, 0, cfg, flash=flash)  # 0..S-1
     return _head(params, x[:, -1:], cfg), cache
@@ -250,7 +289,6 @@ def decode_step(params: dict, cache: Cache, tokens: torch.Tensor, pos,
     """tokens [B, 1] at ``pos``: the current length, one int for every row
     or one per row on the host (the engine's slots), checked here against
     the cache -> (f32 logits [B, 1, V], caches)."""
-    check_supported(cfg)
     b, s = tokens.shape
     cache_len, positions = decode_positions(pos, b, s, cache_positions(cache, cfg),
                                             tokens.device)

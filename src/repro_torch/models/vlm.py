@@ -37,7 +37,6 @@ def prefill(params: dict, tokens: torch.Tensor, patches: torch.Tensor,
             cfg: ModelConfig, cache, *, flash: Optional[Callable] = None):
     """Patches then tokens, from position 0, into empty caches ->
     (last-position f32 logits [B, 1, V], caches)."""
-    lm.check_supported(cfg)
     x = _merge(params, tokens, patches, cfg)
     x, cache = lm._serve_pass(params, x, None, cache, 0, cfg, flash=flash)
     x = rms_norm(x[:, -1:], params["final_norm"], eps=cfg.norm_eps)

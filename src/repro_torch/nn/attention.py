@@ -1,8 +1,8 @@
-"""Attention layer: GQA, RoPE, sliding windows, the bf16/f32 KV cache and
-the ring-buffer cache of windowed layers; the port's copy of the JAX
-package's ``nn/attention.py``.
+"""Attention layer: GQA, RoPE, sliding windows, the bf16/f32 KV cache, the
+int8 KV cache and the ring-buffer cache of windowed layers; the port's
+copy of the JAX package's ``nn/attention.py``.
 
-Two routes compute the same function, chosen by the call's structure:
+Three routes compute the same function, chosen by the call's structure:
 
 * **the kernel** (``kernels/flash_attention.py``), for every call inside
   ``flash_attention_p``'s contract:
@@ -15,15 +15,18 @@ Two routes compute the same function, chosen by the call's structure:
     route is taken only when the queries sit at 0..S-1 in every row:
     ``q_positions=None`` says so (the models' prefills pass it); given
     positions are checked on the host, one synchronisation per call, and
-    any others go to the dense path, as in the JAX package;
+    any others go to the masked paths, as in the JAX package;
   - non-causal attention in which every key is valid: no cache (so no
     length mask) and no window — an encoder's self-attention, and
     cross-attention to a memory at prefill and at decode (Sq = 1 against
     T keys).  Positions play no part in its mask.
-* **the dense masked path** (``_attend_dense``) for everything else:
-  decode against a cache (one query at a per-row position against a
-  per-row ``kv_len``) lies outside ``flash_attention_p``'s contract, whose
-  causal mask puts query row 0 at position 0; windowed layers, which the
+* **the masked paths** for everything else, by the JAX package's rule
+  (``AttnSpec.impl="auto"``): ``_attend_dense`` while ``Sq·Sk <=
+  dense_max²``, ``_attend_blockwise`` (an online softmax over q and k
+  blocks, never holding more than one block's scores) above.  Decode
+  against a cache (one query at a per-row position against a per-row
+  ``kv_len``) lies outside ``flash_attention_p``'s contract, whose causal
+  mask puts query row 0 at position 0; so do windowed layers, which the
   JAX package computes in plain jnp, as ``flash_attention_p`` has no
   window.
 
@@ -35,6 +38,13 @@ position it holds, ``pos_b - ((pos_b - i) mod w)``, empty slots (negative)
 masked by causality.  The JAX package writes and masks every row at one
 position (the batch's largest, ``models/lm.py::_serve_pass_per_layer``),
 which is the same where all rows share it.
+
+The int8 cache ``(ck, cv, sk, sv)`` holds k and v as int8 with one f32
+scale a (token, kv head), ``max|k| / 127`` floored at 1e-8, and attends
+over its dequantized contents (``ck * sk`` in the model's dtype), as the
+JAX package does: a prefill's kernel route gets the dequantized first S
+keys.  It is written at one position for every row or at each row's own
+(the engine's slots), where the JAX package's int8 branch takes one.
 
 The caches are updated in place (the JAX package returns new ones) and
 returned.  A write past a full cache's end raises, where the JAX package's
@@ -51,6 +61,7 @@ import torch
 
 from repro_torch.kernels.flash_attention import attention_impl
 from repro_torch.nn.embeddings import rope
+from repro_torch.nn.quant import exact_divisor
 
 _NEG = -1e30
 _EMPTY = 2 ** 30   # an empty ring slot's position: causality masks it
@@ -94,15 +105,15 @@ def _mask(q_pos, k_pos, *, causal: bool, window, kv_len):
     return m
 
 
-def _attend_dense(q, k, v, q_pos, k_pos, *, causal, window, kv_len, scale):
-    """q: [B, Hkv, G, Sq, D]; k/v: [B, Hkv, Sk, D] -> f32 [B, Hkv, G, Sq, D].
+def _scores(q, k, q_pos, k_pos, *, causal, window, kv_len, scale):
+    """q: [B, Hkv, G, Sq, D]; k: [B, Hkv, Sk, D] -> masked f32 scores
+    [B, Hkv, G, Sq, Sk], masked entries at -1e30.
 
-    Scores and the value product are f32 products of f32 copies of the
-    operands: a bf16 product is exact in f32, so this is the JAX package's
+    The product is an f32 product of f32 copies of the operands: a bf16
+    product is exact in f32, so this is the JAX package's
     ``preferred_element_type=f32``.  The copy is of one layer's cache for
     the live slots, small beside that layer's weights, which a decode step
-    reads as well.
-    """
+    reads as well."""
     b, hkv, g, sq, d = q.shape
     s = torch.matmul(q.reshape(b, hkv, g * sq, d).float(),
                      k.float().transpose(-1, -2)).reshape(b, hkv, g, sq, -1)
@@ -111,10 +122,84 @@ def _attend_dense(q, k, v, q_pos, k_pos, *, causal, window, kv_len, scale):
     # broadcast mask [B?, Sq, Sk] -> [B, 1, 1, Sq, Sk]
     while m.dim() < s.dim():
         m = m[:, None] if m.dim() > 2 else m[None]
-    s = torch.where(m, s, _NEG)
-    p = torch.softmax(s, dim=-1).to(v.dtype)
-    out = torch.matmul(p.reshape(b, hkv, g * sq, -1).float(), v.float())
-    return out.reshape(b, hkv, g, sq, d)
+    return torch.where(m, s, _NEG)
+
+
+def _pv(p, v):
+    """p [B, Hkv, G, Sq, Sk] (f32, rounded to v's dtype first, as the JAX
+    package casts it) @ v [B, Hkv, Sk, D] -> f32 [B, Hkv, G, Sq, D]."""
+    b, hkv, g, sq, sk = p.shape
+    out = torch.matmul(p.to(v.dtype).reshape(b, hkv, g * sq, sk).float(), v.float())
+    return out.reshape(b, hkv, g, sq, -1)
+
+
+def _attend_dense(q, k, v, q_pos, k_pos, *, causal, window, kv_len, scale):
+    """q: [B, Hkv, G, Sq, D]; k/v: [B, Hkv, Sk, D] -> f32 [B, Hkv, G, Sq, D]."""
+    s = _scores(q, k, q_pos, k_pos, causal=causal, window=window, kv_len=kv_len,
+                scale=scale)
+    return _pv(torch.softmax(s, dim=-1), v)
+
+
+def _block_size(block: int, n: int) -> int:
+    """The JAX package's block rule: ``min(block, n)``, halved until it
+    divides n."""
+    block = min(block, n)
+    while n % block:
+        block //= 2
+    return max(block, 1)
+
+
+def _attend_blockwise(q, k, v, q_pos, k_pos, *, causal, window, kv_len, scale,
+                      q_block: int, k_block: int):
+    """Online softmax over q blocks and, inside each, k blocks: the same
+    function as ``_attend_dense`` without the [Sq, Sk] scores.
+
+    Blocks are sized as the JAX package's ``_attend_blockwise`` sizes
+    them.  A key block that the causal, window or length mask covers
+    wholly for every row of a q block is skipped (one host read of the
+    blocks' position bounds a call).  Skipping is exact: such a block adds
+    ``exp(-1e30 - m) = 0`` to a running sum that a valid key has set, and
+    a block processed before any valid key is wiped by ``alpha = 0`` once
+    one arrives; a q block whose key blocks would all be skipped processes
+    them all, so a row with no valid key still gets the reference's mean
+    of v."""
+    b, hkv, g, sq, d = q.shape
+    sk = k.shape[2]
+    qb, kb = _block_size(q_block, sq), _block_size(k_block, sk)
+    nq, nk = sq // qb, sk // kb
+    qp = q_pos.reshape(-1, nq, qb)
+    kp = k_pos.reshape(-1, nk, kb)
+    bounds = [qp.amin((0, 2)), qp.amax((0, 2)), kp.amin((0, 2)), kp.amax((0, 2))]
+    if kv_len is not None:
+        bounds.append(torch.as_tensor(kv_len, device=q.device).reshape(-1).amax()[None])
+    bounds = torch.cat(bounds).tolist()
+    q_lo, q_hi, k_lo, k_hi = (bounds[:nq], bounds[nq:2 * nq], bounds[2 * nq:2 * nq + nk],
+                              bounds[2 * nq + nk:2 * nq + 2 * nk])
+    n_valid = bounds[-1] if kv_len is not None else math.inf
+
+    def covered(i, j):
+        return ((causal and k_lo[j] > q_hi[i]) or (bool(window) and q_lo[i] - k_hi[j] >= window)
+                or k_lo[j] >= n_valid)
+
+    out = torch.empty((b, hkv, g, sq, d), dtype=torch.float32, device=q.device)
+    for i in range(nq):
+        rows = slice(i * qb, (i + 1) * qb)
+        keep = [j for j in range(nk) if not covered(i, j)] or list(range(nk))
+        m_run = torch.full((b, hkv, g, qb, 1), _NEG, device=q.device)
+        l_run = torch.zeros((b, hkv, g, qb, 1), device=q.device)
+        acc = torch.zeros((b, hkv, g, qb, d), device=q.device)
+        for j in keep:
+            cols = slice(j * kb, (j + 1) * kb)
+            s = _scores(q[..., rows, :], k[:, :, cols], q_pos[..., rows], k_pos[..., cols],
+                        causal=causal, window=window, kv_len=kv_len, scale=scale)
+            m_new = torch.maximum(m_run, s.amax(-1, keepdim=True))
+            p = torch.exp(s - m_new)
+            alpha = torch.exp(m_run - m_new)
+            l_run = alpha * l_run + p.sum(-1, keepdim=True)
+            acc = acc * alpha + _pv(p, v[:, :, cols])
+            m_run = m_new
+        out[..., rows, :] = acc / torch.clamp(l_run, min=1e-30)
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,21 +211,35 @@ class AttnSpec:
     causal: bool = True
     qkv_bias: bool = False
     use_rope: bool = True
+    q_block: int = 512
+    k_block: int = 1024
+    impl: str = "auto"          # auto | dense | blockwise (the masked paths)
+    dense_max: int = 2048       # auto: dense while Sq·Sk <= dense_max², else blockwise
 
 
-def _write_cache(ck, cv, k, v, cache_len, sq):
-    """Write k/v [B, Sq, nkv, D] into the cache [B, Smax, nkv, D] in place
-    at ``cache_len`` (a scalar, or one start per row).  Returns
+def _quantize_kv(t):
+    """k or v [B, S, nkv, D] -> (int8 values, f32 scales [B, S, nkv]): the
+    JAX package's per-(token, kv head) arithmetic, with true quotients on
+    the CPU and on the card (``exact_divisor``)."""
+    tf = t.float()
+    s = torch.clamp(tf.abs().amax(-1) / exact_divisor(127.0, tf), min=1e-8)
+    return torch.clamp(torch.round(tf / s[..., None]), -127, 127).to(torch.int8), s
+
+
+def _write_cache(caches, values, cache_len, sq):
+    """Write each of ``values`` ([B, Sq, ...]) into its cache ([B, Smax,
+    ...]) in place at ``cache_len`` (a scalar, or one start per row): the
+    (k, v) pair, or the int8 cache's values and scales.  Returns
     ``(kv_len, from_zero)``."""
-    smax = ck.shape[1]
+    smax = caches[0].shape[1]
     ndim = cache_len.dim() if torch.is_tensor(cache_len) else np.ndim(cache_len)
     if ndim == 0:
         start = int(cache_len)
         if start < 0 or start + sq > smax:
             raise ValueError(f"cache write at {start}..{start + sq} outside the "
                              f"cache's {smax} positions")
-        ck[:, start:start + sq] = k.to(ck.dtype)
-        cv[:, start:start + sq] = v.to(cv.dtype)
+        for c, t in zip(caches, values):
+            c[:, start:start + sq] = t.to(c.dtype)
         return start + sq, start == 0
     if not (torch.is_tensor(cache_len) and cache_len.is_cuda):
         # host positions are checked here; a device tensor is the caller's
@@ -149,11 +248,12 @@ def _write_cache(ck, cv, k, v, cache_len, sq):
         if pos.min() < 0 or pos.max() + sq > smax:
             raise ValueError(f"cache writes at {pos.tolist()} (+{sq}) outside "
                              f"the cache's {smax} positions")
-    start = torch.as_tensor(cache_len, dtype=torch.long, device=ck.device)
-    rows = start[:, None] + torch.arange(sq, device=ck.device)
-    bidx = torch.arange(ck.shape[0], device=ck.device)[:, None]
-    ck[bidx, rows] = k.to(ck.dtype)
-    cv[bidx, rows] = v.to(cv.dtype)
+    dev = caches[0].device
+    start = torch.as_tensor(cache_len, dtype=torch.long, device=dev)
+    rows = start[:, None] + torch.arange(sq, device=dev)
+    bidx = torch.arange(caches[0].shape[0], device=dev)[:, None]
+    for c, t in zip(caches, values):
+        c[bidx, rows] = t.to(c.dtype)
     return start + sq, False
 
 
@@ -204,7 +304,7 @@ def attention(
     spec: AttnSpec,
     *,
     x_kv: Optional[torch.Tensor] = None,   # cross-attention source [B, Skv, d]
-    kv_cache: Optional[Tuple[torch.Tensor, ...]] = None,  # [B, Smax, n_kv, D]
+    kv_cache: Optional[Tuple[torch.Tensor, ...]] = None,  # [B, Smax, n_kv, D] x 2, or int8 x 4
     cache_len=None,                     # int, or [B] per-slot positions
     window: Optional[int] = None,       # 0/None = global
     ring: bool = False,                 # kv_cache is a ring of window slots
@@ -217,9 +317,6 @@ def attention(
     ``impl(q, k, v, causal=False)`` for the non-causal calls (default: the
     CUDA kernel's ``attention_impl()``).
     """
-    if kv_cache is not None and len(kv_cache) == 4:
-        raise NotImplementedError(
-            "the int8 KV cache is not ported yet (ROADMAP Queue 1: int8 KV cache)")
     b, sq, _ = x.shape
     h, nkv, dh = spec.n_heads, spec.n_kv, spec.head_dim
     g = h // nkv
@@ -251,9 +348,17 @@ def attention(
         ck, cv = kv_cache
         k, v, k_pos = _write_ring(ck, cv, k, v, cache_len, sq)
         new_cache = (ck, cv)
+    elif kv_cache is not None and len(kv_cache) == 4:
+        ck, cv, sk, sv = kv_cache
+        (kq, ks), (vq, vs) = _quantize_kv(k), _quantize_kv(v)
+        kv_len, from_zero = _write_cache(kv_cache, (kq, vq, ks, vs), cache_len, sq)
+        new_cache = kv_cache
+        # the JAX package casts the scale to x's dtype before the product
+        k = ck.to(x.dtype) * sk[..., None].to(x.dtype)
+        v = cv.to(x.dtype) * sv[..., None].to(x.dtype)
     elif kv_cache is not None:
         ck, cv = kv_cache
-        kv_len, from_zero = _write_cache(ck, cv, k, v, cache_len, sq)
+        kv_len, from_zero = _write_cache(kv_cache, (k, v), cache_len, sq)
         new_cache = (ck, cv)
         k, v = ck, cv
 
@@ -278,9 +383,14 @@ def attention(
         vh = v.transpose(1, 2)
         if k_pos is None:
             k_pos = torch.arange(kh.shape[2], device=x.device)
-        out = _attend_dense(qh, kh, vh, q_positions, k_pos, causal=causal,
-                            window=window, kv_len=kv_len,
-                            scale=1.0 / math.sqrt(dh))
+        impl = spec.impl
+        if impl == "auto":
+            impl = "dense" if sq * kh.shape[2] <= spec.dense_max ** 2 else "blockwise"
+        blocks = {} if impl == "dense" else {"q_block": spec.q_block,
+                                             "k_block": spec.k_block}
+        out = (_attend_dense if impl == "dense" else _attend_blockwise)(
+            qh, kh, vh, q_positions, k_pos, causal=causal, window=window,
+            kv_len=kv_len, scale=1.0 / math.sqrt(dh), **blocks)
         out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, h * dh)
     out = out.to(x.dtype) @ params["wo"]
     return out, new_cache

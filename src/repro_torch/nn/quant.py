@@ -32,6 +32,12 @@ from typing import Any, Dict
 
 import torch
 
+# Expert stacks ([E, d, f] under a layer) are drawn (``nn.moe.init_moe``),
+# quantized and dequantized this many experts at a time: the scale is an amax over dim -2, within
+# one expert, so slabs give one pass's bits, and the f32 transient stays a
+# slab's (llama4-maverick's full-width stack is 21.5 GB in f32).
+EXPERT_SLAB = 16
+
 
 def exact_divisor(value: float, like: torch.Tensor) -> torch.Tensor:
     """``value`` as a 0-d tensor of ``like``'s dtype on its device.  A CUDA
@@ -84,6 +90,14 @@ def _should_quantize(leaf, shape) -> bool:
     return False
 
 
+def _slabs(leaf: torch.Tensor):
+    """Index ranges over an expert stack's dim 0 (a leaf of 3 or more dims
+    under a layer), EXPERT_SLAB experts each; one range for a matrix."""
+    if leaf.dim() < 3:
+        return [slice(None)]
+    return [slice(i, i + EXPERT_SLAB) for i in range(0, leaf.shape[0], EXPERT_SLAB)]
+
+
 def quantize_tree(params: Any, **_) -> Any:
     """Per-output-channel symmetric int8 for matmul and embedding weights:
     the scale is the amax over the row dim (-2), one per output column."""
@@ -94,10 +108,14 @@ def quantize_tree(params: Any, **_) -> Any:
             return [quantize(v, lead + (len(leaf),)) for v in leaf]
         if not _should_quantize(leaf, lead + tuple(leaf.shape)):
             return leaf
-        x = leaf.float()
-        amax = x.abs().amax(dim=-2, keepdim=True)
-        s = torch.clamp(amax, min=1e-12) / exact_divisor(127.0, amax)
-        q = torch.clamp(torch.round(x / s), -127, 127).to(torch.int8)
+        q = torch.empty(leaf.shape, dtype=torch.int8, device=leaf.device)
+        s = torch.empty(leaf.shape[:-2] + (1, leaf.shape[-1]), dtype=torch.float32,
+                        device=leaf.device)
+        for sl in _slabs(leaf):
+            x = leaf[sl].float()
+            amax = x.abs().amax(dim=-2, keepdim=True)
+            s[sl] = torch.clamp(amax, min=1e-12) / exact_divisor(127.0, amax)
+            q[sl] = torch.clamp(torch.round(x / s[sl]), -127, 127)
         return {"__q__": q, "__s__": s}
 
     return quantize(params, ())
@@ -105,10 +123,15 @@ def quantize_tree(params: Any, **_) -> Any:
 
 def dequantize_tree(tree: Any, dtype=torch.bfloat16) -> Any:
     """Full-precision weights from a (slice of a) quantized tree: an f32
-    product, then a cast to ``dtype``; other leaves come back as they are,
-    uncopied.  The serve passes call it on one layer at a time."""
+    product, then a cast to ``dtype`` (expert stacks a slab at a time);
+    other leaves come back as they are, uncopied.  The serve passes call
+    it on one layer at a time."""
     if _is_qleaf(tree):
-        return (tree["__q__"].float() * tree["__s__"]).to(dtype)
+        q, s = tree["__q__"], tree["__s__"]
+        out = torch.empty(q.shape, dtype=dtype, device=q.device)
+        for sl in _slabs(q):
+            out[sl] = q[sl].float() * s[sl]
+        return out
     if isinstance(tree, dict):
         return {k: dequantize_tree(v, dtype) for k, v in tree.items()}
     if isinstance(tree, list):

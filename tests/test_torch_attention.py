@@ -341,13 +341,30 @@ def test_cache_write_past_the_end_raises(cache_len):
 
 @pytest.mark.parametrize("cache", ["int8"])
 def test_unported_caches_raise(cache):
-    p = {n: _t(a) for n, a in _attn_params().items()}
-    spec = port_attn.AttnSpec(n_heads=H, n_kv=HKV, head_dim=DH, qkv_bias=True)
-    kv = tuple(torch.zeros(2, 8, HKV, DH) for _ in range(4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_attn.attention(p, torch.zeros(2, 1, D_MODEL),
-                            torch.zeros(2, 1, dtype=torch.long), spec, kv_cache=kv,
-                            cache_len=0)
+    """Named for the gap it held until the int8 KV cache was ported (a
+    4-tuple cache raised ``NotImplementedError``): a decode step at
+    position 5 against an int8 cache written by a prefill, both against
+    the JAX package at 1e-4, the int8 values within one step of its."""
+    p, x = _attn_params(), _rand(53, 2, 6, D_MODEL)
+    spec_r = ref_attn.AttnSpec(n_heads=H, n_kv=HKV, head_dim=DH, rope_theta=1e6,
+                               qkv_bias=True)
+    spec_p = port_attn.AttnSpec(n_heads=H, n_kv=HKV, head_dim=DH, rope_theta=1e6,
+                                qkv_bias=True)
+    ref_kv = (jnp.zeros((2, 8, HKV, DH), jnp.int8),) * 2 + (jnp.zeros((2, 8, HKV)),) * 2
+    kv = tuple(torch.zeros(2, 8, HKV, DH, dtype=torch.int8) for _ in range(2)) + tuple(
+        torch.zeros(2, 8, HKV) for _ in range(2))
+    for xs, start in ((x[:, :5], 0), (x[:, 5:], 5)):
+        pos = np.broadcast_to(np.arange(start, start + xs.shape[1]), xs.shape[:2]).copy()
+        want, ref_kv = ref_attn.attention({n: jnp.asarray(a) for n, a in p.items()},
+                                          jnp.asarray(xs), jnp.asarray(pos), spec_r,
+                                          kv_cache=ref_kv, cache_len=jnp.asarray(start))
+        got, kv = port_attn.attention({n: _t(a) for n, a in p.items()}, _t(xs),
+                                      torch.from_numpy(pos), spec_p, kv_cache=kv,
+                                      cache_len=start)
+        _close(got, want)
+    assert kv[0].dtype == torch.int8 and len(kv) == 4
+    for g, w in zip(kv[:2], ref_kv[:2]):
+        assert np.abs(g.numpy().astype(np.int32) - np.asarray(w)).max() <= 1
 
 
 @pytest.mark.parametrize("sq", [1, 16])

@@ -707,6 +707,82 @@ def test_reduced_window_vlm_encdec_prefill_on_card_matches_cpu(card, arch, launc
         _close(got, want)
 
 
+@pytest.mark.parametrize("form", ["einsum", "scatter", "ragged"])
+def test_moe_layer_on_card_matches_cpu(card, form):
+    """One grok-style MoE layer (8 experts, top-2, a capacity that drops
+    copies) on the card against the same call on the CPU, f32: the same
+    experts routed, outputs at TOL."""
+    from repro_torch.nn import moe
+
+    spec = moe.MoESpec(n_experts=8, top_k=2, d_model=64, d_ff=128, ffn_kind="geglu",
+                       capacity_factor=1.0, impl=form, group_size=32)
+    params = moe.init_moe(torch.Generator().manual_seed(0), spec)
+    x = _rand((2, 64, 64), 1)
+    want, aux_want = moe.moe(params, x, spec)
+    got, aux = moe.moe(_to(params, card), x.to(card), spec)
+    _, idx_want, _ = moe._route(params, x.reshape(-1, 64), spec)
+    _, idx, _ = moe._route(_to(params, card), x.reshape(-1, 64).to(card), spec)
+    assert torch.equal(idx.cpu(), idx_want)
+    _close(got.cpu(), want)
+    assert abs(float(aux) - float(aux_want)) <= 1e-5 * abs(float(aux_want))
+
+
+@pytest.mark.parametrize("arch,change", [("grok-1-314b", {}),
+                                         ("llama4-maverick-400b-a17b", {}),
+                                         ("qwen2-7b", {"kv_quant": True})])
+def test_reduced_moe_and_int8_cache_on_card_match_cpu(card, arch, change):
+    """The MoE models and qwen2-7b as shipped (int8 KV cache), f32 at the
+    reduced size: a prefill (the flash kernel once per layer, over the
+    dequantized int8 prefix for qwen2) and a decode step at per-row
+    positions on the card against the same calls on the CPU; the int8
+    cache within one step, its scales at 1e-5."""
+    import dataclasses
+
+    cfg = dataclasses.replace(reduced(get_config(arch), layers=2, d_model=64, vocab=128),
+                              **change)
+    params = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 128, (2, 37)))
+    out = {}
+    for dev in ("cpu", card):
+        before = fa.flash_attention.launches
+        logits, cache = lm.prefill(_to(params, dev), toks.to(dev), cfg,
+                                   lm.init_cache(cfg, 2, 48, device=dev))
+        assert fa.flash_attention.launches == before + (cfg.n_layers if dev == card else 0)
+        step, cache = lm.decode_step(_to(params, dev), cache, torch.tensor([[1], [2]]).to(dev),
+                                     np.asarray([37, 30]), cfg)
+        out[str(dev)] = (logits.cpu(), step.cpu(), [c.cpu() for c in cache])
+    for got, want in zip(out["cuda"][:2], out["cpu"][:2]):
+        _close(got, want)
+    for got, want in zip(out["cuda"][2], out["cpu"][2]):
+        if got.dtype == torch.int8:
+            assert (got.int() - want.int()).abs().max() <= 1
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-5 if change else TOL,
+                                       atol=0 if change else TOL)
+
+
+def test_blockwise_route_on_card_matches_dense_and_cpu(card):
+    """The blockwise route (window 8, q / k blocks of 16 over 96 tokens, key
+    blocks under the mask skipped) on the card against the dense route on
+    the card and the blockwise route on the CPU, f32."""
+    import dataclasses
+
+    from repro_torch.nn import attention
+
+    spec = attention.AttnSpec(n_heads=4, n_kv=2, head_dim=16, q_block=16, k_block=16)
+    p = attention.init_attention(torch.Generator().manual_seed(0), 64, 4, 2, 16)
+    x = _rand((2, 96, 64), 2)
+    out = {}
+    for dev in ("cpu", card):
+        for impl in ("blockwise", "dense"):
+            y, _ = attention.attention(_to(p, dev), x.to(dev), None,
+                                       dataclasses.replace(spec, impl=impl),
+                                       window=8)
+            out[(str(dev), impl)] = y.cpu()
+    _close(out[("cuda", "blockwise")], out[("cuda", "dense")])
+    _close(out[("cuda", "blockwise")], out[("cpu", "blockwise")])
+
+
 def _ssd_inputs(b, l, h, p, g, n, seed, model_decay):
     """The JAX kernel test's distributions, or (``model_decay``) the
     model's: a = -(1..H) and dt from its dt_bias range, so that a_cum

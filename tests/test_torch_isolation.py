@@ -1,8 +1,9 @@
 """The port stands alone: no jax, nothing of ``repro``, no silent CPU path.
 
-Importing every module of ``repro_torch`` and ``chip_smoke`` (which runs
-nothing on import) in a fresh interpreter must leave ``jax`` and every
-``repro`` module out of ``sys.modules``.  The entry point resolves its
+Importing every module of ``repro_torch`` (``nn.moe`` and the LM path
+named among them) and ``chip_smoke`` (which runs nothing on import) in a
+fresh interpreter must leave ``jax`` and every ``repro`` module out of
+``sys.modules``.  The entry point resolves its
 device to the card and raises without CUDA; a kernel wrapper handed a
 CUDA tensor launches its kernel or raises, and never falls back.
 """
@@ -34,8 +35,10 @@ def test_port_imports_no_jax_and_no_repro():
         import chip_smoke
         bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(
             ("jax.", "jaxlib")) or m == "repro" or m.startswith("repro."))
-        print(len(names), bad)
-        sys.exit(1 if bad or len(names) < 15 else 0)
+        missing = sorted({{"repro_torch.nn.moe", "repro_torch.nn.attention",
+                           "repro_torch.models.lm"}} - set(names))
+        print(len(names), missing, bad)
+        sys.exit(1 if bad or missing or len(names) < 15 else 0)
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT, timeout=300)
