@@ -135,7 +135,23 @@ printing JSON lines:
    steps each, the flash kernel counted per prefill (24; 36) and per
    decode step (0; 12); each prefill's logits against the plain path, and
    one prefill and one decode step under ``torch.profiler``;
-10. the ``kernels`` line, the card line, and the final ``ok`` line.
+10. train_gemma3, train_mamba2, train_gates, paged_kv — the training path
+   (``launch/train.py``): gemma3-1b and mamba2-780m as shipped (bf16
+   params, f32 AdamW moments, remat), each at full size through
+   ``build_train_step``, TRAIN_STEPS steps of SyntheticLM seed-0 batches
+   of TRAIN_BATCH x TRAIN_SEQ tokens at lr TRAIN_LR: every param leaf's
+   step-1 gradient finite and not all zero, no kernel launched in any
+   step (the counts set to 0 before each step, read after), the mean loss
+   of steps 6-8 below step 1's; step ms (median of steps 2-8), tokens/s,
+   peak memory, one profiled step's device ms by kind and busy share, and
+   the model-FLOP share of the bf16 dense peak; then, at a reduced size
+   in f32 with TF32 off, every family's loss and grads on the card against
+   the CPU at TOL, the bf16 head's backward against f32 products, resume
+   (``train_loop`` stopped after its step-4 checkpoint and started again)
+   against the uninterrupted run at RESUME_TOL, and the kernel guard (a
+   flash call with q requiring grad raises); and the paged KV cache at
+   qwen2-7b's widths, written token by token and gathered bit for bit;
+11. the ``kernels`` line, the card line, and the final ``ok`` line.
 
 Any failure raises: the script then exits non-zero and prints no result.
 """
@@ -144,6 +160,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import re
 import statistics
@@ -233,6 +250,18 @@ MOE_FORM_TOKENS = 2048
 # bf16 blockwise route is held at BF16_TOL of the f32 dense logits, and
 # the bf16 gaps are printed.
 BLOCKWISE_TOKENS = 8192
+# Training (``launch/train.py``): two configs at full size, SyntheticLM
+# seed-0 batches, the example's lr; then the reduced-size gates.
+TRAIN = {"train_gemma3": "gemma3-1b", "train_mamba2": "mamba2-780m"}
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2, 2048, 8, 1e-3
+TRAIN_SMALL = dict(layers=2, d_model=64, vocab=512)
+TRAIN_SMALL_SEQ = 64
+TRAIN_PARITY_ARCHS = ("qwen2-7b", "gemma3-1b", "grok-1-314b", "mamba2-780m",
+                      "zamba2-1.2b", "seamless-m4t-medium", "internvl2-2b")
+RESUME_TOL = 1e-5
+# The paged KV cache at qwen2-7b's widths.
+PAGED_KV = dict(n_blocks=64, block_size=16, n_layers=28, n_kv=4, head_dim=128)
+PAGED_KV_TOKENS = 200
 BLOCKWISE_CHECK = ("f32 copy: blockwise vs dense at TOL; bf16 blockwise vs f32 dense at "
                    "BF16_TOL")
 KERNELS = {
@@ -2328,6 +2357,291 @@ def run_blockwise(torch, kernels_mod):
     return launches
 
 
+def _train_batch(cfg, rng, b, s):
+    """A SyntheticLM-shaped batch for ``cfg``'s family (encdec: frames;
+    vlm: patches ahead of s - n_patches text tokens)."""
+    import numpy as np
+
+    st = s - cfg.n_patches if cfg.family == "vlm" else s
+    batch = {"tokens": rng.integers(0, cfg.vocab, (b, st)).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab, (b, st)).astype(np.int32)}
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal((b, s, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        batch["patches"] = rng.standard_normal((b, cfg.n_patches, cfg.d_model)).astype(
+            np.float32)
+    return batch
+
+
+def train_flops(cfg, n_params: int, b: int, s: int) -> dict:
+    """A step's model FLOPs: 6 x params x tokens (forward 2, backward 4),
+    plus the attention's two products (q kᵀ and p v), 2 x 2 x Dh flops a
+    (query, key) pair a head, forward and backward (x 3), over the pairs
+    the mask keeps (causal; a local layer's window).  The recomputation
+    of remat is not counted (model FLOPs).  The SSD scan's state
+    products are not counted either."""
+    pairs = 0
+    if cfg.family == "lm":
+        for i in range(cfg.n_layers):
+            w = cfg.window_for_layer(i)
+            pairs += sum(min(q + 1, w) if w else q + 1 for q in range(s))
+    attn = 3 * 2 * 2 * cfg.head_dim * cfg.n_heads * b * pairs
+    dense = 6 * n_params * b * s
+    return {"dense_flops": dense, "attention_flops": attn, "model_flops": dense + attn}
+
+
+def run_train(torch, kernels_mod, phase, arch):
+    """``arch`` trained at full size on the card through
+    ``launch.train.build_train_step``: ``api.init``'s random bf16 weights
+    from a seeded CUDA generator, made trainable; AdamW as the config sets
+    it (f32 moments) at lr TRAIN_LR; TRAIN_STEPS steps of SyntheticLM
+    seed-0 batches of TRAIN_BATCH x TRAIN_SEQ tokens; remat as shipped.
+    Gates: every param leaf gets a finite, not all-zero gradient in step 1
+    (hooks on the leaves); no kernel launches in any step (the counts set
+    to 0 before each step, read after); the mean loss of steps 6-8 below
+    step 1's.  Prints step ms (host clock, each step ending in a
+    synchronize; median of steps 2-8), tokens/s, peak memory, one more
+    step under ``torch.profiler`` (device ms by kind; the busy share is
+    their sum over the unprofiled median step, since the profiler
+    stretches the profiled step's wall) and the model-FLOP share of the
+    bf16 dense peak."""
+    from repro_torch import tree
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.hw import H100_SXM
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.models.registry import get_api
+    from repro_torch.optim import optimizers as opt
+
+    cfg = get_config(arch)
+    api = get_api(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = train.trainable(api.init(cfg, torch.Generator(device="cuda").manual_seed(0)))
+    leaves = tree.leaves(params)
+    n_params = sum(p.numel() for p in leaves)
+    adam = train.adam_config_for(cfg, lr=TRAIN_LR, total_steps=TRAIN_STEPS,
+                                 warmup_steps=max(1, TRAIN_STEPS // 20))
+    opt_state = opt.init(adam, params)
+    step = train.build_train_step(cfg, adam)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH, seed=0)
+
+    seen = [[] for _ in leaves]                  # step 1: (finite, nonzero) per grad
+    handles = [p.register_hook(lambda g, i=i: seen[i].append(
+        torch.stack([g.isfinite().all(), g.ne(0).any()]))) for i, p in enumerate(leaves)]
+    losses, ms, launches = [], [], []
+    for i in range(TRAIN_STEPS):
+        batch = next(data)
+        reset_counts(kernels_mod)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step(params, opt_state, batch)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(read_counts(kernels_mod))
+        losses.append(loss)
+        if i == 0:
+            for h in handles:
+                h.remove()
+            flags = [torch.stack(f).all(0).tolist() if f else [False, False] for f in seen]
+            bad = [j for j, (finite, nonzero) in enumerate(flags) if not (finite and nonzero)]
+            require(not bad, f"{phase}: {len(bad)} of {len(leaves)} param leaves got no "
+                             f"finite nonzero gradient in step 1 (leaves {bad[:8]})")
+            grad_calls = sum(len(f) for f in seen)
+    peak = torch.cuda.max_memory_allocated()
+    require(all(not any(c.values()) for c in launches),
+            f"{phase}: kernels launched in a train step: {launches}")
+    require(all(map(math.isfinite, losses)), f"{phase}: losses {losses}")
+    late = statistics.mean(losses[5:8])
+    require(late < losses[0], f"{phase}: mean loss of steps 6-8 {late} not below "
+                              f"step 1's {losses[0]}")
+
+    batch = next(data)
+    reset_counts(kernels_mod)
+    box = {}
+
+    def one_step():
+        box["out"] = step(params, opt_state, batch)
+
+    device_ms, wall, top = device_ms_by_kernel(torch, one_step, SERVE_DEVICE_FN)
+    require(not any(read_counts(kernels_mod).values()), f"{phase}: kernels in the profiled step")
+    del box
+    step_ms = statistics.median(ms[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = train_flops(cfg, n_params, TRAIN_BATCH, TRAIN_SEQ)
+    emit({"phase": phase, "model": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+          "vocab": cfg.vocab, "params": n_params, "param_dtype": cfg.param_dtype,
+          "moments": [adam.mu_dtype, adam.nu_dtype], "grad_accum": cfg.grad_accum,
+          "remat": cfg.remat, "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ, "lr": TRAIN_LR,
+          "data": "SyntheticLM seed 0", "losses": losses, "step_ms": ms,
+          "step_ms_median_2_8": step_ms, "tokens_per_s": tokens / (step_ms / 1e3),
+          "peak_gb": peak / 1e9, "kernel_launches": launches[0],
+          "step1_grad_hook_calls": grad_calls, "step1_leaves": len(leaves),
+          "profiled_step": {"wall_ms": wall, "device_ms": device_ms,
+                            "device_busy_share": sum(device_ms.values()) / step_ms,
+                            "device_busy_share_of": "step_ms_median_2_8 (unprofiled)",
+                            "device_share_of_profiled_wall": sum(device_ms.values()) / wall,
+                            "top_device_fns": [(t, n, k[:90]) for t, n, k in top[:6]]},
+          **flops,
+          "model_flop_share": flops["model_flops"] / (step_ms / 1e3) / H100_SXM.peak_bf16_flops,
+          "model_flop_share_of": "the bf16 dense peak, 989 TFLOP/s (core/hw.py "
+                                 "H100_SXM.peak_bf16_flops)"})
+    del params, opt_state, step
+    torch.cuda.empty_cache()
+
+
+def run_train_gates(torch, kernels_mod):
+    """The reduced-size gates of the training path (TRAIN_SMALL, seq
+    TRAIN_SMALL_SEQ, f32, TF32 off): (1) for each of TRAIN_PARITY_ARCHS,
+    ``loss_fn`` and its grads on the card against the same step on the
+    CPU, the same weights and batch: the loss and every gradient leaf
+    within TOL of its scale; (2) the card's bf16 head under autograd
+    (``nn.embeddings._WideLogits``) against the f32 products of the same
+    bf16 values, within one bf16 rounding of scale; (3) resume:
+    ``train_loop`` stopped after the step-4 checkpoint and started again
+    gives the uninterrupted run's losses of steps 5-8 within RESUME_TOL
+    relative; (4) the kernel guard: a flash call on the card with q
+    requiring grad raises."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import tree
+    from repro_torch.configs.registry import get_config, reduced
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import train
+    from repro_torch.models.registry import get_api
+    from repro_torch.nn.embeddings import unembed
+
+    rows = []
+    for arch in TRAIN_PARITY_ARCHS:
+        cfg = reduced(get_config(arch), **TRAIN_SMALL)
+        cpu = get_api(cfg, "cpu").init(cfg, torch.Generator().manual_seed(1))
+        batch = _train_batch(cfg, np.random.default_rng(3), TRAIN_BATCH, TRAIN_SMALL_SEQ)
+        out = {}
+        for dev in ("cpu", "cuda"):
+            params = train.trainable(tree.unflatten(
+                cpu, [p.detach().clone().to(dev) for p in tree.leaves(cpu)]))
+            reset_counts(kernels_mod)
+            loss, _ = get_api(cfg, dev).loss_fn(params, batch, cfg)
+            grads = torch.autograd.grad(loss, tree.leaves(params), materialize_grads=True)
+            require(not any(read_counts(kernels_mod).values()),
+                    f"train_gates/{arch}: a kernel launched under autograd")
+            out[dev] = (loss.detach().cpu(), [g.cpu() for g in grads])
+        loss_err = abs(float(out["cuda"][0]) - float(out["cpu"][0])) / abs(float(out["cpu"][0]))
+        worst = max((a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+                    for a, b in zip(out["cuda"][1], out["cpu"][1]))
+        require(loss_err <= TOL and worst <= TOL,
+                f"train_gates/{arch}: card vs CPU loss {loss_err}, worst grad leaf "
+                f"{worst} of its scale (> {TOL})")
+        rows.append({"arch": arch, "family": cfg.family, "loss": float(out["cpu"][0]),
+                     "loss_rel_err": loss_err, "worst_grad_err_of_scale": worst,
+                     "leaves": len(out["cpu"][1])})
+
+    # the bf16 head under autograd against f32 products of the same values
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn((256, 1152), generator=gen, device="cuda").bfloat16().requires_grad_(True)
+    table = (0.02 * torch.randn((4096, 1152), generator=gen, device="cuda")).bfloat16()
+    table.requires_grad_(True)
+    g_out = torch.randn((256, 4096), generator=gen, device="cuda")
+    got = torch.autograd.grad(unembed(table, x), [x, table], g_out)
+    want_logits = x.detach().float() @ table.detach().float().t()
+    want = (g_out @ table.detach().float(), g_out.t() @ x.detach().float())
+    head_errs = [(a.float() - b).abs().max().item() / b.abs().max().item()
+                 for a, b in zip(got, want)]
+    logits_err = (unembed(table, x).detach() - want_logits).abs().max().item()
+    require(max(head_errs) <= 2.0 ** -8 and logits_err <= TOL * want_logits.abs().max().item(),
+            f"train_gates: bf16 head grads {head_errs} of scale, logits {logits_err}")
+
+    # resume at the reduced size on the card
+    cfg = reduced(get_config("gemma3-1b"), **TRAIN_SMALL)
+    kw = dict(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq_len=TRAIN_SMALL_SEQ, lr=TRAIN_LR,
+              ckpt_every=4, log_every=TRAIN_STEPS, device="cuda")
+
+    class Preempted(Exception):
+        pass
+
+    def stop(step, metrics):
+        if step == 5:
+            raise Preempted
+
+    with tempfile.TemporaryDirectory() as tmp:
+        straight = train.train_loop(cfg, ckpt_dir=f"{tmp}/a", **kw)["losses"]
+        try:
+            train.train_loop(cfg, ckpt_dir=f"{tmp}/b", on_metrics=stop, **kw)
+            require(False, "train_gates: the preempting callback did not stop the loop")
+        except Preempted:
+            pass
+        resumed = train.train_loop(cfg, ckpt_dir=f"{tmp}/b", **kw)["losses"]
+    resume_err = max(abs(a - b) / abs(b) for a, b in zip(resumed, straight[4:]))
+    require(len(resumed) == 4 and resume_err <= RESUME_TOL,
+            f"train_gates: resumed losses {resumed} vs {straight[4:]}")
+
+    # the guard on the card
+    q = torch.randn((1, 2, 64, 64), device="cuda", dtype=torch.bfloat16, requires_grad=True)
+    kv = torch.randn((1, 1, 64, 64), device="cuda", dtype=torch.bfloat16)
+    reset_counts(kernels_mod)
+    try:
+        flash_attention(q, kv, kv, block_q=64, block_k=64)
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)
+    require(raised is not None and "no backward" in raised and not any(
+        read_counts(kernels_mod).values()), f"train_gates: flash under autograd: {raised}")
+    emit({"phase": "train_gates", "size": {**TRAIN_SMALL, "seq_len": TRAIN_SMALL_SEQ,
+                                           "dtype": "float32", "tf32": False},
+          "card_vs_cpu": rows, "tolerance": TOL,
+          "tolerance_of": "loss: relative; grads: each leaf's max|card - cpu| over its max|cpu|",
+          "bf16_head_grad_err_of_scale": head_errs, "bf16_head_tolerance": 2.0 ** -8,
+          "resume": {"straight_5_8": straight[4:], "resumed_5_8": resumed,
+                     "max_rel_err": resume_err, "tolerance": RESUME_TOL},
+          "guard": raised})
+
+
+def run_paged_kv(torch):
+    """The paged KV cache (``serving/kv_cache.py``) on the card at
+    qwen2-7b's widths: one sequence of PAGED_KV_TOKENS tokens allocated,
+    written token by token (two sequences interleaved, so that their
+    blocks interleave in the pool), gathered and held bit for bit against
+    the written values, then freed."""
+    from repro_torch.serving.kv_cache import PagedKVCache, PagedKVConfig
+
+    cache = PagedKVCache(PagedKVConfig(**PAGED_KV), device="cuda")
+    cfg = cache.cfg
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    shape = (PAGED_KV_TOKENS, cfg.n_layers, cfg.n_kv, cfg.head_dim)
+    written = {s: [torch.randn(shape, generator=gen, device="cuda").bfloat16() for _ in "kv"]
+               for s in (1, 2)}
+    for s in (1, 2):
+        cache.allocate(s, 1)
+    for pos in range(PAGED_KV_TOKENS):
+        for s in (1, 2):
+            if pos:
+                cache.extend(s, 1)
+            cache.write_token(s, (written[s][0][pos], written[s][1][pos]), pos)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    k, v = cache.gather_kv(1)
+    torch.cuda.synchronize()
+    gather_ms = (time.perf_counter() - t0) * 1e3
+    for s in (1, 2):
+        k, v = cache.gather_kv(s)
+        require(torch.equal(k, written[s][0].transpose(0, 1))
+                and torch.equal(v, written[s][1].transpose(0, 1)),
+                f"paged_kv: sequence {s}'s gather differs from its writes")
+    blocks = cache.blocks_needed(PAGED_KV_TOKENS)
+    tables = [cache.table(1), cache.table(2)]
+    require(cache.free_blocks == cfg.n_blocks - 2 * blocks and not set(tables[0]) & set(tables[1]),
+            f"paged_kv: tables {tables}, {cache.free_blocks} free")
+    cache.free(1)
+    cache.free(2)
+    require(cache.free_blocks == cfg.n_blocks, "paged_kv: blocks leaked")
+    emit({"phase": "paged_kv", **PAGED_KV, "dtype": cfg.dtype, "tokens": PAGED_KV_TOKENS,
+          "sequences": 2, "blocks_each": blocks, "tables": tables,
+          "pool_bytes": 2 * cache.k.numel() * cache.k.element_size(),
+          "gather_ms_host": gather_ms, "gather": "bit for bit the written values"})
+
+
 def summarise(name, rows) -> dict:
     """One route's rows of kernel ``name``, summed over the timed shapes:
     ms, the plain version's and the library call's ms, the bound, and the
@@ -2489,6 +2803,10 @@ def main() -> int:
     require(all(launches.values()), f"a kernel never launched on the main path: {launches}")
     for family in ("mobilenet_v2", "resnet18"):
         run_slice(torch, family, kernels_mod, gen, bench, torch.bfloat16)
+    for phase, arch in TRAIN.items():
+        run_train(torch, kernels_mod, phase, arch)
+    run_train_gates(torch, kernels_mod)
+    run_paged_kv(torch)
 
     out = kernels_line(bench, launches)
     emit({"kernels": out})

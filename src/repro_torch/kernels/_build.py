@@ -26,6 +26,8 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
+from repro_torch.tree import records_grad
+
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -170,7 +172,17 @@ def check_launch(name: str, err: int) -> None:
 def check_operands(name: str, *ts: torch.Tensor,
                    dtypes: tuple = (torch.float32,)) -> None:
     """The kernels take contiguous tensors of one of ``dtypes``, all of
-    one dtype and on one device."""
+    one dtype and on one device.  No kernel has a backward: a call that
+    autograd would record raises, on the CPU as on the card, where a
+    launch into a fresh tensor would return an output with no
+    ``grad_fn`` and lose the gradient without an error."""
+    if records_grad(*ts):
+        raise RuntimeError(
+            f"{name}: the kernel has no backward, and an operand requires grad "
+            "with grad enabled; differentiate through the plain route "
+            "(nn.attention / nn.ssm take it under autograd) or call under "
+            "torch.no_grad()"
+        )
     dev = ts[0].device
     for t in ts:
         if t.dtype not in dtypes:

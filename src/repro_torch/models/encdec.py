@@ -1,5 +1,5 @@
 """seamless-m4t-medium backbone, an encoder-decoder transformer; the
-port's copy of the JAX package's ``models/encdec.py`` serve path.
+port's copy of the JAX package's ``models/encdec.py``.
 
 The speech frontend is a stub: the caller supplies frame embeddings
 ``[B, T, d_model]``, which go straight into the encoder.  The encoder runs
@@ -14,6 +14,9 @@ times (cross, one query against T keys).
 Params: ``embed``, ``enc_norm``, ``final_norm`` and one dict per layer
 under ``enc`` and ``dec`` (the JAX package stacks them ``[L, ...]``).  The
 decoder's cache is one stacked pair ``[dec_layers, B, Smax, n_kv, D]``.
+``forward`` / ``loss_fn`` train the teacher-forced decoder over the
+encoded frames; with ``cfg.remat`` each encoder and decoder layer runs
+under activation checkpointing while autograd records (``lm.remat``).
 """
 from __future__ import annotations
 
@@ -22,7 +25,8 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.lm import decode_positions, tree_to_torch, unstack_layers
+from repro_torch.models.lm import (cross_entropy, decode_positions, remat, tree_to_torch,
+                                   unstack_layers)
 from repro_torch.nn.attention import AttnSpec, attention, init_attention
 from repro_torch.nn.embeddings import embed, init_embedding, unembed
 from repro_torch.nn.layers import ffn, init_ffn
@@ -76,30 +80,62 @@ def encode(params: dict, frames: torch.Tensor, cfg: ModelConfig, *,
            flash: Optional[Callable] = None) -> torch.Tensor:
     """frames [B, T, d_model] -> memory [B, T, d_model]."""
     spec = _spec(cfg, causal=False)
-    x = frames.to(cfg.dtype)
-    for p in params["enc"]:                              # positions 0..T-1
+
+    def layer(x, p):                                     # positions 0..T-1
         h, _ = attention(p["attn"], rms_norm(x, p["ln1"], eps=cfg.norm_eps),
                          None, spec, flash=flash)
         x = x + h
-        x = x + ffn(p["ffn"], rms_norm(x, p["ln2"], eps=cfg.norm_eps),
-                    kind=cfg.ffn_kind)
+        return x + ffn(p["ffn"], rms_norm(x, p["ln2"], eps=cfg.norm_eps),
+                       kind=cfg.ffn_kind)
+
+    x = frames.to(cfg.dtype)
+    for p in params["enc"]:
+        x = remat(cfg, layer, x, p)
     return rms_norm(x, params["enc_norm"], eps=cfg.norm_eps)
 
 
 def _dec_pass(params: dict, x, positions, memory, cfg: ModelConfig, cache,
               cache_len, flash=None):
+    """The decoder layers; ``cache=None`` is the teacher-forced training
+    pass (no cache; ``remat`` per layer)."""
     self_spec, cross_spec = _spec(cfg, causal=True), _spec(cfg, causal=False)
-    for p, ck, cv in zip(params["dec"], *cache):
+
+    def layer(x, p, kv):
         h, _ = attention(p["attn"], rms_norm(x, p["ln1"], eps=cfg.norm_eps),
-                         positions, self_spec, kv_cache=(ck, cv),
+                         positions, self_spec, kv_cache=kv,
                          cache_len=cache_len, flash=flash)
         x = x + h
         h, _ = attention(p["xattn"], rms_norm(x, p["ln_x"], eps=cfg.norm_eps),
                          positions, cross_spec, x_kv=memory, flash=flash)
         x = x + h
-        x = x + ffn(p["ffn"], rms_norm(x, p["ln2"], eps=cfg.norm_eps),
-                    kind=cfg.ffn_kind)
+        return x + ffn(p["ffn"], rms_norm(x, p["ln2"], eps=cfg.norm_eps),
+                       kind=cfg.ffn_kind)
+
+    if cache is None:
+        for p in params["dec"]:
+            x = remat(cfg, layer, x, p, None)
+        return x
+    for p, ck, cv in zip(params["dec"], *cache):
+        x = layer(x, p, (ck, cv))
     return x
+
+
+def forward(params: dict, tokens: torch.Tensor, frames: torch.Tensor,
+            cfg: ModelConfig, *, flash: Optional[Callable] = None):
+    """Training: teacher-forced decode over the encoded frames -> (f32
+    logits [B, S, V], aux 0)."""
+    memory = encode(params, frames, cfg, flash=flash)
+    x = _dec_pass(params, embed(params["embed"], tokens), None, memory, cfg, None,
+                  None, flash=flash)
+    return _head(params, x, cfg), torch.zeros((), device=tokens.device)
+
+
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig):
+    """batch {"tokens", "labels"} [B, S] + {"frames"} [B, T, d] -> (CE,
+    {"ce", "aux"})."""
+    logits, aux = forward(params, batch["tokens"], batch["frames"], cfg)
+    ce = cross_entropy(logits, batch["labels"])
+    return ce, {"ce": ce, "aux": aux}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,

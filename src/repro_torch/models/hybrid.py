@@ -10,7 +10,9 @@ passed as ``None``: no host check).
 
 State: ``{"ssm": (s [L, B, H, P, N] f32, conv [L, B, K-1, conv_dim]),
 "kv": (k, v [n_sites, B, max_len, n_kv, head_dim])}``, one KV cache per
-shared-attention site, written in place.
+shared-attention site, written in place.  ``loss_fn`` is the LM's masked
+CE; with ``cfg.remat`` each group of a non-decode pass runs under
+activation checkpointing while autograd records (``lm.remat``).
 """
 from __future__ import annotations
 
@@ -20,7 +22,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import mamba
-from repro_torch.models.lm import decode_positions, tree_to_torch, unstack_layers
+from repro_torch.models.lm import (cross_entropy, decode_positions, remat, tree_to_torch,
+                                   unstack_layers)
 from repro_torch.nn.attention import AttnSpec, attention, init_attention
 from repro_torch.nn.embeddings import embed, init_embedding, unembed
 from repro_torch.nn.layers import ffn, init_ffn
@@ -93,18 +96,23 @@ def _pass(params: dict, x, positions, cfg: ModelConfig, state=None,
     """The groups: the shared block at each group's boundary (with that
     site's KV cache), then the group's Mamba2 layers (with theirs)."""
     per = cfg.hybrid_attn_every
-    for site in range(n_sites(cfg)):
+
+    def group(x, site, blocks):
         kv = None
         if state is not None:
             kv = (state["kv"][0][site], state["kv"][1][site])
         x = _shared_block(params, x, positions, cfg, kv=kv, cache_len=cache_len,
                           flash=flash)
-        for i in range(site * per, (site + 1) * per):
+        for i, p in enumerate(blocks, site * per):
             st = None
             if state is not None:
                 st = (state["ssm"][0][i], state["ssm"][1][i])
-            x = mamba.layer(params["blocks"][i], x, cfg, state=st, decode=decode,
-                            ssd=ssd)
+            x = mamba.layer(p, x, cfg, state=st, decode=decode, ssd=ssd)
+        return x
+
+    for site in range(n_sites(cfg)):
+        args = (x, site, params["blocks"][site * per:(site + 1) * per])
+        x = group(*args) if decode else remat(cfg, group, *args)
     return x
 
 
@@ -117,6 +125,13 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     if not full_logits:
         x = x[:, -1:]
     return unembed(params["embed"], x), torch.zeros((), device=tokens.device)
+
+
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig):
+    """batch {"tokens", "labels"} [B, S] -> (CE, {"ce", "aux"})."""
+    logits, aux = forward(params, batch["tokens"], cfg)
+    ce = cross_entropy(logits, batch["labels"])
+    return ce, {"ce": ce, "aux": aux}
 
 
 def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, state: dict, *,

@@ -13,7 +13,11 @@ here a Python loop runs the layers).  A tree from
 passes dequantize one layer's weights at a time, and the embedding table
 at each use.  Entry points:
 
-  forward      — tokens [B, S] -> (logits, aux) over every position
+  forward      — tokens [B, S] -> (logits, aux) over every position;
+                 with ``cfg.remat``, each layer group (one layer, or a
+                 dense and a MoE layer) runs under activation
+                 checkpointing while autograd records
+  loss_fn      — {"tokens", "labels"} -> (CE + 0.01 aux, metrics)
   prefill      — tokens [B, S] + empty caches -> (last-position logits,
                  caches); attention runs the flash kernel in every layer
                  without a window
@@ -34,8 +38,10 @@ from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.tree import leaves, records_grad
 from repro_torch.nn.attention import AttnSpec, attention, init_attention
 from repro_torch.nn.embeddings import embed, init_embedding, unembed
 from repro_torch.nn.layers import ffn, init_ffn
@@ -175,18 +181,67 @@ def _head(params: dict, x, cfg: ModelConfig) -> torch.Tensor:
     return unembed(_table(params, "embed" if cfg.tie_embeddings else "unembed", cfg), x)
 
 
+def remat(cfg: ModelConfig, fn: Callable, *args):
+    """``fn(*args)`` — one layer group, its input and its params among
+    ``args`` — under activation checkpointing where ``cfg.remat`` asks for
+    it and autograd records (grad enabled, a tensor among ``args``
+    requiring grad): the JAX package's ``jax.checkpoint`` of the scanned
+    group body, whose activations the backward recomputes.  A serving
+    pass runs ``fn`` as it is.  ``use_reentrant=False`` runs the first
+    pass with grad enabled, so that both passes take the same routes
+    (``nn.attention``, ``nn.ssm``)."""
+    if cfg.remat and records_grad(*filter(torch.is_tensor, leaves(args))):
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
             full_logits: bool = True, flash: Optional[Callable] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens [B, S] -> (f32 logits, aux loss summed over the MoE layers)."""
-    x = embed(params["embed"], tokens)
-    aux = torch.zeros((), device=tokens.device)
-    for i, p in enumerate(params["blocks"]):             # queries at 0..S-1
-        x, a, _ = _block(p, x, None, cfg, window=cfg.window_for_layer(i), flash=flash)
-        aux = aux + a
+    x, aux = layer_groups(params, embed(params["embed"], tokens), cfg, flash=flash)
     if not full_logits:
         x = x[:, -1:]
     return _head(params, x, cfg), aux
+
+
+def layer_groups(params: dict, x: torch.Tensor, cfg: ModelConfig, flash=None):
+    """The layers over embeddings ``x`` [B, S, d] at positions 0..S-1, one
+    group of ``len(_layer_kinds(cfg))`` layers at a time (``remat``) ->
+    (x, aux)."""
+    per = len(_layer_kinds(cfg))
+
+    def group(x, aux, first, blocks):
+        for i, p in enumerate(blocks, first):
+            x, a, _ = _block(p, x, None, cfg, window=cfg.window_for_layer(i), flash=flash)
+            aux = aux + a
+        return x, aux
+
+    aux = torch.zeros((), device=x.device)
+    for first in range(0, cfg.n_layers, per):
+        x, aux = remat(cfg, group, x, aux, first, params["blocks"][first:first + per])
+    return x, aux
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The JAX package's masked CE: ``logsumexp`` minus the gold logit, in
+    the logits' dtype (f32: ``unembed``'s, as the JAX package's
+    ``preferred_element_type``), averaged over the labels >= 0.  A masked
+    label reads logit 0 (the JAX package's gather wraps it; the mask
+    zeroes it either way)."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return torch.sum((logz - gold) * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def loss_fn(params: dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """batch {"tokens", "labels"} [B, S] -> (CE + 0.01 x MoE aux, {"ce",
+    "aux"})."""
+    logits, aux = forward(params, batch["tokens"], cfg)
+    ce = cross_entropy(logits, batch["labels"])
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
 def _per_layer(cfg: ModelConfig, max_len: int) -> bool:

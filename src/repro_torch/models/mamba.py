@@ -13,8 +13,9 @@ loop runs the layers).  Entry points:
 State, not KV, is the decode cache: a stacked pair, the SSM state
 ``[L, B, H, P, N]`` in f32 and the conv cache ``[L, B, K-1, conv_dim]`` in
 the model's dtype, written in place (the JAX package returns a new one).
-``loss_fn`` and training are not ported yet (``get_api``'s ``loss_fn``
-raises).
+``loss_fn`` is the LM's masked CE; with ``cfg.remat`` each layer of a
+non-decode pass runs under activation checkpointing while autograd
+records (``lm.remat``).
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.lm import tree_to_torch, unstack_layers
+from repro_torch.models.lm import cross_entropy, remat, tree_to_torch, unstack_layers
 from repro_torch.nn.embeddings import embed, init_embedding, unembed
 from repro_torch.nn.norms import init_rms, rms_norm
 from repro_torch.nn.ssm import SSMSpec, init_ssm, ssm_forward
@@ -83,8 +84,15 @@ def _stack_pass(params: dict, x, cfg: ModelConfig, state: Optional[State] = None
                 decode: bool = False, ssd: Optional[Callable] = None):
     for i, p in enumerate(params["blocks"]):
         st = (state[0][i], state[1][i]) if state is not None else None
-        x = layer(p, x, cfg, state=st, decode=decode, ssd=ssd)
+        if decode:
+            x = layer(p, x, cfg, state=st, decode=True)
+        else:
+            x = remat(cfg, _prefill_layer, x, p, cfg, st, ssd)
     return x
+
+
+def _prefill_layer(x, p, cfg, st, ssd):
+    return layer(p, x, cfg, state=st, ssd=ssd)
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
@@ -95,6 +103,13 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     if not full_logits:
         x = x[:, -1:]
     return unembed(params["embed"], x), torch.zeros((), device=tokens.device)
+
+
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig):
+    """batch {"tokens", "labels"} [B, S] -> (CE, {"ce", "aux"})."""
+    logits, aux = forward(params, batch["tokens"], cfg)
+    ce = cross_entropy(logits, batch["labels"])
+    return ce, {"ce": ce, "aux": aux}
 
 
 def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, state: State,

@@ -8,6 +8,8 @@ and ``get_cnn_api`` for the CNN families.
     logits, state = api.decode(params, state, {"tokens": tok}, pos, cfg)
     # encdec: batch {"tokens", "frames" [B, T, d]}; vlm: {"tokens",
     # "patches" [B, n_patches, d]}, then decode at pos + n_patches
+    loss, metrics = api.loss_fn(params, {"tokens": t, "labels": l}, cfg)
+    # training: launch.train.train_loop(cfg, steps=, batch=, seq_len=)
 
     api = get_cnn_api("mobilenet_v2")          # on the card ("cuda")
     cfg = api.make_config()                    # 224x224, 1000 classes
@@ -41,6 +43,7 @@ import torch
 
 from repro_torch.core.graph import plan_graph
 from repro_torch.models import encdec, hybrid, lm, mamba, mobilenet, resnet, vlm
+from repro_torch.nn.quant import is_quantized
 
 
 def resolve_device(device=None) -> torch.device:
@@ -54,20 +57,12 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def _not_yet(what: str, item: str) -> Callable:
-    def missing(*args, **kwargs):
-        raise NotImplementedError(
-            f"{what} is not ported yet (ROADMAP: {item})"
-        )
-    return missing
-
-
 @dataclasses.dataclass(frozen=True)
 class ModelAPI:
     """The LM families' uniform surface (the JAX package's ``ModelAPI``)."""
 
     init: Callable                    # (cfg, generator) -> params on device
-    loss_fn: Callable                 # not ported yet: raises
+    loss_fn: Callable                 # (params, batch, cfg) -> (loss, metrics)
     make_serve_state: Callable        # (cfg, batch, max_len) -> caches / state
     prefill: Callable                 # (params, batch, state, cfg)
     decode: Callable                  # (params, state, batch, pos, cfg)
@@ -81,13 +76,29 @@ def _tensor(batch, key: str, dev) -> torch.Tensor:
     return torch.as_tensor(batch[key]).to(dev)
 
 
+def _loss_fn(mod, dev) -> Callable:
+    """The family's ``loss_fn`` on a batch whose leaves (numpy or tensors)
+    go to ``dev``: token ids as int64, frames / patches as they are.  A
+    tree of int8 serve weights (``quantize_tree``) is refused: the JAX
+    package trains float trees only (its ``train_loop`` starts from
+    ``api.init``, and ``jax.grad`` refuses int leaves)."""
+    def loss_fn(params, batch, cfg):
+        if is_quantized(params):
+            raise ValueError("loss_fn: the params hold int8 serve weights "
+                             "(quantize_tree); training takes a float tree")
+        on_dev = {k: torch.as_tensor(v).to(dev, torch.long) if k in ("tokens", "labels")
+                  else torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        return mod.loss_fn(params, on_dev, cfg)
+    return loss_fn
+
+
 def _text_api(mod, make_state: Callable) -> Callable:
     """Families whose batch is tokens alone; ``make_state(cfg, batch,
     max_len, device)``."""
     def api(dev) -> ModelAPI:
         return ModelAPI(
             init=lambda cfg, generator: mod.init(cfg, generator, dev),
-            loss_fn=_not_yet("loss_fn", "training and infrastructure"),
+            loss_fn=_loss_fn(mod, dev),
             make_serve_state=lambda cfg, b, ml: make_state(cfg, b, ml, dev),
             prefill=lambda p, batch, st, cfg: mod.prefill(p, _tokens(batch, dev), cfg, st),
             decode=lambda p, st, batch, pos, cfg: mod.decode_step(
@@ -116,14 +127,14 @@ def _encdec_api(dev) -> ModelAPI:
 
     return ModelAPI(
         init=lambda cfg, generator: encdec.init(cfg, generator, dev),
-        loss_fn=_not_yet("loss_fn", "training and infrastructure"),
+        loss_fn=_loss_fn(encdec, dev),
         make_serve_state=make_state, prefill=prefill, decode=decode)
 
 
 def _vlm_api(dev) -> ModelAPI:
     return ModelAPI(
         init=lambda cfg, generator: vlm.init(cfg, generator, dev),
-        loss_fn=_not_yet("loss_fn", "training and infrastructure"),
+        loss_fn=_loss_fn(vlm, dev),
         make_serve_state=lambda cfg, b, ml: vlm.init_cache(cfg, b, ml, device=dev),
         prefill=lambda p, batch, st, cfg: vlm.prefill(
             p, _tokens(batch, dev), _tensor(batch, "patches", dev), cfg, st),

@@ -1,6 +1,5 @@
 """internvl2-2b backbone: an InternLM2-style causal LM behind a stub
-vision tower; the port's copy of the JAX package's ``models/vlm.py``
-serve path.
+vision tower; the port's copy of the JAX package's ``models/vlm.py``.
 
 The frontend is a stub: the caller supplies precomputed patch embeddings
 ``[B, n_patches, d_model]`` (InternViT's output after the projector),
@@ -31,6 +30,28 @@ def _merge(params: dict, tokens: torch.Tensor, patches: torch.Tensor,
     """[B, St] tokens + [B, Np, d] patches -> [B, Np + St, d] embeddings."""
     tok_x = embed(lm._table(params, "embed", cfg), tokens)
     return torch.cat([patches.to(tok_x.dtype), tok_x], dim=1)
+
+
+def forward(params: dict, tokens: torch.Tensor, patches: torch.Tensor,
+            cfg: ModelConfig, *, full_logits: bool = True,
+            flash: Optional[Callable] = None):
+    """Patches then tokens, from position 0 -> (f32 logits over every
+    position [B, Np + St, V], aux summed over the MoE layers).  The head is
+    the ``embed`` table, as in the JAX package's ``vlm.forward``."""
+    x, aux = lm.layer_groups(params, _merge(params, tokens, patches, cfg), cfg,
+                             flash=flash)
+    x = rms_norm(x, params["final_norm"], eps=cfg.norm_eps)
+    if not full_logits:
+        x = x[:, -1:]
+    return unembed(params["embed"], x), aux
+
+
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig):
+    """CE on the text region only (the labels are text-aligned) + 0.01 aux:
+    batch {"tokens", "labels"} [B, St], {"patches"} [B, Np, d]."""
+    logits, aux = forward(params, batch["tokens"], batch["patches"], cfg)
+    ce = lm.cross_entropy(logits[:, cfg.n_patches:], batch["labels"])
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
 def prefill(params: dict, tokens: torch.Tensor, patches: torch.Tensor,

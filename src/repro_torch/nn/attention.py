@@ -29,6 +29,14 @@ Three routes compute the same function, chosen by the call's structure:
   mask puts query row 0 at position 0; so do windowed layers, which the
   JAX package computes in plain jnp, as ``flash_attention_p`` has no
   window.
+* **under autograd** — a call in which grad is enabled and q, k or v
+  requires grad (a train step: ``loss_fn`` and its backward) — always
+  the masked paths by the ``auto`` rule: the routes the JAX package
+  trains through, whose plain jnp it differentiates.  The kernel has no
+  backward (``kernels/_build.check_operands`` refuses a call that
+  autograd would record), so the choice is made from the call's
+  structure, like the two above; serving calls, whose params do not
+  require grad, keep the kernel route.
 
 A windowed layer whose cache is a ring of ``w`` slots (``ring=True``)
 holds position t at slot ``t mod w``.  Prefill keeps the last ``min(w,
@@ -59,6 +67,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.tree import records_grad
 from repro_torch.kernels.flash_attention import attention_impl
 from repro_torch.nn.embeddings import rope
 from repro_torch.nn.quant import exact_divisor
@@ -363,7 +372,9 @@ def attention(
         k, v = ck, cv
 
     causal = spec.causal and x_kv is None
-    if causal:
+    if records_grad(q, k, v):
+        kernel_route = False            # the reference's differentiated routes
+    elif causal:
         kernel_route = from_zero and not window and not ring
         if kernel_route and positions_given:
             kernel_route = _positions_from_zero(q_positions, sq)

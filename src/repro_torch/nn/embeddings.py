@@ -28,19 +28,51 @@ def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     The operands stay in their storage dtype and the product accumulates
     and returns f32, as ``preferred_element_type`` does in the JAX
     package: no f32 copy of the whole table per call.  On the card that
-    is ``torch.mm(..., out_dtype=torch.float32)``, which a PyTorch without
-    it refuses; on the CPU the table is turned into f32 ``_VOCAB_CHUNK``
-    rows at a time (``unembed_chunked``).
+    is ``_WideLogits``: ``torch.mm(..., out_dtype=torch.float32)``, which
+    a PyTorch without it refuses, given a backward; on the CPU the table
+    is turned into f32 ``_VOCAB_CHUNK`` rows at a time
+    (``unembed_chunked``).
     """
     lead, d = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, d)
     if x2.dtype == table.dtype == torch.float32:
         y = x2 @ table.t()
     elif x2.is_cuda:
-        y = torch.mm(x2, table.t(), out_dtype=torch.float32)
+        y = _WideLogits.apply(x2, table)
     else:
         y = unembed_chunked(table, x2)
     return y.reshape(*lead, table.shape[0])
+
+
+class _WideLogits(torch.autograd.Function):
+    """``x2 @ table.T`` with f32 logits on the card; ``torch.mm(...,
+    out_dtype=)`` has no derivative, so this gives it one.  A call that
+    autograd does not record (serving) keeps no graph and no operands.
+    The backward keeps the f32 cotangent's precision on the tensor cores:
+    it is split into two terms of the operands' dtype (hi + lo, 16 bits of
+    mantissa), each product accumulating in f32, and the sum is rounded
+    once to the operand's dtype, as the JAX package's transpose of an f32
+    ``preferred_element_type`` product rounds an f32 result."""
+
+    @staticmethod
+    def forward(ctx, x2, table):
+        ctx.save_for_backward(x2, table)
+        return torch.mm(x2, table.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, table = ctx.saved_tensors
+        hi = g.to(table.dtype)
+        lo = (g - hi.float()).to(table.dtype)
+
+        gx = gt = None
+        if ctx.needs_input_grad[0]:
+            gx = (torch.mm(hi, table, out_dtype=torch.float32)
+                  + torch.mm(lo, table, out_dtype=torch.float32)).to(x2.dtype)
+        if ctx.needs_input_grad[1]:
+            gt = (torch.mm(hi.t(), x2, out_dtype=torch.float32)
+                  + torch.mm(lo.t(), x2, out_dtype=torch.float32)).to(table.dtype)
+        return gx, gt
 
 
 def unembed_chunked(table: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:

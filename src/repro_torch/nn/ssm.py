@@ -6,7 +6,19 @@ Prefill runs the chunked SSD on the CUDA kernel
 function in plain jnp (``ssd_chunked_streaming`` or ``ssd_chunked``, by
 ``SSMSpec.streaming``); the port keeps both plain forms and has one
 route, so its ``SSMSpec`` carries neither that choice nor the mesh
-route's ``seq_parallel``.  Decode is the dual recurrent form, one
+route's ``seq_parallel``.  Under autograd (grad enabled and an operand of
+the scan requiring grad: a train step) the scan is ``ssd_chunked``, the
+JAX package's vectorized plain form (``SSMSpec.streaming=False``; the
+same function as its default streaming form), which autograd
+differentiates: the kernel has no backward
+(``kernels/_build.check_operands`` refuses a call that autograd would
+record).  The choice is made from the call's structure; serving calls,
+whose params do not require grad, keep the kernel.  The vectorized form
+records a few ops a layer where the streaming form records some 25 a
+chunk, which held a mamba2 train step on the host; and it masks its
+decay before the exp (``_segsum``), where the streaming form's
+``where(tri, exp(diff), 0)`` has a NaN gradient (0 x inf) wherever exp
+overflows above the diagonal.  Decode is the dual recurrent form, one
 state update per token, in plain tensor ops as in the JAX package:
   S' = exp(dt*A) * S + dt * B x^T ;  y = C S' + D x.
 
@@ -28,6 +40,7 @@ from typing import Callable, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.tree import records_grad
 from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_chunk_plain
 from repro_torch.nn.layers import _dense_init
 
@@ -158,7 +171,8 @@ def ssm_forward(
     """Returns (y [B, L, d_model], new_state).  ``decode=True`` requires
     L == 1 and a state; prefill ignores ``state`` and starts from zero, as
     in the JAX package.  ``ssd`` replaces the SSD kernel at prefill
-    (default ``kernels.ssd_chunk.ssd_chunk``; same contract)."""
+    (default ``kernels.ssd_chunk.ssd_chunk``; same contract); under
+    autograd the scan is ``ssd_chunked``."""
     bsz, l, _ = u.shape
     h, p, n, g = spec.n_heads, spec.head_dim, spec.d_state, spec.n_groups
     di = spec.d_inner
@@ -201,7 +215,8 @@ def ssm_forward(
         xs_p, dt_p, b_p, c_p = (
             F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad_to)).contiguous()
             for t in (xs, dt, bmat, cmat))
-        y, s_final = (ssd or ssd_chunk)(xs_p, dt_p, a, b_p, c_p, chunk=spec.chunk)
+        scan = ssd_chunked if records_grad(xs_p, dt_p, a, b_p, c_p) else (ssd or ssd_chunk)
+        y, s_final = scan(xs_p, dt_p, a, b_p, c_p, chunk=spec.chunk)
         y = y[:, :l] + params["d_skip"][None, None, :, None] * xs.float()
         y = y.reshape(bsz, l, di)
         new_state = (s_final, new_conv)

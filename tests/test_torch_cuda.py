@@ -1062,3 +1062,93 @@ def test_placed_int8_transfer_bytes_equal_the_plans_cut_bytes(card):
     got = {k: v for k, v in rep.metrics.snapshot().items()
            if k.startswith("transfer_bytes")}
     assert got == want and got
+
+
+# ---------------------------------------------------------------------------
+# training: the kernels refuse autograd; a reduced train step on the card
+# ---------------------------------------------------------------------------
+
+GUARDED = {
+    "fcu_matmul": lambda x: fcu_matmul.fcu_matmul(x, torch.ones(8, 8, device=x.device),
+                                                  bm=4, bk=8, bn=8),
+    "kpu_conv": lambda x: kpu_conv.kpu_conv(x.reshape(1, 2, 2, 8),
+                                            torch.ones(3, 3, 8, 8, device=x.device),
+                                            stride=1, bm=4, bci=8, bco=8),
+    "dw_conv": lambda x: dw_conv.dw_conv(x.reshape(1, 2, 2, 8),
+                                         torch.ones(3, 3, 8, device=x.device),
+                                         stride=1, bm=2, bc=8),
+    "flash_attention": lambda x: fa.flash_attention(
+        x.reshape(1, 2, 1, 16), *[torch.ones(1, 1, 1, 16, device=x.device)] * 2,
+        block_q=16, block_k=16),
+    "ssd_chunk": lambda x: sc.ssd_chunk(
+        x.reshape(1, 16, 1, 2), torch.ones(1, 16, 1, device=x.device),
+        -torch.ones(1, device=x.device), *[torch.ones(1, 16, 1, 2, device=x.device)] * 2,
+        chunk=16),
+}
+
+
+@pytest.mark.parametrize("name", sorted(GUARDED))
+def test_kernels_refuse_autograd_on_card(card, name):
+    """A CUDA operand requiring grad with grad enabled raises before the
+    launch (the launch counter stays put); under ``torch.no_grad()`` the
+    same call launches and matches the plain version on the CPU."""
+    mod = {"fcu_matmul": fcu_matmul, "kpu_conv": kpu_conv, "dw_conv": dw_conv,
+           "flash_attention": fa, "ssd_chunk": sc}[name]
+    wrapper = getattr(mod, name)
+    x = _rand((4, 8), 40).to(card).requires_grad_(True)
+    before = wrapper.launches
+    with pytest.raises(RuntimeError, match=f"{name}: the kernel has no backward"):
+        GUARDED[name](x)
+    assert wrapper.launches == before
+    with torch.no_grad():
+        got = GUARDED[name](x)
+    assert wrapper.launches == before + 1
+    want = GUARDED[name](x.detach().cpu())
+    for a, b in zip(*(o if isinstance(o, tuple) else (o,) for o in (got, want))):
+        _close(a.cpu(), b)
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b", "mamba2-780m", "zamba2-1.2b"])
+def test_reduced_train_step_on_card_matches_cpu(card, arch):
+    """``loss_fn`` and its grads at 2 layers, d_model 64, vocab 512, 64
+    tokens, f32, TF32 off: the card within 1e-4 of the CPU (loss
+    relative, each grad leaf of its scale), and no kernel launched."""
+    from repro_torch.launch import train
+    from repro_torch.models.registry import get_api
+    from repro_torch.tree import leaves, unflatten
+
+    cfg = reduced(get_config(arch), layers=2, d_model=64, vocab=512)
+    cpu = get_api(cfg, "cpu").init(cfg, torch.Generator().manual_seed(1))
+    rng = np.random.default_rng(3)
+    batch = {"tokens": rng.integers(0, 512, (2, 64)), "labels": rng.integers(0, 512, (2, 64))}
+    launches = fa.flash_attention.launches + sc.ssd_chunk.launches
+    out = {}
+    for dev in ("cpu", card):
+        params = train.trainable(unflatten(
+            cpu, [p.detach().clone().to(dev) for p in leaves(cpu)]))
+        loss, _ = get_api(cfg, dev).loss_fn(params, batch, cfg)
+        grads = torch.autograd.grad(loss, leaves(params), materialize_grads=True)
+        out[str(dev)] = (loss.detach().cpu(), [g.cpu() for g in grads])
+    assert fa.flash_attention.launches + sc.ssd_chunk.launches == launches
+    (l_cpu, g_cpu), (l_card, g_card) = out["cpu"], out["cuda"]
+    assert abs(float(l_card) - float(l_cpu)) <= TOL * abs(float(l_cpu))
+    for a, b in zip(g_card, g_cpu):
+        assert (a - b).abs().max().item() <= TOL * max(b.abs().max().item(), 1e-30)
+
+
+def test_bf16_head_backward_on_card(card):
+    """The card's bf16 head under autograd (f32 logits; a backward of two
+    bf16 terms of the f32 cotangent): grads within one bf16 rounding
+    (2^-8) of the f32 products of the same bf16 values."""
+    gen = torch.Generator(device=card).manual_seed(4)
+    x = torch.randn((64, 128), generator=gen, device=card).bfloat16().requires_grad_(True)
+    table = (0.02 * torch.randn((512, 128), generator=gen, device=card)).bfloat16()
+    table.requires_grad_(True)
+    g = torch.randn((64, 512), generator=gen, device=card)
+    logits = unembed(table, x)
+    assert logits.dtype == torch.float32 and logits.grad_fn is not None
+    got = torch.autograd.grad(logits, [x, table], g)
+    want = (g @ table.detach().float(), g.t() @ x.detach().float())
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        assert (a.float() - b).abs().max().item() <= 2.0 ** -8 * b.abs().max().item()

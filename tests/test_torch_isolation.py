@@ -1,6 +1,8 @@
 """The port stands alone: no jax, nothing of ``repro``, no silent CPU path.
 
-Importing every module of ``repro_torch`` (``nn.moe`` and the LM path
+Importing every module of ``repro_torch`` (``nn.moe``, the LM path and
+the training path — ``optim``, ``data``, ``checkpoint``,
+``distributed.fault_tolerance``, ``launch.train``, ``serving.kv_cache`` —
 named among them) and ``chip_smoke`` (which runs nothing on import) in a
 fresh interpreter must leave ``jax`` and every ``repro`` module out of
 ``sys.modules``.  The entry point resolves its
@@ -36,7 +38,12 @@ def test_port_imports_no_jax_and_no_repro():
         bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(
             ("jax.", "jaxlib")) or m == "repro" or m.startswith("repro."))
         missing = sorted({{"repro_torch.nn.moe", "repro_torch.nn.attention",
-                           "repro_torch.models.lm"}} - set(names))
+                           "repro_torch.models.lm", "repro_torch.serving.kv_cache",
+                           "repro_torch.optim.schedules", "repro_torch.optim.optimizers",
+                           "repro_torch.data.pipeline",
+                           "repro_torch.checkpoint.checkpointer",
+                           "repro_torch.distributed.fault_tolerance",
+                           "repro_torch.launch.train"}} - set(names))
         print(len(names), missing, bad)
         sys.exit(1 if bad or missing or len(names) < 15 else 0)
     """)

@@ -253,8 +253,10 @@ def test_get_api_needs_cuda_by_default(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         registry.get_api(cfg)
     api = registry.get_api(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.loss_fn({}, {}, cfg)
+    params = api.init(cfg, torch.Generator().manual_seed(0))
+    toks = np.ones((1, 6), np.int32)
+    loss, metrics = api.loss_fn(params, {"tokens": toks, "labels": toks}, cfg)
+    assert loss.device.type == "cpu" and bool(torch.isfinite(loss)) and "ce" in metrics
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Engine(cfg, {}, slots=1)
 

@@ -151,9 +151,9 @@ def test_init_graph_params_from_generator():
 
 
 def test_unported_entry_points_raise():
-    """What later slices port raises with its ROADMAP name (the LM
-    ``loss_fn``: training and infrastructure).  Stages on devices of
-    their own are ported: ``placement=`` and the stream engine's
+    """Named for the gaps it held until they were ported: the LM
+    ``loss_fn`` (training) now gives a finite loss on the CPU.  Stages on
+    devices of their own are ported: ``placement=`` and the stream engine's
     ``execute="devices"`` run on the CPU's one-device pool, equal to the
     unplaced path, and the cut-transfer hook (``StagePipeline.observe``)
     is called on every placed transfer."""
@@ -162,8 +162,11 @@ def test_unported_entry_points_raise():
     from repro_torch.serving import ServeConfig
 
     lm_cfg = reduced(get_config("qwen2-7b"), layers=1, d_model=32, vocab=64)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP: training and infrastructure"):
-        get_api(lm_cfg, device="cpu").loss_fn()
+    api = get_api(lm_cfg, device="cpu")
+    toks = np.ones((1, 4), np.int32)
+    loss, _ = api.loss_fn(api.init(lm_cfg, torch.Generator().manual_seed(0)),
+                          {"tokens": toks, "labels": toks}, lm_cfg)
+    assert bool(torch.isfinite(loss))
     pa = get_cnn_api("resnet18", device="cpu")
     cfg = pa.make_config(input_hw=HW)
     params = pa.init(cfg, torch.Generator().manual_seed(0))

@@ -385,8 +385,9 @@ def test_get_api_serves_the_ssm_families(arch, monkeypatch):
     logits, state = api.decode(params, state, {"tokens": np.ones((2, 1), np.int32)},
                                np.array([5, 5]), cfg)
     assert logits.shape == (2, 1, cfg.vocab) and bool(torch.isfinite(logits).all())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.loss_fn(params, {}, cfg)
+    loss, _ = api.loss_fn(params, {"tokens": np.ones((2, 5), np.int32),
+                                   "labels": np.ones((2, 5), np.int32)}, cfg)
+    assert loss.device.type == "cpu" and bool(torch.isfinite(loss))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         registry.get_api(cfg)
