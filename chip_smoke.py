@@ -151,7 +151,25 @@ printing JSON lines:
    against the uninterrupted run at RESUME_TOL, and the kernel guard (a
    flash call with q requiring grad raises); and the paged KV cache at
    qwen2-7b's widths, written token by token and gathered bit for bit;
-11. the ``kernels`` line, the card line, and the final ``ok`` line.
+11. mesh_ssd, mesh_prefill, mesh_collectives, mesh_pipeline, mesh_train —
+   the mesh runtime, K ranks spawned on cuda:0 under gloo by the
+   multi-rank tests' harness, ``tests/torch_ranks.py`` (NCCL takes one
+   rank a card; the kernel library is built before they start): the
+   sequence-parallel SSD scan at mamba2-780m's widths on MESH_TOKENS
+   tokens, K in MESH_WORLDS, f32 and bf16 (one SSD launch a rank; y and
+   the final state against one launch over the whole sequence and the
+   plain scan, at the kernels phase's f32 and bf16 gates); mamba2-780m's prefill on a (1, 2) mesh (48 launches a
+   rank; logits against the one-process prefill on an f32 copy at TOL,
+   bf16 within the ssm phase's tolerance; host and device ms beside one
+   process's); ``compressed_psum`` on 4 ranks at gemma3-1b's wq shape
+   (bit for bit the CPU's every step, error feedback within the JAX
+   package's test bounds); a line saying why the ring pipeline stays on
+   the CPU; gemma3-1b's sharded train step (4 of 26 layers, DTensor
+   params, state and batch on a (1, 1) mesh of one NCCL rank) against the
+   unsharded step (equal losses, no kernel launch, every leaf a DTensor,
+   both steps' host ms);
+12. the ``kernels`` line (the SSD row with each rank's launches in the
+   mesh phases, as counted there), the card line, and the final ``ok`` line.
 
 Any failure raises: the script then exits non-zero and prints no result.
 """
@@ -159,6 +177,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -264,6 +283,24 @@ PAGED_KV = dict(n_blocks=64, block_size=16, n_layers=28, n_kv=4, head_dim=128)
 PAGED_KV_TOKENS = 200
 BLOCKWISE_CHECK = ("f32 copy: blockwise vs dense at TOL; bf16 blockwise vs f32 dense at "
                    "BF16_TOL")
+# The mesh phases (``launch/mesh.py``, ``distributed/``, ``nn.ssm.ssd_seq_parallel``):
+# K ranks on cuda:0 under gloo (NCCL takes one rank a card), a FileStore
+# rendezvous in a temporary directory, the kernel library built here
+# before the ranks start.  K ranks share one card's SMs: a time here says
+# nothing about K cards.  mesh_ssd: mamba2-780m's widths on MESH_TOKENS
+# tokens; mesh_prefill: mamba2-780m on one MESH_TOKENS-token prompt on a
+# (1, 2) mesh; mesh_collectives: compressed_psum on 4 ranks at gemma3-1b's
+# wq shape, MESH_PSUM_STEPS steps of error feedback within the JAX
+# package's test bounds (tests/distributed/test_substrate.py);
+# mesh_train: gemma3-1b at full width, MESH_TRAIN_LAYERS of its 26
+# layers, MESH_TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens on a
+# (1, 1) mesh of one NCCL rank, against the unsharded step.
+MESH_WORLDS = (2, 4)
+MESH_TOKENS = 2048
+MESH_SSD = dict(h=48, p=64, g=1, n=128, chunk=128)
+MESH_PSUM_STEPS = 30
+MESH_PSUM_BOUNDS = (0.05, 0.02)       # last step's mean, the mean over the steps
+MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS, MESH_TRAIN_TOL = 4, 3, 1e-5
 KERNELS = {
     "fcu_matmul": ("src/repro_torch/kernels/csrc/fcu_matmul.cu",
                    "src/repro/kernels/fcu_matmul/fcu_matmul.py:45"),
@@ -361,13 +398,10 @@ class KernelBench:
         for y, ref in zip(ys, refs):
             require(bool(torch.isfinite(y).all()), f"{label}: non-finite output")
             ref = ref.float()
-            diff = (y.float() - ref).abs()
-            err = max(err, diff.max().item())
+            err = max(err, (y.float() - ref).abs().max().item())
             scale = max(scale, ref.abs().max().item())
             if elementwise is not None:
-                rtol, atol, rms = elementwise
-                limit = rtol * ref.abs() + atol + rms * ref.square().mean().sqrt()
-                worst = max(worst, (diff / limit).max().item())
+                worst = max(worst, worst_of_limit(torch, y, ref, elementwise))
         row = {"node": label, "kernel": kernel, **(info or {}), "max_abs_err": err,
                "rel_err": err / scale, "tolerance": tol}
         if elementwise is None:
@@ -2642,6 +2676,384 @@ def run_paged_kv(torch):
           "gather_ms_host": gather_ms, "gather": "bit for bit the written values"})
 
 
+def run_ranks(world, fn) -> list:
+    """``fn(rank, world)`` on ``world`` spawned processes through the
+    multi-rank tests' harness (``tests/torch_ranks.py``): every rank on
+    cuda:0 in one gloo process group over a FileStore in a temporary
+    directory; the ranks' results in rank order.  A rank that raises makes
+    this raise with its traceback.  The kernel library must be built before
+    (``_build.library`` in this process): the ranks load it and build
+    nothing."""
+    import tempfile
+
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_ranks
+
+    with tempfile.TemporaryDirectory() as tmp:
+        return torch_ranks.result(
+            torch_ranks.run_ranks(world, {"phase": fn}, tmp, device="cuda"), "phase")
+
+
+def worst_of_limit(torch, got, want, tol) -> float:
+    """The largest |got - want| / (rtol x |want| + atol + rms x rms(want))
+    of ``tol = (rtol, atol, rms)``, the kernels phase's elementwise gate;
+    <= 1 passes."""
+    rtol, atol, rms = tol
+    want = want.float()
+    limit = rtol * want.abs() + atol + rms * want.square().mean().sqrt()
+    return ((got.float() - want).abs() / limit).max().item()
+
+
+def _mesh_ssd_inputs(torch, dtype):
+    """mamba2-780m's SSD operands at MESH_TOKENS tokens, drawn as
+    ``bench_ssd`` draws them, the same on every rank (one seed)."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    h, p, g, n = (MESH_SSD[k] for k in "hpgn")
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    u = torch.rand((h,), generator=gen, device="cuda") * (math.log(0.1) - math.log(0.001))
+    dt0 = torch.exp(u + math.log(0.001))
+    dt_bias = dt0 + torch.log(-torch.expm1(-dt0))
+    x, bb, cc = (F.silu(draw(1, MESH_TOKENS, *s)) for s in ((h, p), (g, n), (g, n)))
+    dt = F.softplus(draw(1, MESH_TOKENS, h) + dt_bias)
+    a = -torch.arange(1, h + 1, dtype=torch.float32, device="cuda")
+    return tuple(t.to(dtype) for t in (x, dt, bb, cc)), a
+
+
+def _mesh_ssd_rank(rank, world):
+    """One rank of ``mesh_ssd``: ``ssd_seq_parallel`` on the (1, K) mesh,
+    in f32 and with bf16 operands; its ssd_chunk launches, and y and the
+    final state against one ``ssd_chunk`` over the whole sequence and
+    against ``ssd_chunk_plain``."""
+    import torch
+
+    from repro_torch.kernels import ssd_chunk as sc
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.nn.ssm import ssd_seq_parallel
+
+    mesh = make_local_mesh(world)
+    chunk = MESH_SSD["chunk"]
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        (x, dt, bb, cc), a = _mesh_ssd_inputs(torch, dtype)
+
+        def run():
+            return ssd_seq_parallel(x, dt, a, bb, cc, chunk=chunk, mesh=mesh)
+
+        sc.ssd_chunk.launches = 0
+        y, s = run()
+        torch.cuda.synchronize()
+        launches = sc.ssd_chunk.launches
+        whole_y, whole_s = sc.ssd_chunk(x, dt, a, bb, cc, chunk=chunk)
+        plain_y, plain_s = sc.ssd_chunk_plain(x, dt, a, bb, cc, chunk=chunk)
+        tol = SSD_BF16_TOL if dtype == torch.bfloat16 else SSD_TOL
+        errs = {"y_vs_kernel": worst_of_limit(torch, y, whole_y, tol),
+                "state_vs_kernel": worst_of_limit(torch, s, whole_s, SSD_TOL),
+                "y_vs_plain": worst_of_limit(torch, y, plain_y, tol),
+                "state_vs_plain": worst_of_limit(torch, s, plain_s, SSD_TOL),
+                "y_max_abs_err_vs_kernel": (y.float() - whole_y.float()).abs().max().item()}
+        finite = bool(torch.isfinite(y).all()) and bool(torch.isfinite(s).all())
+        ms = cuda_ms(torch, run, launches=3, repeats=3)
+        whole_ms = cuda_ms(torch, lambda: sc.ssd_chunk(x, dt, a, bb, cc, chunk=chunk),
+                           launches=3, repeats=3)
+        out[str(dtype).removeprefix("torch.")] = {
+            "launches": launches, "finite": finite, "worst_of_limit": errs,
+            "ms": ms, "whole_sequence_kernel_ms": whole_ms,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    return out
+
+
+def run_mesh_ssd(torch):
+    """``mesh_ssd``: ``ssd_seq_parallel`` at mamba2-780m's widths on
+    MESH_TOKENS tokens, K in MESH_WORLDS ranks.  Gates, on every rank, in
+    f32 and with bf16 operands: one ssd_chunk launch; y and the final
+    state against one ``ssd_chunk`` over the whole sequence and against
+    ``ssd_chunk_plain``, at SSD_TOL (f32) and SSD_BF16_TOL (bf16 y), the
+    kernels phase's gates.  Returns the launches each rank's call made, by
+    K and dtype."""
+    launches = {}
+    for world in MESH_WORLDS:
+        ranks = run_ranks(world, _mesh_ssd_rank)
+        for dtype in ("float32", "bfloat16"):
+            rows = [r[dtype] for r in ranks]
+            launches[f"K={world}/{dtype}"] = [r["launches"] for r in rows]
+            for rank, row in enumerate(rows):
+                require(row["launches"] == 1 and row["finite"],
+                        f"mesh_ssd K={world} {dtype} rank {rank}: {row['launches']} "
+                        f"ssd_chunk launches (want 1), finite {row['finite']}")
+                worst = max(row["worst_of_limit"][k] for k in
+                            ("y_vs_kernel", "state_vs_kernel", "y_vs_plain", "state_vs_plain"))
+                require(worst <= 1.0, f"mesh_ssd K={world} {dtype} rank {rank}: "
+                                      f"{row['worst_of_limit']}")
+            emit({"phase": "mesh_ssd", "ranks": world, "mesh": [1, world], "dtype": dtype,
+                  "tokens": MESH_TOKENS, **MESH_SSD, "device": "cuda:0 (every rank)",
+                  "backend": "gloo", "launches_per_rank": [r["launches"] for r in rows],
+                  "worst_of_limit": [r["worst_of_limit"] for r in rows],
+                  "tolerance": SSD_BF16_TOL if dtype == "bfloat16" else SSD_TOL,
+                  "ms_per_rank": [r["ms"] for r in rows],
+                  "peak_gb_per_rank": [r["peak_gb"] for r in rows],
+                  "whole_sequence_kernel_ms": rows[0]["whole_sequence_kernel_ms"],
+                  "note": f"{world} ranks share one card's SMs: a time here says "
+                          f"nothing about {world} cards"})
+    return launches
+
+
+def _mesh_prefill_rank(rank, world):
+    """One rank of ``mesh_prefill``: mamba2-780m's prefill of one
+    MESH_TOKENS-token prompt on the (1, K) mesh and in one process, bf16
+    weights and an f32 copy; launches, logits, host and device ms."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ssd_chunk as sc
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.registry import get_api
+
+    cfg = get_config("mamba2-780m")
+    api = get_api(cfg)
+    params = api.init(cfg, torch.Generator(device="cuda").manual_seed(0))
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    params32 = _cast(params, torch.float32)
+    toks = torch.as_tensor(np.random.default_rng(2026).integers(0, cfg.vocab, MESH_TOKENS),
+                           dtype=torch.long, device="cuda")[None]
+    mesh = make_local_mesh(world)
+    out = {}
+    for name, c, prm in (("bf16", cfg, params), ("f32", cfg32, params32)):
+        for where in ("one_process", "mesh"):
+            ctx = mesh if where == "mesh" else contextlib.nullcontext()
+            host, dev = [], []
+            for i in range(3):                      # warm, then two timed
+                state = api.make_serve_state(c, 1, MESH_TOKENS)
+                sc.ssd_chunk.launches = 0
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                    enable_timing=True)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                start.record()
+                with ctx:
+                    logits, _ = api.prefill(prm, {"tokens": toks}, state, c)
+                end.record()
+                torch.cuda.synchronize()
+                host.append((time.perf_counter() - t0) * 1e3)
+                dev.append(start.elapsed_time(end))
+            out[(name, where)] = {"logits": logits.float().cpu(),
+                                  "launches": sc.ssd_chunk.launches,
+                                  "host_ms": statistics.median(host[1:]),
+                                  "device_ms": statistics.median(dev[1:])}
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def run_mesh_prefill(torch):
+    """``mesh_prefill``: mamba2-780m at full size (bf16 weights from a
+    seeded CUDA generator), one MESH_TOKENS-token prompt, prefilled
+    through ``ssm_forward`` on a (1, 2) mesh: every layer's scan on
+    ``ssd_seq_parallel``.  Gates, on each rank: 48 ssd_chunk launches a
+    prefill; the logits on an f32 copy of the weights against the
+    one-process prefill at TOL of their scale, and the bf16 logits within
+    the ssm phase's served tolerance (SSM_CHECK).  Prints each rank's host
+    and device ms beside the one-process prefill's.  Returns each rank's
+    launches a prefill on the mesh, by the weights' dtype."""
+    from repro_torch.configs.registry import get_config
+
+    world = 2
+    ranks = run_ranks(world, _mesh_prefill_rank)
+    n_layers = get_config("mamba2-780m").n_layers
+    tol = {"f32": TOL, "bf16": SSM_BF16_FACTOR * SSM_BF16_WITNESS["mamba2-780m"]}
+    rows = []
+    for rank, out in enumerate(ranks):
+        row = {"rank": rank}
+        for name in ("bf16", "f32"):
+            mesh, one = out[(name, "mesh")], out[(name, "one_process")]
+            require(mesh["launches"] == n_layers and one["launches"] == n_layers,
+                    f"mesh_prefill rank {rank} {name}: ssd_chunk launches "
+                    f"{mesh['launches']} on the mesh, {one['launches']} in one process")
+            got, want = mesh["logits"], one["logits"]
+            require(tuple(got.shape) == (1, 1, 50280) and bool(got.isfinite().all()),
+                    f"mesh_prefill rank {rank} {name}: logits {tuple(got.shape)}")
+            scale = max(1.0, want.abs().max().item())
+            err = (got - want).abs().max().item()
+            require(err <= tol[name] * scale, f"mesh_prefill rank {rank} {name}: logits vs "
+                    f"one process max|err| {err} > {tol[name]} x {scale}")
+            row[name] = {"ssd_launches": mesh["launches"], "logits_max_abs_err": err,
+                         "logits_scale": scale, "tolerance": tol[name],
+                         "greedy_agrees": int(got.argmax()) == int(want.argmax()),
+                         "host_ms": mesh["host_ms"], "device_ms": mesh["device_ms"],
+                         "one_process_host_ms": one["host_ms"],
+                         "one_process_device_ms": one["device_ms"]}
+        row["peak_gb"] = out["peak_gb"]
+        rows.append(row)
+    emit({"phase": "mesh_prefill", "model": "mamba2-780m", "tokens": MESH_TOKENS,
+          "mesh": [1, world], "backend": "gloo", "device": "cuda:0 (every rank)",
+          "gate": SSM_CHECK, "ranks": rows,
+          "note": f"{world} ranks share one card's SMs: a time here says nothing about "
+                  f"{world} cards"})
+    return {name: [out[(name, "mesh")]["launches"] for out in ranks]
+            for name in ("bf16", "f32")}
+
+
+def _mesh_psum_rank(rank, world, *, shape):
+    """One rank of ``mesh_collectives``: MESH_PSUM_STEPS steps of
+    ``compressed_psum`` on a CUDA grad, each held bit for bit against the
+    same call on CPU copies of the payload (the same group)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed.collectives import compressed_psum
+
+    g = torch.randn(shape, generator=torch.Generator(device="cuda").manual_seed(100 + rank),
+                    device="cuda")
+    true_mean = g.clone()
+    dist.all_reduce(true_mean)
+    true_mean /= world
+    res, acc, exact = torch.zeros_like(g), torch.zeros_like(g), True
+    times = []
+    for _ in range(MESH_PSUM_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mean, new_res = compressed_psum(g, res)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        mean_c, res_c = compressed_psum(g.cpu(), res.cpu())
+        exact &= torch.equal(mean.cpu(), mean_c) and torch.equal(new_res.cpu(), res_c)
+        res = new_res
+        acc += mean / MESH_PSUM_STEPS
+    return {"bit_for_bit_cpu": exact,
+            "last_err": (mean - true_mean).abs().max().item(),
+            "mean_err": (acc - true_mean).abs().max().item(),
+            "host_ms_median": statistics.median(times)}
+
+
+def run_mesh_collectives(torch):
+    """``mesh_collectives``: ``compressed_psum`` on 4 ranks with CUDA
+    grads of gemma3-1b's wq shape [1152, 1024]: every step's mean and
+    residual bit for bit the rank's CPU recomputation (the int8 divisor
+    stays exact on the card), and error feedback within
+    MESH_PSUM_BOUNDS of the true mean."""
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config("gemma3-1b")
+    shape = (cfg.d_model, cfg.n_heads * cfg.head_dim)
+    world = 4
+    ranks = run_ranks(world, functools.partial(_mesh_psum_rank, shape=shape))
+    for rank, r in enumerate(ranks):
+        require(r["bit_for_bit_cpu"], f"mesh_collectives rank {rank}: the card's int8 "
+                                      "payload or residual differs from the CPU's")
+        require(r["last_err"] < MESH_PSUM_BOUNDS[0] and r["mean_err"] < MESH_PSUM_BOUNDS[1],
+                f"mesh_collectives rank {rank}: errors {r['last_err']}, {r['mean_err']} "
+                f"past {MESH_PSUM_BOUNDS}")
+    emit({"phase": "mesh_collectives", "ranks": world, "backend": "gloo",
+          "device": "cuda:0 (every rank)", "shape": list(shape), "of": "gemma3-1b wq",
+          "steps": MESH_PSUM_STEPS, "bounds": MESH_PSUM_BOUNDS,
+          "per_rank": ranks, "check": "mean and residual bit for bit the CPU's, every step"})
+
+
+def mesh_pipeline_line() -> None:
+    """The ring pipeline (``pipeline_forward``) does not run on the card:
+    its ticks move activations with ``batch_isend_irecv``, and gloo's send
+    and recv take no CUDA tensors (a device pointer fails in the TCP
+    transport's writev), while NCCL takes one rank a card.  It is held on
+    the CPU, against the JAX package, by tests/test_torch_seq_parallel.py."""
+    emit({"phase": "mesh_pipeline", "ran": False,
+          "reason": "gloo send/recv take no CUDA tensors; NCCL needs a card a rank",
+          "held_by": "tests/test_torch_seq_parallel.py (gloo, CPU, S = 2 and 4)"})
+
+
+def run_mesh_train(torch, kernels_mod):
+    """``mesh_train``: a world of one NCCL rank on a (1, 1) mesh; gemma3-1b
+    at full width, MESH_TRAIN_LAYERS of its 26 layers (bf16 params, f32
+    AdamW moments), MESH_TRAIN_STEPS steps of SyntheticLM seed-0 batches of
+    TRAIN_BATCH x TRAIN_SEQ tokens through ``build_train_step`` on DTensor
+    params, state and batch, against the unsharded step on the same weights
+    and batches.  Gates: every param and state leaf a DTensor after each
+    step; no kernel launch; each loss within MESH_TRAIN_TOL relative of the
+    unsharded step's.  Prints both steps' host ms (DTensor's dispatch
+    cost)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import tree
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.registry import get_api
+    from repro_torch.optim import optimizers as opt
+
+    cfg = dataclasses.replace(get_config("gemma3-1b"), n_layers=MESH_TRAIN_LAYERS)
+    api = get_api(cfg)
+    adam = train.adam_config_for(cfg, lr=TRAIN_LR, total_steps=MESH_TRAIN_STEPS,
+                                 warmup_steps=1)
+    params = api.init(cfg, torch.Generator(device="cuda").manual_seed(0))
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH, seed=0)
+    batches = [next(data) for _ in range(MESH_TRAIN_STEPS)]
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            mesh = make_local_mesh()
+            pshard = shd.params_shardings(params, mesh)
+            sharded = train.trainable(shd.shard_tree(params, pshard))
+            plain = train.trainable(tree.unflatten(params, [p.clone() for p in tree.leaves(params)]))
+            del params
+            state_plain = opt.init(adam, plain)
+            state_sh = shd.shard_tree(opt.init(adam, plain),
+                                      shd.opt_state_shardings(state_plain, plain, mesh))
+            step_plain = train.build_train_step(cfg, adam)
+            step_sh = train.build_train_step(cfg, adam, grad_shardings=pshard)
+            rows = []
+            for i, batch in enumerate(batches):
+                row = {"step": i + 1}
+                for name, fn, ctx in (("unsharded", lambda: step_plain(plain, state_plain, batch),
+                                       contextlib.nullcontext()),
+                                      ("sharded", lambda: step_sh(
+                                          sharded, state_sh, shd.shard_tree(
+                                              batch, shd.batch_specs(batch, mesh))), mesh)):
+                    reset_counts(kernels_mod)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    with ctx:
+                        _, st, metrics = fn()
+                    loss = metrics["loss"]
+                    loss = float(loss.full_tensor() if isinstance(loss, DTensor) else loss)
+                    torch.cuda.synchronize()
+                    row[f"{name}_host_ms"] = (time.perf_counter() - t0) * 1e3
+                    row[f"{name}_loss"] = loss
+                    require(not any(read_counts(kernels_mod).values()),
+                            f"mesh_train: kernels launched in the {name} step")
+                    if name == "sharded":
+                        state_sh = st
+                        leaves = tree.leaves(sharded) + tree.leaves(state_sh)
+                        require(all(isinstance(t, DTensor) for t in leaves),
+                                "mesh_train: a leaf is no DTensor after the step")
+                    else:
+                        state_plain = st
+                rel = abs(row["sharded_loss"] - row["unsharded_loss"]) / abs(row["unsharded_loss"])
+                require(math.isfinite(row["sharded_loss"]) and rel <= MESH_TRAIN_TOL,
+                        f"mesh_train step {i + 1}: loss {row['sharded_loss']} vs "
+                        f"{row['unsharded_loss']} (relative {rel})")
+                row["loss_rel_err"] = rel
+                rows.append(row)
+        finally:
+            dist.destroy_process_group()
+    emit({"phase": "mesh_train", "model": cfg.name, "layers": MESH_TRAIN_LAYERS,
+          "d_model": cfg.d_model, "vocab": cfg.vocab, "param_dtype": cfg.param_dtype,
+          "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ, "mesh": [1, 1], "backend": "nccl",
+          "steps": rows, "tolerance": MESH_TRAIN_TOL, "kernel_launches": 0,
+          "host_ms_note": "sharded - unsharded host ms is DTensor's dispatch cost a step"})
+    del plain, sharded, state_plain, state_sh
+    torch.cuda.empty_cache()
+
+
 def summarise(name, rows) -> dict:
     """One route's rows of kernel ``name``, summed over the timed shapes:
     ms, the plain version's and the library call's ms, the bound, and the
@@ -2807,8 +3219,15 @@ def main() -> int:
         run_train(torch, kernels_mod, phase, arch)
     run_train_gates(torch, kernels_mod)
     run_paged_kv(torch)
+    mesh_launches = {"mesh_ssd": run_mesh_ssd(torch), "mesh_prefill": run_mesh_prefill(torch)}
+    run_mesh_collectives(torch)
+    mesh_pipeline_line()
+    run_mesh_train(torch, kernels_mod)
 
     out = kernels_line(bench, launches)
+    for row in out:
+        if row["name"] == "ssd_chunk":
+            row["mesh_launches_per_rank"] = mesh_launches
     emit({"kernels": out})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -17,6 +17,14 @@ as ``optim.AdamWState``) of tensors.  numpy has no bfloat16, so a bf16
 leaf is stored as its ``uint16`` bits and its dtype in the manifest.
 ``restore(step, like)`` gives tensors of ``like``'s dtypes on ``like``'s
 devices and raises on a shape mismatch.
+
+**Sharded trees.**  Checkpoints are topology-agnostic: ``save`` gathers a
+DTensor leaf whole (``full_tensor``, a collective every rank of its mesh
+joins by calling ``save``) and only global rank 0 writes; the caller
+waits for the write (``wait``, then a barrier) before other ranks
+restore.  ``restore(..., shardings=)`` places every leaf on its
+sharding's mesh and placements — the elastic re-mesh path, onto any mesh
+shape.
 """
 from __future__ import annotations
 
@@ -29,8 +37,10 @@ from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
-from repro_torch.tree import leaves_with_paths, unflatten
+from repro_torch.tree import leaves, leaves_with_paths, unflatten
 
 
 def _to_host(t) -> Tuple[np.ndarray, Optional[str]]:
@@ -63,13 +73,20 @@ class Checkpointer:
              blocking: bool = False) -> None:
         """Snapshot ``tree`` at ``step``.  Non-blocking by default: the
         tensors are fetched to the host here, then written on a daemon
-        thread."""
+        thread (by global rank 0 alone when the tree holds DTensors)."""
         self.wait()                       # double-buffer: previous save done
+        sharded = any(isinstance(v, DTensor) for v in leaves(tree))
+        writes = not sharded or dist.get_rank() == 0
         host, dtypes = {}, {}
         for k, v in leaves_with_paths(tree):
-            host[k], name = _to_host(v)
-            if name:
-                dtypes[k] = name
+            if isinstance(v, DTensor):
+                v = v.full_tensor()       # every rank joins the gather
+            if writes:                    # and only the writer keeps a host copy
+                host[k], name = _to_host(v)
+                if name:
+                    dtypes[k] = name
+        if not writes:
+            return
         meta = {"step": step, "keys": sorted(host), "dtypes": dtypes,
                 "extra": extra or {}}
 
@@ -109,9 +126,13 @@ class Checkpointer:
                  if p.is_dir() and not p.name.endswith(".tmp")]
         return max(steps) if steps else None
 
-    def restore(self, step: Optional[int], like: Any) -> Tuple[Any, dict]:
+    def restore(self, step: Optional[int], like: Any, *,
+                shardings: Any = None) -> Tuple[Any, dict]:
         """Restore into the structure of ``like``: each leaf in ``like``'s
-        leaf's dtype, on its device.  ``step=None`` takes the latest."""
+        leaf's dtype, on its device, or with ``shardings`` (a tree of
+        ``NamedSharding`` of the same structure) a DTensor on its
+        sharding's mesh and placements.  ``step=None`` takes the
+        latest."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.dir}")
@@ -119,13 +140,20 @@ class Checkpointer:
         meta = json.loads((path / "manifest.json").read_text())
         dtypes = meta["dtypes"]
         restored = []
+        places = leaves(shardings) if shardings is not None else None
         with np.load(path / "arrays.npz") as data:
-            for key, ref in leaves_with_paths(like):
+            for i, (key, ref) in enumerate(leaves_with_paths(like)):
                 arr = data[key.replace("/", "|")]
                 if tuple(arr.shape) != tuple(ref.shape):
                     raise ValueError(
                         f"{key}: checkpoint shape {arr.shape} != {tuple(ref.shape)}")
-                restored.append(_from_host(arr, dtypes.get(key)).to(ref.device, ref.dtype))
+                t = _from_host(arr, dtypes.get(key))
+                if places is None:
+                    restored.append(t.to(ref.device, ref.dtype))
+                else:
+                    s = places[i]
+                    restored.append(distribute_tensor(
+                        t.to(s.mesh.device_type, ref.dtype), s.mesh, s.placements))
         return unflatten(like, restored), meta["extra"]
 
     # ------------------------------------------------------------------

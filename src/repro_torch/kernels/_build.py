@@ -25,6 +25,7 @@ from pathlib import Path
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.tree import records_grad
 
@@ -175,7 +176,13 @@ def check_operands(name: str, *ts: torch.Tensor,
     one dtype and on one device.  No kernel has a backward: a call that
     autograd would record raises, on the CPU as on the card, where a
     launch into a fresh tensor would return an output with no
-    ``grad_fn`` and lose the gradient without an error."""
+    ``grad_fn`` and lose the gradient without an error.  Nor does a
+    kernel take a DTensor: its ``data_ptr`` is one rank's shard, so a
+    mesh route hands the kernel ``to_local()`` shards itself."""
+    for t in ts:
+        if isinstance(t, DTensor):
+            raise TypeError(f"{name}: a DTensor operand; a mesh route passes the "
+                            "kernel its local shard (to_local())")
     if records_grad(*ts):
         raise RuntimeError(
             f"{name}: the kernel has no backward, and an operand requires grad "

@@ -9,6 +9,15 @@ fault-tolerance pieces: asynchronous checkpoints and resume from the
 latest one (the data stream's position rides along), the straggler
 watchdog and the heartbeat.
 
+**On a mesh** the step takes DTensor params, optimizer state and batch
+(``distributed.sharding``: ``params_shardings``, ``opt_state_shardings``,
+``batch_specs``; ``shard_tree`` places a tree) and is called inside the
+mesh's ``with mesh:`` block, which the models' ``constrain`` calls read,
+as the JAX package's step is traced under its mesh.  ``grad_shardings``
+pins the grads to the FSDP layout.  The plain tensors a model makes
+along the way (positions, masks, constants) join the DTensors as
+replicated (``implicit_replication``).
+
 Every entry point runs on the card unless the caller asks for the CPU
 (``device="cpu"``).  The params get ``requires_grad_(True)`` here, not in
 ``init``, so that serving trees stay off autograd (and on the kernel
@@ -17,10 +26,13 @@ for attention and the SSD scan, so no kernel runs in a train step.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Any, Callable, Dict, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs.base import ModelConfig
@@ -39,21 +51,28 @@ def trainable(params):
 
 
 def build_train_step(cfg: ModelConfig, adam: opt.AdamWConfig,
-                     device=None) -> Callable:
+                     device=None, grad_shardings=None) -> Callable:
     """(params, opt_state, batch) -> (params, opt_state, metrics).
 
     Includes gradient accumulation (``cfg.grad_accum`` microbatches in a
     ``cfg.grad_accum_dtype`` accumulator), the activation-memory valve.
     ``batch`` leaves may be numpy arrays or tensors; the params' leaves
-    require grad (``trainable``)."""
+    require grad (``trainable``).  ``grad_shardings`` pins gradients to
+    the FSDP layout (``optim.accumulate_grads``); DTensor params run the
+    step on their mesh (module note)."""
     api = get_api(cfg, device)
 
     def loss(params, batch):
         return api.loss_fn(params, batch, cfg)
 
     def step(params, opt_state, batch):
+        sharded = any(isinstance(p, DTensor) for p in leaves(params))
+        with implicit_replication() if sharded else contextlib.nullcontext():
+            return _step(params, opt_state, batch)
+
+    def _step(params, opt_state, batch):
         l, metrics, grads = opt.accumulate_grads(
-            loss, params, batch, cfg.grad_accum,
+            loss, params, batch, cfg.grad_accum, grad_shardings=grad_shardings,
             acc_dtype=DTYPES[cfg.grad_accum_dtype])
         params, opt_state, om = opt.apply_updates(adam, params, grads, opt_state)
         metrics = dict(metrics)

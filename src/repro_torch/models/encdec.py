@@ -25,6 +25,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.lm import (cross_entropy, decode_positions, remat, tree_to_torch,
                                    unstack_layers)
 from repro_torch.nn.attention import AttnSpec, attention, init_attention
@@ -82,6 +83,8 @@ def encode(params: dict, frames: torch.Tensor, cfg: ModelConfig, *,
     spec = _spec(cfg, causal=False)
 
     def layer(x, p):                                     # positions 0..T-1
+        if cfg.shard_activations:
+            x = constrain(x, ("batch", "seq", None))
         h, _ = attention(p["attn"], rms_norm(x, p["ln1"], eps=cfg.norm_eps),
                          None, spec, flash=flash)
         x = x + h
@@ -101,6 +104,8 @@ def _dec_pass(params: dict, x, positions, memory, cfg: ModelConfig, cache,
     self_spec, cross_spec = _spec(cfg, causal=True), _spec(cfg, causal=False)
 
     def layer(x, p, kv):
+        if cfg.shard_activations:
+            x = constrain(x, ("batch", "seq", None))
         h, _ = attention(p["attn"], rms_norm(x, p["ln1"], eps=cfg.norm_eps),
                          positions, self_spec, kv_cache=kv,
                          cache_len=cache_len, flash=flash)

@@ -21,6 +21,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import mamba
 from repro_torch.models.lm import (cross_entropy, decode_positions, remat, tree_to_torch,
                                    unstack_layers)
@@ -98,6 +99,8 @@ def _pass(params: dict, x, positions, cfg: ModelConfig, state=None,
     per = cfg.hybrid_attn_every
 
     def group(x, site, blocks):
+        if cfg.shard_activations:
+            x = constrain(x, ("batch", "seq", None))
         kv = None
         if state is not None:
             kv = (state["kv"][0][site], state["kv"][1][site])

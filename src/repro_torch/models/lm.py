@@ -41,6 +41,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain, replicate_dim
 from repro_torch.tree import leaves, records_grad
 from repro_torch.nn.attention import AttnSpec, attention, init_attention
 from repro_torch.nn.embeddings import embed, init_embedding, unembed
@@ -158,6 +159,10 @@ def _block(p: dict, x, positions, cfg: ModelConfig, kv_cache=None,
            cache_len=None, window: int = 0, ring: bool = False, flash=None):
     """-> (x, aux, cache): aux is the MoE layer's load-balancing loss, 0
     for a dense layer."""
+    if cfg.shard_activations:
+        # residual stream: batch->data, seq->model (Megatron-SP); a no-op
+        # outside a mesh and on a plain tensor
+        x = constrain(x, ("batch", "seq", None))
     h, new_cache = attention(p["attn"], rms_norm(x, p["ln1"], eps=cfg.norm_eps),
                              positions, _attn_spec(cfg), kv_cache=kv_cache,
                              cache_len=cache_len, window=window, ring=ring,
@@ -229,6 +234,9 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     ``preferred_element_type``), averaged over the labels >= 0.  A masked
     label reads logit 0 (the JAX package's gather wraps it; the mask
     zeroes it either way)."""
+    # DTensor's gather over a vocab-sharded dim leaves a masked partial
+    # that its redistribute cannot reduce: gather from the whole vocab
+    logits = replicate_dim(logits, -1)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
     mask = (labels >= 0).float()

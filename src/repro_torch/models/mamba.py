@@ -24,6 +24,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.lm import cross_entropy, remat, tree_to_torch, unstack_layers
 from repro_torch.nn.embeddings import embed, init_embedding, unembed
 from repro_torch.nn.norms import init_rms, rms_norm
@@ -84,6 +85,8 @@ def _stack_pass(params: dict, x, cfg: ModelConfig, state: Optional[State] = None
                 decode: bool = False, ssd: Optional[Callable] = None):
     for i, p in enumerate(params["blocks"]):
         st = (state[0][i], state[1][i]) if state is not None else None
+        if cfg.shard_activations:
+            x = constrain(x, ("batch", "seq", None))
         if decode:
             x = layer(p, x, cfg, state=st, decode=True)
         else:

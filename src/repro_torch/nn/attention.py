@@ -61,16 +61,19 @@ returned.  A write past a full cache's end raises, where the JAX package's
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Shard
 
-from repro_torch.tree import records_grad
+from repro_torch.distributed.sharding import placed_like, replicate_dim, row_placements
 from repro_torch.kernels.flash_attention import attention_impl
 from repro_torch.nn.embeddings import rope
 from repro_torch.nn.quant import exact_divisor
+from repro_torch.tree import records_grad
 
 _NEG = -1e30
 _EMPTY = 2 ** 30   # an empty ring slot's position: causality masks it
@@ -147,6 +150,25 @@ def _attend_dense(q, k, v, q_pos, k_pos, *, causal, window, kv_len, scale):
     s = _scores(q, k, q_pos, k_pos, causal=causal, window=window, kv_len=kv_len,
                 scale=scale)
     return _pv(torch.softmax(s, dim=-1), v)
+
+
+def _attend_local(attend, qh, kh, vh, q_pos, k_pos):
+    """``attend`` on DTensors q [B, Hkv, G, Sq, D], k/v [B, Hkv, Sk, D]:
+    each rank attends its own rows (batch over the mesh's data axes) and
+    heads (KV heads over 'model'), where those divide them, on its local
+    shards.  Attention is independent across rows and heads, so no
+    collective runs inside; DTensor's own propagation of the score
+    products over merged (strided) batch-head shards cost seconds a
+    shape.  Positions are plain tensors, sliced to the rank's rows."""
+    mesh = qh.device_mesh
+    names = list(mesh.mesh_dim_names)
+    pl, row, rows = row_placements(mesh, qh.shape[0])
+    if "model" in names and qh.shape[1] % mesh.shape[names.index("model")] == 0:
+        pl[names.index("model")] = Shard(1)
+    ql, kl, vl = (t.redistribute(mesh, pl).to_local() for t in (qh, kh, vh))
+    if q_pos.dim() >= 2:
+        q_pos = q_pos.chunk(rows)[row]
+    return DTensor.from_local(attend(ql, kl, vl, q_pos, k_pos), mesh, pl)
 
 
 def _block_size(block: int, n: int) -> int:
@@ -326,6 +348,12 @@ def attention(
     ``impl(q, k, v, causal=False)`` for the non-causal calls (default: the
     CUDA kernel's ``attention_impl()``).
     """
+    # a sequence-sharded residual (``constrain``) is gathered whole at the
+    # block's entry and the output goes back on its sharding (Megatron-SP),
+    # so no product sees a batch-sequence merged (strided) shard: DTensor
+    # plans those for seconds a shape, or refuses them
+    x_in, x = x, replicate_dim(x, 1)
+    x_kv = None if x_kv is None else replicate_dim(x_kv, 1)
     b, sq, _ = x.shape
     h, nkv, dh = spec.n_heads, spec.n_kv, spec.head_dim
     g = h // nkv
@@ -399,9 +427,13 @@ def attention(
             impl = "dense" if sq * kh.shape[2] <= spec.dense_max ** 2 else "blockwise"
         blocks = {} if impl == "dense" else {"q_block": spec.q_block,
                                              "k_block": spec.k_block}
-        out = (_attend_dense if impl == "dense" else _attend_blockwise)(
-            qh, kh, vh, q_positions, k_pos, causal=causal, window=window,
-            kv_len=kv_len, scale=1.0 / math.sqrt(dh), **blocks)
+        attend = functools.partial(
+            _attend_dense if impl == "dense" else _attend_blockwise, causal=causal,
+            window=window, kv_len=kv_len, scale=1.0 / math.sqrt(dh), **blocks)
+        if isinstance(qh, DTensor):
+            out = _attend_local(attend, qh, kh, vh, q_positions, k_pos)
+        else:
+            out = attend(qh, kh, vh, q_positions, k_pos)
         out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, h * dh)
     out = out.to(x.dtype) @ params["wo"]
-    return out, new_cache
+    return placed_like(out, x_in), new_cache

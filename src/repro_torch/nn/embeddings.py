@@ -6,6 +6,9 @@ import math
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from repro_torch.distributed.sharding import replicate_dim
 
 # Rows of the table one fallback product turns into f32 at a time.
 _VOCAB_CHUNK = 8192
@@ -19,7 +22,38 @@ def init_embedding(generator: torch.Generator, vocab: int, d: int,
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    if isinstance(table, DTensor):
+        return _embed_sharded(table, tokens)
     return table[tokens]
+
+
+def _embed_sharded(table: DTensor, tokens) -> DTensor:
+    """The vocab-parallel lookup (Megatron's): each rank reads the token
+    ids that fall in its rows of a row-sharded table, zeros for the rest,
+    and the output is a partial sum over the mesh dims that split the
+    rows.  DTensor's own gather over a row-sharded table leaves a masked
+    partial that its redistribute cannot reduce, and the backward's
+    ``index_put`` builds an unnormalized ``Shard(-1)``; here the lookup
+    and its backward are local."""
+    mesh = table.device_mesh
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim)
+    pt = [p if p.is_shard(0) else Replicate() for p in table.placements]
+    pk = [Replicate() if t.is_shard(0) or not k.is_shard() else k
+          for t, k in zip(pt, tokens.placements)]
+    rows, shard = table.shape[0], 0
+    for i, p in enumerate(pt):
+        if p.is_shard(0):
+            rows //= mesh.shape[i]
+            shard = shard * mesh.shape[i] + mesh.get_local_rank(i)
+    grad = [Shard(0) if t.is_shard(0) else Partial() if k.is_shard() else Replicate()
+            for t, k in zip(pt, pk)]
+    tl = table.redistribute(mesh, pt).to_local(grad_placements=grad)
+    ids = tokens.redistribute(mesh, pk).to_local() - shard * rows
+    inside = (ids >= 0) & (ids < rows)
+    out = tl[ids.clamp(0, rows - 1)] * inside[..., None].to(tl.dtype)
+    return DTensor.from_local(out, mesh, [Partial() if t.is_shard(0) else k
+                                          for t, k in zip(pt, pk)])
 
 
 def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -31,12 +65,17 @@ def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     is ``_WideLogits``: ``torch.mm(..., out_dtype=torch.float32)``, which
     a PyTorch without it refuses, given a backward; on the CPU the table
     is turned into f32 ``_VOCAB_CHUNK`` rows at a time
-    (``unembed_chunked``).
+    (``unembed_chunked``); on DTensors, ``_WideLogits`` on each rank's
+    shards (``_wide_logits_sharded``).
     """
+    if isinstance(x, DTensor) and x.dim() == 3:      # gather a sharded sequence first
+        x = replicate_dim(x, 1)
     lead, d = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, d)
     if x2.dtype == table.dtype == torch.float32:
         y = x2 @ table.t()
+    elif isinstance(x2, DTensor):
+        y = _wide_logits_sharded(x2, table)
     elif x2.is_cuda:
         y = _WideLogits.apply(x2, table)
     else:
@@ -73,6 +112,31 @@ class _WideLogits(torch.autograd.Function):
             gt = (torch.mm(hi.t(), x2, out_dtype=torch.float32)
                   + torch.mm(lo.t(), x2, out_dtype=torch.float32)).to(table.dtype)
         return gx, gt
+
+
+def _wide_logits_sharded(x2: DTensor, table: DTensor) -> DTensor:
+    """``_WideLogits`` of DTensors: DTensor has no sharding rule for
+    ``torch.mm(..., out_dtype=)``, so the product runs on each rank's
+    shards.  Each mesh dim keeps x2's row sharding or else the table's
+    vocab sharding (the rest is replicated first); the logits come out
+    sharded on the same dims, and each operand's grad is a partial sum
+    over the mesh dims that split the other's rows."""
+    mesh = x2.device_mesh
+    px, pt = [], []
+    for a, b in zip(x2.placements, table.placements):
+        a = a if a.is_shard(0) else Replicate()
+        px.append(a)
+        pt.append(b if b.is_shard(0) and not a.is_shard(0) else Replicate())
+    out = [Shard(0) if a.is_shard(0) else Shard(1) if b.is_shard(0) else Replicate()
+           for a, b in zip(px, pt)]
+    gx = [a if a.is_shard(0) else Partial() if b.is_shard(0) else Replicate()
+          for a, b in zip(px, pt)]
+    gt = [b if b.is_shard(0) else Partial() if a.is_shard(0) else Replicate()
+          for a, b in zip(px, pt)]
+    xl = x2.redistribute(mesh, px).to_local(grad_placements=gx)
+    tl = table.redistribute(mesh, pt).to_local(grad_placements=gt)
+    y = _WideLogits.apply(xl, tl) if xl.is_cuda else unembed_chunked(tl, xl)
+    return DTensor.from_local(y, mesh, out)
 
 
 def unembed_chunked(table: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:

@@ -7,6 +7,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import placed_like, replicate_dim
+
 
 def _dense_init(generator, shape, dtype, device, scale=None) -> torch.Tensor:
     scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
@@ -28,7 +30,12 @@ def init_ffn(generator: torch.Generator, d_model: int, d_ff: int, *,
 
 def ffn(params: dict, x: torch.Tensor, *, kind: str = "swiglu") -> torch.Tensor:
     """``jax.nn.gelu`` is the tanh approximation by default, hence
-    ``approximate="tanh"`` (``F.gelu``'s default is the exact form)."""
+    ``approximate="tanh"`` (``F.gelu``'s default is the exact form).  A
+    sequence-sharded DTensor ``[B, S, d]`` is gathered along S first and
+    the output handed back on its sharding, as in ``nn.attention``."""
+    x_in = x
+    if x.dim() == 3:
+        x = replicate_dim(x, 1)
     up = x @ params["w_up"]
     if kind == "swiglu":
         act = F.silu(x @ params["w_gate"]) * up
@@ -38,7 +45,7 @@ def ffn(params: dict, x: torch.Tensor, *, kind: str = "swiglu") -> torch.Tensor:
         act = F.gelu(up, approximate="tanh")
     else:
         raise ValueError(kind)
-    return act @ params["w_down"]
+    return placed_like(act @ params["w_down"], x_in)
 
 
 def dense(generator: torch.Generator, d_in: int, d_out: int, *,

@@ -15,9 +15,10 @@ Three dispatch forms, selected by ``MoESpec.impl`` (``moe_impl``):
 
 Expert capacity is ``C = max(k, ceil(g·k/E·capacity_factor))`` a group of
 g tokens; a copy whose position among its expert's copies in the group
-(token-major, then k) reaches C is dropped, as in the reference.  The JAX
-package's ``constrain`` sharding hints have no numeric effect outside a
-mesh and have no counterpart here.  Plain functions on tensors, as in
+(token-major, then k) reaches C is dropped, as in the reference.  The
+expert products and the scatter form's buffers carry the JAX package's
+``constrain`` sharding hints (``distributed.sharding``), no-ops outside
+a mesh and on plain tensors.  Plain functions on tensors, as in
 ``nn/layers.py``.
 """
 from __future__ import annotations
@@ -28,6 +29,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import constrain
 from repro_torch.nn.layers import _dense_init, ffn, init_ffn
 from repro_torch.nn.quant import EXPERT_SLAB
 
@@ -108,16 +110,20 @@ def buffer_positions(idx: torch.Tensor, n_experts: int, cap: int):
 
 
 def _expert_ffn_grouped(p, xe, kind):
-    """xe: [G, E, C, d] -> [G, E, C, d]."""
-    up = torch.einsum("gecd,edf->gecf", xe, p["w_up"])
-    if kind == "swiglu":
-        act = F.silu(torch.einsum("gecd,edf->gecf", xe, p["w_gate"])) * up
-    elif kind == "geglu":
-        act = F.gelu(torch.einsum("gecd,edf->gecf", xe, p["w_gate"]),
-                     approximate="tanh") * up
+    """xe: [G, E, C, d] -> [G, E, C, d].  The group dim G aligns with the
+    batch sharding and the hidden dim f with tensor parallelism (the
+    ``constrain`` hints, no-ops outside a mesh)."""
+    xe = constrain(xe, ("batch", None, None, None))
+    up = constrain(torch.einsum("gecd,edf->gecf", xe, p["w_up"]),
+                   ("batch", None, None, "tp"))
+    if kind in ("swiglu", "geglu"):
+        gate = constrain(torch.einsum("gecd,edf->gecf", xe, p["w_gate"]),
+                         ("batch", None, None, "tp"))
+        act = (F.silu(gate) if kind == "swiglu" else F.gelu(gate, approximate="tanh")) * up
     else:
         act = F.gelu(up, approximate="tanh")
-    return torch.einsum("gecf,efd->gecd", act, p["w_down"])
+    return constrain(torch.einsum("gecf,efd->gecd", act, p["w_down"]),
+                     ("batch", None, None, None))
 
 
 def _with_shared(params, y, x, spec: MoESpec):
@@ -135,12 +141,15 @@ def moe_scatter(params: dict, x: torch.Tensor, spec: MoESpec):
     pos, keep = buffer_positions(idx.reshape(b, s, k), e, cap)
     idx_r, pos_c = idx.reshape(b, s * k), torch.where(keep, pos, cap).reshape(b, s * k)
     rows = torch.arange(b, device=x.device)[:, None].expand(b, s * k)
-    xr = x[:, :, None].expand(b, s, k, d).reshape(b, s * k, d)
+    xr = constrain(x[:, :, None].expand(b, s, k, d).reshape(b, s * k, d),
+                   ("batch", None, None))
     xe = torch.zeros((b, e, cap + 1, d), dtype=x.dtype, device=x.device)
     xe.index_put_((rows, idx_r, pos_c), xr, accumulate=True)
+    xe = constrain(xe, ("batch", None, None, None))
     ye = _expert_ffn_grouped(params, xe[:, :, :cap], spec.ffn_kind)
-    ye = F.pad(ye, (0, 0, 0, 1))                      # the dropped bucket reads 0
-    yr = ye[rows, idx_r, pos_c]
+    ye = constrain(F.pad(ye, (0, 0, 0, 1)),           # the dropped bucket reads 0
+                   ("batch", None, None, None))
+    yr = constrain(ye[rows, idx_r, pos_c], ("batch", None, None))
     g = (gates.reshape(b, s * k) * keep.reshape(b, s * k)).to(yr.dtype)
     y = (yr * g[..., None]).reshape(b, s, k, d).sum(2)
     return _with_shared(params, y, x, spec).to(x.dtype), aux

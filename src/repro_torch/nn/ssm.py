@@ -5,8 +5,7 @@ Prefill runs the chunked SSD on the CUDA kernel
 (``kernels/ssd_chunk.py``) where the JAX package computes the same
 function in plain jnp (``ssd_chunked_streaming`` or ``ssd_chunked``, by
 ``SSMSpec.streaming``); the port keeps both plain forms and has one
-route, so its ``SSMSpec`` carries neither that choice nor the mesh
-route's ``seq_parallel``.  Under autograd (grad enabled and an operand of
+route, so its ``SSMSpec`` does not carry that choice.  Under autograd (grad enabled and an operand of
 the scan requiring grad: a train step) the scan is ``ssd_chunked``, the
 JAX package's vectorized plain form (``SSMSpec.streaming=False``; the
 same function as its default streaming form), which autograd
@@ -27,9 +26,23 @@ Shapes follow the Mamba2 convention:
   dt : [B, L, H]
   B,C: [B, L, G, N]   (G groups, N state dim; broadcast G -> H)
 
-``ssd_seq_parallel`` (the sequence-parallel scan over a device mesh) is
-not ported yet (ROADMAP Queue 1: training and infrastructure); on one
-device the JAX package takes the single-device route as well.
+**Sequence parallelism** (``ssd_seq_parallel``): inside a ``with mesh:``
+block whose 'model' axis has K > 1 ranks, a prefill whose padded length
+divides into K slices of whole chunks is scanned a slice a rank, on the
+SSD kernel, and corrected by the states the ranks exchange; elsewhere
+the scan runs on one device.  The route depends on the mesh and the
+length alone: the JAX package's ``SSMSpec.seq_parallel``, which no
+config or caller sets, is left out as ``streaming`` is.  The JAX
+package's residual stream is sequence-sharded there, so its scan takes
+each rank's slice as it lies and gives back a sequence-sharded output.
+The port's residual is sharded only when it is a DTensor (a sharded train
+step, through ``constrain``), and then the same holds: each rank scans its
+local shard and the output stays a sequence-sharded DTensor (the in and
+out projections multiply each rank's rows by the gathered weight,
+``distributed.sharding.rows_matmul``).  For plain
+tensors (every rank holds the whole sequence) each rank scans its own
+slice and the output is all-gathered along the sequence, a gather the
+JAX package's sharded residual avoids.
 """
 from __future__ import annotations
 
@@ -38,11 +51,15 @@ import math
 from typing import Callable, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from repro_torch.tree import records_grad
+from repro_torch.distributed.sharding import row_placements, rows_matmul
 from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_chunk_plain
+from repro_torch.launch.mesh import ambient_mesh
 from repro_torch.nn.layers import _dense_init
+from repro_torch.tree import records_grad
 
 # The streaming scan over chunks is the SSD kernel's plain version.
 ssd_chunked_streaming = ssd_chunk_plain
@@ -144,6 +161,149 @@ def ssd_chunked(x, dt, a, b, c, *, chunk: int):
     return (y_diag + y_off).reshape(bsz, l, h, p), s
 
 
+class _Gather(torch.autograd.Function):
+    """Every rank's ``x`` stacked ``[K, ...]`` on every rank of ``group``;
+    the backward sums the ranks' grads of the rank's own entry (an
+    all-reduce of the stacked grad, then the rank's entry).
+    ``torch.distributed.nn.functional.all_gather`` does the same, but its
+    backward on gloo stands in for reduce-scatter with scatters from global
+    rank numbers, which fail on a sub-group such as the 'model' axis of a
+    (2, 2) mesh ("Global rank 0 is not part of group", torch 2.13)."""
+
+    @staticmethod
+    def forward(ctx, x, k, group):
+        ctx.k, ctx.group = k, group
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.stack(parts)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        dist.all_reduce(g, group=ctx.group)
+        return g[ctx.k], None, None
+
+
+class _SumGrad(torch.autograd.Function):
+    """The identity on a tensor every rank of ``group`` holds whole and
+    uses for its own slice; the backward sums the ranks' grads (one
+    all-reduce).  ``torch.distributed.nn.functional`` has no such
+    function: its all-reduce also sums the forward's values."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """The identity, whose backward scales the grad by ``scale``."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
+def ssd_seq_parallel(x, dt, a, b, c, *, chunk: int, mesh, axis: str = "model",
+                     scan: Optional[Callable] = None):
+    """Sequence-parallel SSD over the ``axis`` ranks of ``mesh``: the SSD
+    scan of ``ssd_chunked`` 's contract, the length a multiple of K·chunk
+    for the K ranks of ``axis``.
+
+      1. each rank scans its sequence slice from a zero state on the SSD
+         kernel (``scan``, default ``kernels.ssd_chunk.ssd_chunk``; under
+         autograd ``ssd_chunked``) -> (y0, s_loc), in f32 operands, so
+         that y0 is not rounded before the correction is added;
+      2. the ranks of ``axis`` exchange their final local states s_loc
+         [B, H, P, N] and total decays D [B, H] in one all_gather, whose
+         backward sums the ranks' grads of each rank's entry;
+      3. each rank forms its incoming state s_in by the K-term prefix
+         recurrence and corrects its outputs: y += C · exp(a_cum) · s_in.
+
+    Exact (the recurrence is linear).  Plain tensors: every rank holds the
+    whole operands, scans its slice, and returns y whole (all-gathered
+    along the sequence) and the final state; the collectives are
+    ``dist.all_gather`` and ``dist.all_reduce``, which gloo also runs on
+    CUDA tensors (DTensor's functional collectives crashed a gloo rank on
+    CUDA).
+    DTensors: each operand is redistributed to batch over the mesh's data
+    axes (where they divide it) and the sequence over ``axis``; y comes
+    back sequence-sharded and the final state replicated over ``axis``.
+    Returns (y [B, L, H, P] in x's dtype, final state [B, H, P, N] f32)."""
+    names = list(mesh.mesh_dim_names)
+    kdim = names.index(axis)
+    n = mesh.shape[kdim]
+    k = mesh.get_local_rank(axis)
+    group = mesh.get_group(axis)
+    sharded = isinstance(x, DTensor)
+    if sharded:
+        pl = row_placements(mesh, x.shape[0])[0]
+        pl[kdim] = Shard(1)
+        xl, dtl, bl, cl = (t.redistribute(mesh, pl).to_local() for t in (x, dt, b, c))
+        # a is whole on every rank, and each rank's grad is its shard's
+        # part: a partial sum over the mesh dims that split the scan
+        al = a.redistribute(mesh, [Replicate()] * len(names)).to_local(
+            grad_placements=[Partial() if p.is_shard() else Replicate() for p in pl])
+    else:
+        l_loc = x.shape[1] // n
+        xl, dtl, bl, cl = (_SumGrad.apply(t, group)[:, k * l_loc:(k + 1) * l_loc]
+                           for t in (x, dt, b, c))
+        al = _SumGrad.apply(a, group)
+    grad = records_grad(xl, dtl, al, bl, cl)
+    run = ssd_chunked if grad else (scan or ssd_chunk)
+    y0, s_loc = run(*(t.float().contiguous() for t in (xl, dtl)), al,
+                    *(t.float().contiguous() for t in (bl, cl)), chunk=chunk)
+    acum = torch.cumsum(dtl.float() * al.float()[None, None, :], dim=1)  # [B, Lloc, H]
+    d_shard = torch.exp(acum[:, -1, :])                                   # [B, H]
+    both = _Gather.apply(torch.cat([s_loc.flatten(), d_shard.flatten()]),
+                         k, group)                                        # [K, BHPN + BH]
+    gs = both[:, :s_loc.numel()].reshape((n,) + s_loc.shape)
+    gd = both[:, s_loc.numel():].reshape((n,) + d_shard.shape)
+    # the same graph on every rank: every prefix state, then this rank's
+    # row of their stack, so that each rank's backward reaches the gather
+    # (whose backward every rank must join) by the same path
+    s_run, prefix = torch.zeros_like(s_loc), []
+    for j in range(n):
+        prefix.append(s_run)
+        s_run = gs[j] + gd[j][..., None, None] * s_run
+    s_in = torch.stack(prefix)[k]
+    rep = xl.shape[2] // cl.shape[2]
+    c_h = cl.float().repeat_interleave(rep, dim=2)                        # [B, Lloc, H, N]
+    y = y0 + torch.einsum("blhs,blh,bhps->blhp", c_h, torch.exp(acum), s_in)
+    y = y.to(x.dtype)
+    # an output whole on every rank of ``axis`` gets its whole grad on each,
+    # which the gathers' backward sums over the ranks: a 1/K share a rank
+    s_fin = _ScaleGrad.apply(s_run, 1.0 / n)
+    if not sharded:
+        y = _Gather.apply(y, k, group).movedim(0, 1).flatten(1, 2)      # [B, L, H, P]
+        return _ScaleGrad.apply(y, 1.0 / n), s_fin
+    state_pl = list(pl)
+    state_pl[kdim] = Replicate()
+    return DTensor.from_local(y, mesh, pl), DTensor.from_local(s_fin, mesh, state_pl)
+
+
+def _seq_parallel_mesh(spec: SSMSpec, length: int):
+    """The ambient mesh where ``ssm_forward``'s prefill runs
+    ``ssd_seq_parallel``: a 'model' axis of K > 1 ranks and a padded
+    length of whole K·chunk slices; else None."""
+    mesh = ambient_mesh()
+    if mesh is None or "model" not in mesh.mesh_dim_names:
+        return None
+    n_model = mesh.shape[list(mesh.mesh_dim_names).index("model")]
+    return mesh if n_model > 1 and length % (n_model * spec.chunk) == 0 else None
+
+
 def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                  k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Causal depthwise conv over time in f32: xbc [B, L, C], w [K, C] ->
@@ -172,12 +332,13 @@ def ssm_forward(
     L == 1 and a state; prefill ignores ``state`` and starts from zero, as
     in the JAX package.  ``ssd`` replaces the SSD kernel at prefill
     (default ``kernels.ssd_chunk.ssd_chunk``; same contract); under
-    autograd the scan is ``ssd_chunked``."""
+    autograd the scan is ``ssd_chunked``.  Inside a mesh the prefill may
+    run ``ssd_seq_parallel`` (module note)."""
     bsz, l, _ = u.shape
     h, p, n, g = spec.n_heads, spec.head_dim, spec.d_state, spec.n_groups
     di = spec.d_inner
 
-    proj = u @ params["in_proj"]
+    proj = rows_matmul(u, params["in_proj"])
     # split: [d_inner gate | conv_dim (x,B,C) | n_heads dt]
     z = proj[..., :di]
     xbc = proj[..., di:di + spec.conv_dim]
@@ -211,13 +372,18 @@ def ssm_forward(
         y = y.reshape(bsz, 1, di)
         new_state = (s_new, new_conv)
     else:
-        pad_to = (-l) % spec.chunk
+        pad_to = (-l) % spec.chunk       # (a DTensor is padded only if it must be)
         xs_p, dt_p, b_p, c_p = (
-            F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad_to)).contiguous()
+            (F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad_to)) if pad_to else t).contiguous()
             for t in (xs, dt, bmat, cmat))
-        scan = ssd_chunked if records_grad(xs_p, dt_p, a, b_p, c_p) else (ssd or ssd_chunk)
-        y, s_final = scan(xs_p, dt_p, a, b_p, c_p, chunk=spec.chunk)
-        y = y[:, :l] + params["d_skip"][None, None, :, None] * xs.float()
+        mesh = _seq_parallel_mesh(spec, xs_p.shape[1])
+        if mesh is not None:
+            y, s_final = ssd_seq_parallel(xs_p, dt_p, a, b_p, c_p, chunk=spec.chunk,
+                                          mesh=mesh, scan=ssd)
+        else:
+            scan = ssd_chunked if records_grad(xs_p, dt_p, a, b_p, c_p) else (ssd or ssd_chunk)
+            y, s_final = scan(xs_p, dt_p, a, b_p, c_p, chunk=spec.chunk)
+        y = (y[:, :l] if pad_to else y) + params["d_skip"][None, None, :, None] * xs.float()
         y = y.reshape(bsz, l, di)
         new_state = (s_final, new_conv)
 
@@ -225,7 +391,7 @@ def ssm_forward(
     yz = y * F.silu(z.float())
     var = yz.square().mean(dim=-1, keepdim=True)
     yz = yz * torch.rsqrt(var + 1e-6) * params["norm_scale"].float()
-    out = yz.to(u.dtype) @ params["out_proj"]
+    out = rows_matmul(yz.to(u.dtype), params["out_proj"])
     return out, new_state
 
 

@@ -32,6 +32,13 @@ leaf's rank is its own.
 (``torch.autograd.grad`` over the tree's leaves, which must require
 grad) and sums the grads divided by the count in an ``acc_dtype``
 accumulator, as the JAX package's ``lax.scan`` does.
+
+**On a mesh** the leaves are DTensors (``distributed.sharding``), and
+every op here runs on them as it is.  ``accumulate_grads``'
+``grad_shardings`` redistributes each grad (and accumulator) to its
+sharding, the counterpart of the JAX package's
+``with_sharding_constraint``: the partial sums autograd leaves over the
+data axes are reduce-scattered onto the FSDP shards.
 """
 from __future__ import annotations
 
@@ -224,7 +231,7 @@ def _factored(cfg, layers, scale, lr, b1c, b2c) -> None:
 # ---------------------------------------------------------------------------
 
 def accumulate_grads(loss_fn: Callable, params, batch, n_micro: int,
-                     acc_dtype=torch.float32):
+                     grad_shardings=None, acc_dtype=torch.float32):
     """Loop over microbatches; returns (mean_loss, metrics, grads).
 
     ``loss_fn(params, batch) -> (loss, metrics)``; the leaves of ``params``
@@ -233,22 +240,33 @@ def accumulate_grads(loss_fn: Callable, params, batch, n_micro: int,
     grad call, whose grads keep the params' dtypes; otherwise the grads
     accumulate ``g / n_micro`` in f32 into ``acc_dtype`` tensors, as the
     JAX package's scan does, and the loss in an f32 scalar.  A leaf the
-    loss does not reach gets a zero grad, as ``jax.grad`` gives it."""
+    loss does not reach gets a zero grad, as ``jax.grad`` gives it.
+
+    ``grad_shardings`` (a tree of ``NamedSharding`` matching params, for
+    DTensor params) pins the grads and the accumulator to those
+    placements."""
     ps = leaves(params)
+    pins = [s.placements for s in leaves(grad_shardings)] if grad_shardings else None
+
+    def pin(ts):
+        if pins is None:
+            return list(ts)
+        return [t.redistribute(t.device_mesh, pl) for t, pl in zip(ts, pins)]
+
     if n_micro <= 1:
         loss, metrics = loss_fn(params, batch)
         grads = torch.autograd.grad(loss, ps, materialize_grads=True)
-        return loss.detach(), _detach(metrics), unflatten(params, list(grads))
+        return loss.detach(), _detach(metrics), unflatten(params, pin(grads))
 
     def micro(i):
         return {k: v[i * (v.shape[0] // n_micro):(i + 1) * (v.shape[0] // n_micro)]
                 for k, v in batch.items()}
 
-    acc = [torch.zeros(p.shape, dtype=acc_dtype, device=p.device) for p in ps]
+    acc = pin(torch.zeros_like(p, dtype=acc_dtype) for p in ps)
     loss_acc = torch.zeros((), dtype=torch.float32, device=ps[0].device)
     for i in range(n_micro):
         loss, _ = loss_fn(params, micro(i))
-        grads = torch.autograd.grad(loss, ps, materialize_grads=True)
+        grads = pin(torch.autograd.grad(loss, ps, materialize_grads=True))
         with torch.no_grad():
             for a, g in zip(acc, grads):
                 a.copy_(a.float() + g.float() / n_micro)

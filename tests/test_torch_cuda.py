@@ -1152,3 +1152,65 @@ def test_bf16_head_backward_on_card(card):
     for a, b in zip(got, want):
         assert a.dtype == torch.bfloat16
         assert (a.float() - b).abs().max().item() <= 2.0 ** -8 * b.abs().max().item()
+
+
+@pytest.fixture
+def one_rank_world(tmp_path):
+    """A gloo world of one rank in this process, destroyed after."""
+    import torch.distributed as dist
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    yield
+    dist.destroy_process_group()
+
+
+def test_kernels_refuse_a_dtensor_on_card(card, one_rank_world):
+    """A DTensor's ``data_ptr`` is one rank's shard: ``check_operands``
+    refuses it, and a mesh route hands the kernel ``to_local()``."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    mesh = init_device_mesh("cuda", (1,))
+    x = distribute_tensor(torch.ones((1, 128, 4, 16), device=card), mesh, [Replicate()])
+    with pytest.raises(TypeError, match="DTensor"):
+        _build.check_operands("probe", x)
+    dt, b = (distribute_tensor(t, mesh, [Replicate()]) for t in (
+        torch.ones((1, 128, 4), device=card), torch.ones((1, 128, 1, 16), device=card)))
+    a = -torch.ones(4, device=card)
+    launches = sc.ssd_chunk.launches
+    with pytest.raises(TypeError, match="DTensor"):
+        sc.ssd_chunk(x, dt, a, b, b, chunk=64)
+    assert sc.ssd_chunk.launches == launches
+
+
+def _seq_parallel_on_card(rank, world):
+    """Rank side of the test below: ``ssd_seq_parallel`` on a (1, 2) mesh
+    of cuda:0 ranks, and one ``ssd_chunk`` over the whole sequence."""
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.nn.ssm import ssd_seq_parallel
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    b, l, h, p, g, n, chunk = 1, 512, 8, 32, 2, 64, 64
+    x = torch.randn((b, l, h, p), generator=gen, device="cuda") * 0.5
+    dt = torch.nn.functional.softplus(torch.randn((b, l, h), generator=gen, device="cuda") - 3)
+    a = -torch.arange(1, h + 1, dtype=torch.float32, device="cuda")
+    bb = torch.randn((b, l, g, n), generator=gen, device="cuda") * 0.3
+    cc = torch.randn((b, l, g, n), generator=gen, device="cuda") * 0.3
+    before = sc.ssd_chunk.launches
+    y, s = ssd_seq_parallel(x, dt, a, bb, cc, chunk=chunk, mesh=make_local_mesh(world))
+    launched = sc.ssd_chunk.launches - before
+    want_y, want_s = sc.ssd_chunk(x, dt, a, bb, cc, chunk=chunk)
+    return launched, y.cpu(), s.cpu(), want_y.cpu(), want_s.cpu()
+
+
+def test_ssd_seq_parallel_on_card_equals_one_kernel(card, tmp_path):
+    """2 ranks on cuda:0 under gloo, each scanning its half on the SSD
+    kernel (one launch a rank), against one kernel launch over the whole
+    sequence: y and the final state at the SSD's 2e-4 (element and RMS).
+    The library is built here before the ranks start."""
+    from torch_ranks import result, run_ranks
+    _build.library()
+    got = result(run_ranks(2, {"ssd": _seq_parallel_on_card}, tmp_path, device="cuda"),
+                 "ssd")
+    for launched, y, s, want_y, want_s in got:
+        assert launched == 1
+        _close_rms(y, want_y)
+        _close_rms(s, want_s)

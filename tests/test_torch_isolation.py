@@ -1,9 +1,11 @@
 """The port stands alone: no jax, nothing of ``repro``, no silent CPU path.
 
-Importing every module of ``repro_torch`` (``nn.moe``, the LM path and
-the training path — ``optim``, ``data``, ``checkpoint``,
+Importing every module of ``repro_torch`` (``nn.moe``, the LM path, the
+training path — ``optim``, ``data``, ``checkpoint``,
 ``distributed.fault_tolerance``, ``launch.train``, ``serving.kv_cache`` —
-named among them) and ``chip_smoke`` (which runs nothing on import) in a
+and the mesh runtime — ``launch.mesh``, ``distributed.sharding``,
+``distributed.collectives``, ``distributed.pipeline_parallel``, ``nn.ssm``
+— named among them) and ``chip_smoke`` (which runs nothing on import) in a
 fresh interpreter must leave ``jax`` and every ``repro`` module out of
 ``sys.modules``.  The entry point resolves its
 device to the card and raises without CUDA; a kernel wrapper handed a
@@ -43,7 +45,11 @@ def test_port_imports_no_jax_and_no_repro():
                            "repro_torch.data.pipeline",
                            "repro_torch.checkpoint.checkpointer",
                            "repro_torch.distributed.fault_tolerance",
-                           "repro_torch.launch.train"}} - set(names))
+                           "repro_torch.launch.train", "repro_torch.launch.mesh",
+                           "repro_torch.distributed.sharding",
+                           "repro_torch.distributed.collectives",
+                           "repro_torch.distributed.pipeline_parallel",
+                           "repro_torch.nn.ssm"}} - set(names))
         print(len(names), missing, bad)
         sys.exit(1 if bad or missing or len(names) < 15 else 0)
     """)
