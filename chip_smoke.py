@@ -168,7 +168,21 @@ printing JSON lines:
    params, state and batch on a (1, 1) mesh of one NCCL rank) against the
    unsharded step (equal losses, no kernel launch, every leaf a DTensor,
    both steps' host ms);
-12. the ``kernels`` line (the SSD row with each rank's launches in the
+12. dryrun, dryrun_ground — the dry run (``launch/dryrun.py``) on
+   ``--device cuda``: ``run_cell`` traces qwen2-7b's train_4k on the
+   16 x 16 production mesh and mamba2-780m's prefill_32k on 2 x 16 x 16,
+   both as shipped (the latter the SSD kernel's
+   route, through its custom op), each over a fake process group of 256 /
+   512 ranks, fake tensors only, no kernel launched; each record on a line
+   of its own.  Then the dry run's prediction of mesh_train's exact cell
+   (gemma3-1b, MESH_TRAIN_LAYERS layers, TRAIN_BATCH x TRAIN_SEQ, a (1, 1)
+   mesh) against that step on the card: the counted FLOPs equal the real
+   sharded step's (the same counter) and the unsharded step's
+   ``FlopCounterMode`` count; the predicted peak within DRYRUN_PEAK_TOL of
+   ``max_memory_allocated()`` over the step (less what was allocated
+   before it that is not the step's input); the step's ms beside the
+   roofline's bound (ungated);
+13. the ``kernels`` line (the SSD row with each rank's launches in the
    mesh phases, as counted there), the card line, and the final ``ok`` line.
 
 Any failure raises: the script then exits non-zero and prints no result.
@@ -301,6 +315,11 @@ MESH_SSD = dict(h=48, p=64, g=1, n=128, chunk=128)
 MESH_PSUM_STEPS = 30
 MESH_PSUM_BOUNDS = (0.05, 0.02)       # last step's mean, the mean over the steps
 MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS, MESH_TRAIN_TOL = 4, 3, 1e-5
+# the dry run's cells (arch, shape, multi-pod), as shipped, and the
+# peak-memory gate of its prediction against the card
+DRYRUN_CELLS = (("qwen2-7b", "train_4k", False), ("mamba2-780m", "prefill_32k", True))
+DRYRUN_PEAK_TOL = 0.10
+DRYRUN_GROUND_STEPS = 3
 KERNELS = {
     "fcu_matmul": ("src/repro_torch/kernels/csrc/fcu_matmul.cu",
                    "src/repro/kernels/fcu_matmul/fcu_matmul.py:45"),
@@ -588,14 +607,28 @@ def wrapper_host_us(torch, calls=2000):
     ctypes launch with the kernel's host-side plan) and of ``torch.matmul``, on an [8, 64] x
     [64, 8] product so small that the host, not the card, sets the pace:
     the floor under a kernel row's time where launches run back to
-    back.  The launches here are outside every counted window."""
-    from repro_torch.kernels import fcu_matmul
+    back; and of the flash and SSD wrappers and their custom ops (the dry
+    run's traced route) at tools/wrapper_host_times.py's shapes.  The
+    launches here are outside every counted window."""
+    from repro_torch.kernels import fcu_matmul, flash_attention, ssd_chunk
 
     x = torch.randn((8, 64), device="cuda")
     w = torch.randn((64, 8), device="cuda")
+    q = torch.randn((1, 2, 64, 64), device="cuda").to(torch.bfloat16)
+    xs = torch.randn((1, 64, 2, 16), device="cuda")
+    dt = torch.rand((1, 64, 2), device="cuda")
+    a = -torch.rand((2,), device="cuda")
+    b = torch.randn((1, 64, 1, 16), device="cuda")
     out = {}
     for name, fn in (("fcu_matmul", lambda: fcu_matmul.fcu_matmul(x, w, bm=8, bk=64, bn=8)),
-                     ("torch.matmul", lambda: torch.matmul(x, w))):
+                     ("torch.matmul", lambda: torch.matmul(x, w)),
+                     ("flash_attention", lambda: flash_attention.flash_attention(
+                         q, q, q, block_q=64, block_k=64)),
+                     ("flash_attention_op", lambda: torch.ops.repro_torch.flash_attention(
+                         q, q, q, True, 64, 64)),
+                     ("ssd_chunk", lambda: ssd_chunk.ssd_chunk(xs, dt, a, b, b, chunk=64)),
+                     ("ssd_chunk_op", lambda: torch.ops.repro_torch.ssd_chunk(
+                         xs, dt, a, b, b, 64))):
         fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3054,6 +3087,141 @@ def run_mesh_train(torch, kernels_mod):
     torch.cuda.empty_cache()
 
 
+def run_dryrun(torch, kernels_mod):
+    """``dryrun``: ``launch.dryrun.run_cell`` on ``--device cuda`` for
+    DRYRUN_CELLS as shipped, each over a fake process group of the
+    production mesh's ranks; every record printed.  Gates: status ok,
+    FLOPs, collectives and peak bytes above 0, no kernel launched, and the
+    SSM prefill's trace reaching the SSD kernel's op."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import dryrun
+
+    for arch, shape, multi_pod in DRYRUN_CELLS:
+        cfg = get_config(arch)
+        reset_counts(kernels_mod)
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape, multi_pod=multi_pod, device="cuda")
+        seconds = time.perf_counter() - t0
+        require(rec["status"] == "ok", f"dryrun {arch} {shape}: {rec.get('error')}")
+        require(not any(read_counts(kernels_mod).values()),
+                f"dryrun {arch} {shape}: a kernel launched in the trace")
+        require(rec["flops"]["counted_per_rank"] > 0 and rec["collectives"]["total_count"] > 0
+                and rec["memory"]["peak_bytes"] > 0, f"dryrun {arch} {shape}: empty counts")
+        if cfg.family == "ssm" and shape.startswith("prefill"):
+            require("repro_torch.ssd_chunk" in rec["flops"]["counted_by_op"],
+                    f"dryrun {arch} {shape}: the trace missed the SSD kernel's op")
+        emit({"phase": "dryrun", "layers": cfg.n_layers, "seconds": seconds, **rec})
+
+
+def run_dryrun_ground(torch, kernels_mod):
+    """``dryrun_ground``: the dry run's prediction of ``mesh_train``'s
+    cell (gemma3-1b at full width, MESH_TRAIN_LAYERS layers, one step of
+    TRAIN_BATCH x TRAIN_SEQ tokens on a (1, 1) mesh) against the step on
+    the card, one NCCL rank.  Step 1 of the unsharded step runs under
+    ``FlopCounterMode``, step 1 of the sharded one under the dry run's own
+    counter (``StepCounter``); steps 2.. are timed, the peak of the last
+    read after ``reset_peak_memory_stats``.  Gates: the three FLOP counts
+    equal; the predicted peak within DRYRUN_PEAK_TOL of the measured one,
+    which is ``max_memory_allocated`` less what was allocated before the
+    step beside its inputs (their storages, rounded as the allocator
+    rounds them)."""
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import tree
+    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.shapes import ShapeSuite
+    from repro_torch.core.hlo_analysis import StepCounter, storage_bytes
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import dryrun, train
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.registry import get_api
+    from repro_torch.optim import optimizers as opt
+
+    cfg = dataclasses.replace(get_config("gemma3-1b"), n_layers=MESH_TRAIN_LAYERS)
+    shape = ShapeSuite("mesh_train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell(cfg.name, shape, cfg=cfg, mesh_shape=(1, 1), device="cuda")
+    trace_s = time.perf_counter() - t0
+    require(rec["status"] == "ok", f"dryrun_ground: the trace failed: {rec.get('error')}")
+
+    api = get_api(cfg)
+    adam = train.adam_config_for(cfg)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH, seed=0)
+    batches = [next(data) for _ in range(1 + DRYRUN_GROUND_STEPS)]
+    plain = train.trainable(api.init(cfg, torch.Generator(device="cuda").manual_seed(0)))
+    state = opt.init(adam, plain)
+    fc = FlopCounterMode(display=False)
+    with fc:
+        train.build_train_step(cfg, adam)(plain, state, batches[0])
+    unsharded_flops = fc.get_total_flops()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            mesh = make_local_mesh()
+            pshard = shd.params_shardings(plain, mesh)
+            params = train.trainable(shd.shard_tree(plain, pshard))
+            state = shd.shard_tree(state, shd.opt_state_shardings(state, plain, mesh))
+            del plain
+            torch.cuda.empty_cache()
+            step = train.build_train_step(cfg, adam, grad_shardings=pshard)
+            placed = [shd.shard_tree(b, shd.batch_specs(b, mesh)) for b in batches]
+            counter = StepCounter(mesh)
+            reset_counts(kernels_mod)
+            with mesh, counter:
+                step(params, state, placed[0])
+            sharded_flops = counter.flops
+            del counter
+            times = []
+            for batch in placed[1:]:
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t1 = time.perf_counter()
+                with mesh:
+                    _, _, metrics = step(params, state, batch)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t1) * 1e3)
+                peak = torch.cuda.max_memory_allocated()
+                del metrics
+            require(not any(read_counts(kernels_mod).values()),
+                    "dryrun_ground: a kernel launched in a train step")
+            held = sum(storage_bytes(t.to_local() if isinstance(t, DTensor) else t)
+                       for t in tree.leaves([params, state, placed[-1]]) if torch.is_tensor(t))
+            step_peak = peak - base + held
+            del params, state, placed
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    predicted = rec["memory"]["peak_bytes"]
+    flops = rec["flops"]["counted_per_rank"]
+    step_ms = statistics.median(times)
+    bound_ms = rec["roofline"]["bound_s"] * 1e3
+    row = {"phase": "dryrun_ground", "model": cfg.name, "layers": cfg.n_layers,
+           "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ, "mesh": [1, 1], "trace_s": trace_s,
+           "flops": {"dryrun": flops, "card_step_counter": sharded_flops,
+                     "card_unsharded_flop_counter_mode": unsharded_flops,
+                     "analytic": rec["flops"]["analytic_per_rank"]},
+           "peak_bytes": {"dryrun": predicted, "card_step": step_peak,
+                          "card_max_memory_allocated": peak, "card_allocated_before": base,
+                          "card_step_inputs": held,
+                          "dryrun_over_card": predicted / step_peak},
+           "step_ms": times, "step_ms_median": step_ms, "roofline_bound_ms": bound_ms,
+           "roofline_dominant": rec["roofline"]["dominant"],
+           "bound_over_step": bound_ms / step_ms, "peak_tolerance": DRYRUN_PEAK_TOL}
+    emit(row)
+    require(flops == sharded_flops == unsharded_flops,
+            f"dryrun_ground: FLOPs {flops} (dry run) against {sharded_flops} (card, "
+            f"sharded step) and {unsharded_flops} (card, FlopCounterMode, unsharded)")
+    require(abs(predicted - step_peak) <= DRYRUN_PEAK_TOL * step_peak,
+            f"dryrun_ground: predicted peak {predicted} against {step_peak} on the card")
+
+
 def summarise(name, rows) -> dict:
     """One route's rows of kernel ``name``, summed over the timed shapes:
     ms, the plain version's and the library call's ms, the bound, and the
@@ -3223,6 +3391,8 @@ def main() -> int:
     run_mesh_collectives(torch)
     mesh_pipeline_line()
     run_mesh_train(torch, kernels_mod)
+    run_dryrun(torch, kernels_mod)
+    run_dryrun_ground(torch, kernels_mod)
 
     out = kernels_line(bench, launches)
     for row in out:

@@ -1,13 +1,15 @@
 """Hardware constants: the card the port runs on, and the FPGA the paper
 prices its resources on.
 
-``HopperSpec`` holds the NVIDIA H100 SXM figures the tile rule and the
-roofline bounds need.
+``HopperSpec`` holds the NVIDIA H100 SXM figures the tile rule, the
+roofline bounds and the dry run (``launch.dryrun``) need.
 
 Sources: NVIDIA H100 Tensor Core GPU data sheet (SXM5 part, dense rates
 without sparsity, at the 700 W power limit) and the NVIDIA Hopper
 architecture white paper / CUDA C++ Programming Guide ("Compute
-Capability 9.0" table) for the per-SM and per-block limits.  A card set
+Capability 9.0" table) for the per-SM and per-block limits; the NVIDIA
+DGX H100 data sheet for the node (8 cards on NVLink 4, one 400 Gb/s
+ConnectX-7 NIC per card).  A card set
 below 700 W (``nvidia-smi --query-gpu=power.limit``) reaches less than
 these peaks; every measurement is reported beside that limit.
 """
@@ -27,6 +29,10 @@ class HopperSpec:
     peak_fp32_flops: float = 67e12       # CUDA cores, FP32 (FMA = 2 flops)
     peak_tf32_flops: float = 495e12      # tensor cores, TF32, dense
     peak_bf16_flops: float = 989e12      # tensor cores, BF16/FP16, dense
+    hbm_bytes: float = 80e9              # 80 GB HBM3
+    nvlink_bw: float = 450e9             # bytes/s each way: half of NVLink 4's 900 GB/s
+    nic_bw: float = 50e9                 # bytes/s a card across nodes: one 400 Gb/s NIC
+    cards_per_node: int = 8              # DGX H100: 8 cards all to all on NVLink
 
 
 H100_SXM = HopperSpec()

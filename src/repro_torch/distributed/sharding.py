@@ -27,11 +27,11 @@ per-layer leaf gets the reference's spec of the stacked leaf without its
 leading entry.  Batches and serve states have the same structure in both
 packages and are judged as they are.
 
-``shard_tree`` places a tree on its shardings as DTensors.  ``constrain``
-is a no-op outside a mesh (no ``with mesh:`` block) and on
-a plain tensor; inside one it redistributes a DTensor to the logical
-axes' placements.  ``abstract_with_shardings`` belongs to the dry run and
-is not ported yet.
+``shard_tree`` places a tree on its shardings as DTensors;
+``abstract_with_shardings`` does so for an abstract tree (meta or fake
+tensors, the dry run's inputs) without allocating.  ``constrain`` is a
+no-op outside a mesh (no ``with mesh:`` block) and on a plain tensor;
+inside one it redistributes a DTensor to the logical axes' placements.
 """
 from __future__ import annotations
 
@@ -241,6 +241,22 @@ def shard_tree(tree: Any, shardings: Any) -> Any:
         x = torch.as_tensor(x).detach().to(s.mesh.device_type, copy=True)
         out.append(distribute_tensor(x, s.mesh, s.placements))
     return unflatten(tree, out)
+
+
+def abstract_with_shardings(tree: Any, shardings: Any) -> Any:
+    """Each leaf of an abstract ``tree`` (meta or fake tensors: shapes and
+    dtypes) as a DTensor on its sharding's mesh and placements, over fake
+    local shards on the mesh's device: the JAX package's
+    ``ShapeDtypeStruct(..., sharding=s)``.  Runs under the caller's
+    ``FakeTensorMode`` (the tensors are used there), or a new one;
+    nothing is allocated."""
+    from torch._guards import detect_fake_mode
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with detect_fake_mode() or FakeTensorMode():
+        whole = [torch.empty(tuple(x.shape), dtype=x.dtype, device=s.mesh.device_type)
+                 for x, s in zip(leaves(tree), leaves(shardings))]
+        return shard_tree(unflatten(tree, whole), shardings)
 
 
 # ---------------------------------------------------------------------------

@@ -20,6 +20,14 @@ leaves the bf16 kernel block_k 64 only.
 repeated per group, f32 scores and softmax); the wrapper runs it only for
 a tensor on the CPU.  For a CUDA tensor it launches the kernel or raises.
 ``flash_attention.launches`` counts kernel launches.
+
+A fake CUDA tensor (``FakeTensorMode``: the dry run's trace,
+``launch.dryrun``) has no memory to launch on: the wrapper hands it to
+the custom op ``torch.ops.repro_torch.flash_attention``, whose fake
+implementation gives the output's shape and whose FLOP formula
+(``torch.utils.flop_counter``) gives the kernel's own work, 4·B·H·Sq·Sk·d,
+halved when causal.  A real tensor launches directly, as before: the op's
+dispatch costs host time a call.
 """
 from __future__ import annotations
 
@@ -27,6 +35,8 @@ import math
 from typing import Callable, Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.core.hw import H100_SXM
 from repro_torch.core.tiles import TileChoice
@@ -112,9 +122,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"bytes of shared memory, over {H100_SXM.smem_per_block}")
     if not _build.on_card(q):
         return flash_attention_plain(q, k, v, causal=causal)
-    lib = _build.library()
+    if isinstance(q, FakeTensor):
+        return torch.ops.repro_torch.flash_attention(q, k, v, causal, block_q, block_k)
+    return _launch(q, k, v, causal, block_q, block_k)
+
+
+flash_attention.launches = 0
+
+
+def _launch(q, k, v, causal: bool, block_q: int, block_k: int) -> torch.Tensor:
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
-    err = getattr(lib, _ENTRY[q.dtype])(
+    err = getattr(_build.library(), _ENTRY[q.dtype])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, h, h // hkv,
         sq, sk, d, block_q, block_k, int(causal), 1.0 / math.sqrt(d),
         _build.raw_stream(q.device),
@@ -124,7 +144,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o
 
 
-flash_attention.launches = 0
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+              block_q: int, block_k: int) -> torch.Tensor:
+    """The kernel as an op, for traced calls (module note)."""
+    return _launch(q, k, v, causal, block_q, block_k)
+
+
+@_flash_op.register_fake
+def _(q, k, v, causal, block_q, block_k):
+    return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flash_flops(q_shape, k_shape, v_shape, causal, *args, out_shape=None, **kwargs) -> int:
+    b, h, sq, d = q_shape
+    flops = 4 * b * h * sq * k_shape[2] * d
+    return flops // 2 if causal else flops
 
 
 def attention_impl(

@@ -30,6 +30,14 @@ f32, as the Pallas kernel does.  The wrapper runs the plain version only
 for a tensor on the CPU.  For a CUDA tensor it launches the kernels or
 raises.  ``ssd_chunk.launches`` counts calls that launched them (one a
 call, for the three phases).
+
+A fake CUDA tensor (``FakeTensorMode``: the dry run's trace,
+``launch.dryrun``) goes to the custom op ``torch.ops.repro_torch.ssd_chunk``
+instead, whose fake implementation gives the outputs' shapes and whose
+FLOP formula (``torch.utils.flop_counter``) gives the scan's terms of the
+analytic model (``core.flops._ssm_layer_flops``: the chunk-quadratic term
+2·T·Q·H·(N + P) and the states' 4·T·H·P·N, T = B·L tokens).  A real
+tensor launches directly, as before.
 """
 from __future__ import annotations
 
@@ -37,6 +45,8 @@ import math
 from typing import Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.core.hw import H100_SXM
 from repro_torch.core.rate import divisors
@@ -130,14 +140,25 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         raise ValueError(f"ssd_chunk: operands on {x.device} and {a.device}")
     if not _build.on_card(x):
         return ssd_chunk_plain(x, dt, a, b, c, chunk=chunk)
+    if isinstance(x, FakeTensor):
+        work = _workspace(x, b, chunk)   # held while the op runs, as a launch holds it
+        out = tuple(torch.ops.repro_torch.ssd_chunk(x, dt, a, b, c, chunk))
+        del work
+        return out
+    return _launch(x, dt, a, b, c, chunk)
+
+
+ssd_chunk.launches = 0
+
+
+def _launch(x, dt, a, b, c, chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    bsz, l, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
     nc = l // chunk
     run = ssd_head_run(bsz, nc, h, g, p, n, chunk)
     y = torch.empty_like(x)
     state = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
-    # the state each chunk adds, then the state entering it; then each
-    # chunk's sum of dt * a
-    work = torch.empty(bsz * nc * h * (p * n + 1), dtype=torch.float32,
-                       device=x.device)
+    work = _workspace(x, b, chunk)
     a = a.float()
     err = getattr(_build.library(), f"ssd_chunk_{_build.SUFFIX[x.dtype]}")(
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
@@ -149,4 +170,30 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return y, state
 
 
-ssd_chunk.launches = 0
+def _workspace(x, b, chunk: int) -> torch.Tensor:
+    """The state each chunk adds, then the state entering it; then each
+    chunk's sum of dt * a: f32 ``[B, nc, H, P * N + 1]``."""
+    bsz, l, h, p = x.shape
+    return torch.empty(bsz * (l // chunk) * h * (p * b.shape[3] + 1), dtype=torch.float32,
+                       device=x.device)
+
+
+@torch.library.custom_op("repro_torch::ssd_chunk", mutates_args=())
+def _ssd_op(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+            c: torch.Tensor, chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernels as an op, for traced calls (module note)."""
+    return _launch(x, dt, a, b, c, chunk)
+
+
+@_ssd_op.register_fake
+def _(x, dt, a, b, c, chunk):
+    bsz, _, h, p = x.shape
+    return torch.empty_like(x), x.new_empty((bsz, h, p, b.shape[3]), dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_chunk)
+def _ssd_flops(x_shape, dt_shape, a_shape, b_shape, c_shape, chunk, *args,
+               out_shape=None, **kwargs) -> int:
+    bsz, l, h, p = x_shape
+    tokens, n = bsz * l, b_shape[3]
+    return 2 * tokens * chunk * h * (n + p) + 4 * tokens * h * p * n

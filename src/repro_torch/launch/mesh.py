@@ -18,6 +18,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, _mesh_resources, init_device_mesh
 
@@ -28,9 +29,17 @@ PRODUCTION = {False: ((16, 16), ("data", "model")),
 def make_production_mesh(*, multi_pod: bool = False,
                          device_type: Optional[str] = None) -> DeviceMesh:
     """16x16 = 256 ranks a pod; 2 pods = 512 ranks multi-pod.  The world
-    must have exactly that many ranks."""
+    must have exactly that many ranks: real ones, or a ``fake`` process
+    group's (the dry run, ``launch.dryrun``), whose ranks all live in this
+    process on its one card."""
     shape, names = PRODUCTION[multi_pod]
-    return init_device_mesh(device_type or "cuda", shape, mesh_dim_names=names)
+    device_type = device_type or "cuda"
+    if device_type == "cuda" and dist.get_backend() == "fake":
+        # a fake world on one card (the dry run): every rank is this
+        # process, on its current card; torch 2.11's mesh would otherwise
+        # pick a card by rank % cards
+        torch.cuda.set_device(torch.cuda.current_device())
+    return init_device_mesh(device_type, shape, mesh_dim_names=names)
 
 
 def make_local_mesh(model_degree: int = 1,

@@ -34,14 +34,17 @@ per-layer pairs ``[B, S_i, n_kv, D]``: local layers get rings of
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 import torch.utils.checkpoint
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import constrain, replicate_dim
+from repro_torch.distributed.sharding import constrain
+from repro_torch.launch.mesh import ambient_mesh
 from repro_torch.tree import leaves, records_grad
 from repro_torch.nn.attention import AttnSpec, attention, init_attention
 from repro_torch.nn.embeddings import embed, init_embedding, unembed
@@ -194,10 +197,21 @@ def remat(cfg: ModelConfig, fn: Callable, *args):
     group body, whose activations the backward recomputes.  A serving
     pass runs ``fn`` as it is.  ``use_reentrant=False`` runs the first
     pass with grad enabled, so that both passes take the same routes
-    (``nn.attention``, ``nn.ssm``)."""
+    (``nn.attention``, ``nn.ssm``).  The recomputation runs inside the
+    forward's ambient mesh: on the card autograd runs the backward in a
+    thread of its own, where the mesh stack (thread-local) is empty, and
+    ``constrain`` and the sequence-parallel scan would take other routes."""
     if cfg.remat and records_grad(*filter(torch.is_tensor, leaves(args))):
+        mesh = ambient_mesh()
+        if mesh is not None:
+            fn = functools.partial(_in_mesh, mesh, fn)
         return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
     return fn(*args)
+
+
+def _in_mesh(mesh, fn: Callable, *args):
+    with mesh:
+        return fn(*args)
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
@@ -234,13 +248,71 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     ``preferred_element_type``), averaged over the labels >= 0.  A masked
     label reads logit 0 (the JAX package's gather wraps it; the mask
     zeroes it either way)."""
-    # DTensor's gather over a vocab-sharded dim leaves a masked partial
-    # that its redistribute cannot reduce: gather from the whole vocab
-    logits = replicate_dim(logits, -1)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    if isinstance(logits, DTensor):
+        logz, gold = _logz_gold_sharded(logits, labels)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = _Pick.apply(logits, labels.clamp(min=0))
     mask = (labels >= 0).float()
     return torch.sum((logz - gold) * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+class _Pick(torch.autograd.Function):
+    """``torch.gather(x, -1, idx[..., None])[..., 0]`` whose backward keeps
+    the index alone: ``torch.gather`` keeps all of ``x`` (the f32 logits,
+    [rows, vocab]) alive until its backward runs, beside the CE's own
+    [rows, vocab] temporaries."""
+
+    @staticmethod
+    def forward(ctx, x, idx):
+        ctx.save_for_backward(idx)
+        ctx.like = (x.shape, x.dtype, x.device)
+        return torch.gather(x, -1, idx[..., None])[..., 0]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        shape, dtype, device = ctx.like
+        gx = torch.zeros(shape, dtype=dtype, device=device)
+        return gx.scatter_(-1, idx[..., None], g[..., None].to(dtype)), None
+
+
+def _logz_gold_sharded(logits: DTensor, labels: torch.Tensor):
+    """``logsumexp`` and the gold logit of vocab-sharded DTensor logits,
+    vocab-parallel (Megatron's CE): each rank reduces its own rows and
+    vocab shard, and the mesh dims that split the vocab combine the
+    partial results (a max, then sums).  DTensor's own gather over a
+    vocab-sharded dim leaves a masked partial its redistribute cannot
+    reduce, and gathering the whole vocab on every rank holds [rows,
+    vocab] f32 logits a rank (20 GB for qwen2-7b's train_4k on a 16 x 16
+    mesh) and their gradient replicated whole (320 GB)."""
+    mesh, vdim = logits.device_mesh, logits.dim() - 1
+    rows = [Replicate() if p.is_shard(vdim) else p for p in logits.placements]
+
+    def combine(local, op="sum"):
+        split = [Partial(op) if p.is_shard(vdim) else p for p in logits.placements]
+        return DTensor.from_local(local, mesh, split).redistribute(mesh, rows)
+
+    local = logits.to_local()
+    lo, size = 0, logits.shape[vdim]        # this rank's vocab offset (torch.chunk's split)
+    for i, p in enumerate(logits.placements):
+        if p.is_shard(vdim):
+            step = -(-size // mesh.shape[i])
+            c = mesh.get_local_rank(i)
+            lo, size = lo + c * step, max(0, min(step, size - c * step))
+    lab = labels if isinstance(labels, DTensor) else DTensor.from_local(
+        labels, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    idx = lab.redistribute(mesh, rows).to_local().clamp(min=0) - lo
+    if size == logits.shape[vdim]:
+        # the whole vocab on this rank: the unsharded CE's own ops, bit for bit
+        return (DTensor.from_local(torch.logsumexp(local, dim=-1), mesh, rows),
+                DTensor.from_local(_Pick.apply(local, idx), mesh, rows))
+    m = combine(local.detach().amax(-1), "max").to_local()
+    sumexp = combine(torch.exp(local - m[..., None]).sum(-1))
+    logz = torch.log(sumexp) + DTensor.from_local(m, mesh, rows)
+    here = (idx >= 0) & (idx < local.shape[-1])
+    picked = _Pick.apply(local, idx.clamp(0, local.shape[-1] - 1))
+    return logz, combine(torch.where(here, picked, torch.zeros_like(picked)))
 
 
 def loss_fn(params: dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig

@@ -312,3 +312,58 @@ def make_cnn_config(name: str, **overrides):
 def get_cnn_api(name: str, device=None) -> CNNApi:
     make_config, mod = _cnn_family(name)
     return _cnn_api(name, make_config, mod, resolve_device(device))
+
+
+# --------------------------------------------------------------------------
+# abstract input specs (the JAX package's ShapeDtypeStructs): tensors on the
+# meta device, or fake tensors under the caller's FakeTensorMode; nothing
+# is allocated
+# --------------------------------------------------------------------------
+
+def _sds(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def train_batch_specs(cfg, shape) -> Dict[str, Any]:
+    b, s = shape.global_batch, shape.seq_len
+    if cfg.family == "encdec":
+        return {
+            "frames": _sds((b, s, cfg.d_model), torch.bfloat16),
+            "tokens": _sds((b, s), torch.int32),
+            "labels": _sds((b, s), torch.int32),
+        }
+    if cfg.family == "vlm":
+        st = s - cfg.n_patches
+        return {
+            "patches": _sds((b, cfg.n_patches, cfg.d_model), torch.bfloat16),
+            "tokens": _sds((b, st), torch.int32),
+            "labels": _sds((b, st), torch.int32),
+        }
+    return {
+        "tokens": _sds((b, s), torch.int32),
+        "labels": _sds((b, s), torch.int32),
+    }
+
+
+def prefill_batch_specs(cfg, shape) -> Dict[str, Any]:
+    b, s = shape.global_batch, shape.seq_len
+    if cfg.family == "encdec":
+        return {
+            "frames": _sds((b, s, cfg.d_model), torch.bfloat16),
+            "tokens": _sds((b, s), torch.int32),
+        }
+    if cfg.family == "vlm":
+        return {
+            "patches": _sds((b, cfg.n_patches, cfg.d_model), torch.bfloat16),
+            "tokens": _sds((b, s - cfg.n_patches), torch.int32),
+        }
+    return {"tokens": _sds((b, s), torch.int32)}
+
+
+def decode_batch_specs(cfg, shape) -> Dict[str, Any]:
+    return {"tokens": _sds((shape.global_batch, 1), torch.int32)}
+
+
+def serve_state_specs(cfg, shape) -> Any:
+    """``make_serve_state`` on the meta device (shapes only)."""
+    return get_api(cfg, "meta").make_serve_state(cfg, shape.global_batch, shape.seq_len)

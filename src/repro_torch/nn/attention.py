@@ -152,23 +152,34 @@ def _attend_dense(q, k, v, q_pos, k_pos, *, causal, window, kv_len, scale):
     return _pv(torch.softmax(s, dim=-1), v)
 
 
-def _attend_local(attend, qh, kh, vh, q_pos, k_pos):
-    """``attend`` on DTensors q [B, Hkv, G, Sq, D], k/v [B, Hkv, Sk, D]:
-    each rank attends its own rows (batch over the mesh's data axes) and
-    heads (KV heads over 'model'), where those divide them, on its local
-    shards.  Attention is independent across rows and heads, so no
+def _merge_heads(o: torch.Tensor) -> torch.Tensor:
+    """f32 [B, Hkv, G, Sq, D] -> [B, Sq, H * D]."""
+    b, _, _, sq, _ = o.shape
+    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, -1)
+
+
+def _attend_local(attend, qh, kh, vh, q_pos):
+    """``attend(q, k, v, q_pos) -> [B, Sq, H * D]`` on DTensors q [B, Hkv,
+    G, Sq, D] or [B, H, Sq, D], k/v [B, Hkv, Sk, D]: each rank attends its
+    own rows (batch over the mesh's data axes) and heads (KV heads over
+    'model'), where those divide them, on its local shards, and merges its
+    heads there.  Attention is independent across rows and heads, so no
     collective runs inside; DTensor's own propagation of the score
-    products over merged (strided) batch-head shards cost seconds a
-    shape.  Positions are plain tensors, sliced to the rank's rows."""
+    products over merged (strided) batch-head shards cost seconds a shape,
+    and its view of the merged heads refuses a grad sharded unevenly over
+    them.  The flash kernel takes a rank's shards as plain tensors.
+    Positions are plain tensors, sliced to the rank's rows."""
     mesh = qh.device_mesh
     names = list(mesh.mesh_dim_names)
     pl, row, rows = row_placements(mesh, qh.shape[0])
-    if "model" in names and qh.shape[1] % mesh.shape[names.index("model")] == 0:
+    out_pl = list(pl)
+    if "model" in names and kh.shape[1] % mesh.shape[names.index("model")] == 0:
         pl[names.index("model")] = Shard(1)
+        out_pl[names.index("model")] = Shard(2)
     ql, kl, vl = (t.redistribute(mesh, pl).to_local() for t in (qh, kh, vh))
     if q_pos.dim() >= 2:
         q_pos = q_pos.chunk(rows)[row]
-    return DTensor.from_local(attend(ql, kl, vl, q_pos, k_pos), mesh, pl)
+    return DTensor.from_local(attend(ql, kl, vl, q_pos), mesh, out_pl)
 
 
 def _block_size(block: int, n: int) -> int:
@@ -181,7 +192,7 @@ def _block_size(block: int, n: int) -> int:
 
 
 def _attend_blockwise(q, k, v, q_pos, k_pos, *, causal, window, kv_len, scale,
-                      q_block: int, k_block: int):
+                      q_block: int, k_block: int, ordered: bool = False):
     """Online softmax over q blocks and, inside each, k blocks: the same
     function as ``_attend_dense`` without the [Sq, Sk] scores.
 
@@ -193,20 +204,27 @@ def _attend_blockwise(q, k, v, q_pos, k_pos, *, causal, window, kv_len, scale,
     a block processed before any valid key is wiped by ``alpha = 0`` once
     one arrives; a q block whose key blocks would all be skipped processes
     them all, so a row with no valid key still gets the reference's mean
-    of v."""
+    of v.  ``ordered``: the caller knows the positions are 0..Sq-1 in every
+    row and 0..Sk-1, so the bounds need no read (nor a fake tensor's data,
+    in the dry run's trace) when ``kv_len`` is None or an int."""
     b, hkv, g, sq, d = q.shape
     sk = k.shape[2]
     qb, kb = _block_size(q_block, sq), _block_size(k_block, sk)
     nq, nk = sq // qb, sk // kb
-    qp = q_pos.reshape(-1, nq, qb)
-    kp = k_pos.reshape(-1, nk, kb)
-    bounds = [qp.amin((0, 2)), qp.amax((0, 2)), kp.amin((0, 2)), kp.amax((0, 2))]
-    if kv_len is not None:
-        bounds.append(torch.as_tensor(kv_len, device=q.device).reshape(-1).amax()[None])
-    bounds = torch.cat(bounds).tolist()
-    q_lo, q_hi, k_lo, k_hi = (bounds[:nq], bounds[nq:2 * nq], bounds[2 * nq:2 * nq + nk],
-                              bounds[2 * nq + nk:2 * nq + 2 * nk])
-    n_valid = bounds[-1] if kv_len is not None else math.inf
+    if ordered and not torch.is_tensor(kv_len):
+        q_lo, k_lo = list(range(0, sq, qb)), list(range(0, sk, kb))
+        q_hi, k_hi = [lo + qb - 1 for lo in q_lo], [lo + kb - 1 for lo in k_lo]
+        n_valid = math.inf if kv_len is None else kv_len
+    else:
+        qp = q_pos.reshape(-1, nq, qb)
+        kp = k_pos.reshape(-1, nk, kb)
+        bounds = [qp.amin((0, 2)), qp.amax((0, 2)), kp.amin((0, 2)), kp.amax((0, 2))]
+        if kv_len is not None:
+            bounds.append(torch.as_tensor(kv_len, device=q.device).reshape(-1).amax()[None])
+        bounds = torch.cat(bounds).tolist()
+        q_lo, q_hi, k_lo, k_hi = (bounds[:nq], bounds[nq:2 * nq], bounds[2 * nq:2 * nq + nk],
+                                  bounds[2 * nq + nk:2 * nq + 2 * nk])
+        n_valid = bounds[-1] if kv_len is not None else math.inf
 
     def covered(i, j):
         return ((causal and k_lo[j] > q_hi[i]) or (bool(window) and q_lo[i] - k_hi[j] >= window)
@@ -292,8 +310,8 @@ def _write_ring(ck, cv, k, v, cache_len, sq):
     """Write k/v [B, Sq, nkv, D] into a ring [B, w, nkv, D] in place,
     position t at slot t mod w -> ``(k, v, k_pos)`` to attend over: at
     prefill (Sq > 1, one start for every row) the current k/v at their
-    positions; at decode the ring at the positions its slots hold, ``[w]``
-    for one position or ``[B, w]`` for one per row."""
+    positions (None for 0..Sq-1); at decode the ring at the positions its
+    slots hold, ``[w]`` for one position or ``[B, w]`` for one per row."""
     w = ck.shape[1]
     dev = ck.device
     per_row = (cache_len.dim() if torch.is_tensor(cache_len) else np.ndim(cache_len)) > 0
@@ -301,11 +319,20 @@ def _write_ring(ck, cv, k, v, cache_len, sq):
         if per_row:
             raise ValueError("a ring prefill takes one start position for every row")
         start = int(cache_len)
-        keep = min(w, sq)
-        slots = (start + torch.arange(sq - keep, sq, device=dev)) % w
-        ck[:, slots] = k[:, -keep:].to(ck.dtype)
-        cv[:, slots] = v[:, -keep:].to(cv.dtype)
-        return k, v, start + torch.arange(sq, device=dev)
+        if sq >= w:
+            # every slot is written: the last w positions rotated into their
+            # slots as one copy (a DTensor cache sharded over its slots takes
+            # no indexed in-place write; torch 2.11's DTensor has no roll)
+            shift = (start + sq - w) % w
+            for c, t in ((ck, k[:, -w:]), (cv, v[:, -w:])):
+                if shift:
+                    t = torch.cat([t[:, w - shift:], t[:, :w - shift]], dim=1)
+                c.copy_(t.to(c.dtype))
+        else:
+            slots = (start + torch.arange(sq, device=dev)) % w
+            ck[:, slots] = k.to(ck.dtype)
+            cv[:, slots] = v.to(cv.dtype)
+        return k, v, (None if start == 0 else start + torch.arange(sq, device=dev))
     if per_row:
         start = torch.as_tensor(cache_len, dtype=torch.long, device=dev)
         rows = torch.arange(ck.shape[0], device=dev)
@@ -318,6 +345,20 @@ def _write_ring(ck, cv, k, v, cache_len, sq):
         cv[:, start % w] = v[:, 0].to(cv.dtype)
     t = start - ((start - torch.arange(w, device=dev)) % w)
     return ck, cv, torch.where(t >= 0, t, _EMPTY)
+
+
+def _whole_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """A projection ``[B, S, heads * D]`` ready to split into its heads (q
+    into its ``heads`` KV groups): a DTensor whose width is sharded over a
+    mesh dim that does not divide ``heads`` (qwen2's 4 KV heads on a
+    'model' axis of 16) is gathered whole along the width, since DTensor
+    refuses an uneven split of a sharded dim where XLA pads it.  Heads that
+    divide stay sharded."""
+    if isinstance(t, DTensor) and any(
+            p.is_shard(t.dim() - 1) and heads % n
+            for p, n in zip(t.placements, t.device_mesh.shape)):
+        return replicate_dim(t, -1)
+    return t
 
 
 def _positions_from_zero(q_positions, sq: int) -> bool:
@@ -370,9 +411,9 @@ def attention(
         k = k + params["bk"]
         v = v + params["bv"]
 
-    q = q.reshape(b, sq, h, dh)
-    k = k.reshape(b, src.shape[1], nkv, dh)
-    v = v.reshape(b, src.shape[1], nkv, dh)
+    q = _whole_heads(q, nkv).reshape(b, sq, h, dh)
+    k = _whole_heads(k, nkv).reshape(b, src.shape[1], nkv, dh)
+    v = _whole_heads(v, nkv).reshape(b, src.shape[1], nkv, dh)
 
     if spec.use_rope and x_kv is None:
         q = rope(q, q_positions, theta=spec.rope_theta)
@@ -414,26 +455,32 @@ def attention(
         kh = k[:, :n_keys].transpose(1, 2).to(dt).contiguous()        # [B, Hkv, Sk, D]
         vh = v[:, :n_keys].transpose(1, 2).to(dt).contiguous()
         core = flash if flash is not None else attention_impl()
-        out = core(qh, kh, vh, **({} if causal else {"causal": False}))
-        out = out.transpose(1, 2).reshape(b, sq, h * dh)
+
+        def attend(qh, kh, vh, q_pos):
+            out = core(qh, kh, vh, **({} if causal else {"causal": False}))
+            return out.transpose(1, 2).reshape(qh.shape[0], sq, -1)
     else:
         qh = q.reshape(b, sq, nkv, g, dh).permute(0, 2, 3, 1, 4)  # [B, Hkv, G, Sq, D]
         kh = k.transpose(1, 2)                                     # [B, Hkv, Sk, D]
         vh = v.transpose(1, 2)
+        ordered = not positions_given and k_pos is None
         if k_pos is None:
             k_pos = torch.arange(kh.shape[2], device=x.device)
         impl = spec.impl
         if impl == "auto":
             impl = "dense" if sq * kh.shape[2] <= spec.dense_max ** 2 else "blockwise"
         blocks = {} if impl == "dense" else {"q_block": spec.q_block,
-                                             "k_block": spec.k_block}
-        attend = functools.partial(
-            _attend_dense if impl == "dense" else _attend_blockwise, causal=causal,
-            window=window, kv_len=kv_len, scale=1.0 / math.sqrt(dh), **blocks)
-        if isinstance(qh, DTensor):
-            out = _attend_local(attend, qh, kh, vh, q_positions, k_pos)
-        else:
-            out = attend(qh, kh, vh, q_positions, k_pos)
-        out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, h * dh)
+                                             "k_block": spec.k_block, "ordered": ordered}
+        scores = functools.partial(
+            _attend_dense if impl == "dense" else _attend_blockwise, k_pos=k_pos,
+            causal=causal, window=window, kv_len=kv_len, scale=1.0 / math.sqrt(dh),
+            **blocks)
+
+        def attend(qh, kh, vh, q_pos):
+            return _merge_heads(scores(qh, kh, vh, q_pos))
+    if isinstance(qh, DTensor):
+        out = _attend_local(attend, qh, kh, vh, q_positions)
+    else:
+        out = attend(qh, kh, vh, q_positions)
     out = out.to(x.dtype) @ params["wo"]
     return placed_like(out, x_in), new_cache

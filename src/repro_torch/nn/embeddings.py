@@ -65,22 +65,51 @@ def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     is ``_WideLogits``: ``torch.mm(..., out_dtype=torch.float32)``, which
     a PyTorch without it refuses, given a backward; on the CPU the table
     is turned into f32 ``_VOCAB_CHUNK`` rows at a time
-    (``unembed_chunked``); on DTensors, ``_WideLogits`` on each rank's
-    shards (``_wide_logits_sharded``).
+    (``unembed_chunked``).  On DTensors: a vocab-sharded table gives each
+    rank its vocab slice of its rows, the sequence gathered whole first
+    (``_wide_logits_sharded``); a table whose vocab no mesh dim splits
+    (mamba2-780m's 50280 on a 'model' axis of 16) is gathered whole, and
+    each rank multiplies its own rows, the sequence left sharded
+    (``_logits_local_rows``): gathering the sequence there would give every
+    'model' rank the same rows, and the head's FLOPs 16 times over.
     """
-    if isinstance(x, DTensor) and x.dim() == 3:      # gather a sharded sequence first
-        x = replicate_dim(x, 1)
+    if isinstance(x, DTensor) and x.dim() == 3:
+        if not any(p.is_shard(0) for p in table.placements):
+            return _logits_local_rows(table, x)
+        x = replicate_dim(x, 1)                  # gather a sharded sequence first
     lead, d = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, d)
-    if x2.dtype == table.dtype == torch.float32:
-        y = x2 @ table.t()
-    elif isinstance(x2, DTensor):
+    if isinstance(x2, DTensor) and not x2.dtype == table.dtype == torch.float32:
         y = _wide_logits_sharded(x2, table)
-    elif x2.is_cuda:
-        y = _WideLogits.apply(x2, table)
     else:
-        y = unembed_chunked(table, x2)
+        y = _logits(x2, table)
     return y.reshape(*lead, table.shape[0])
+
+
+def _logits(x2: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """f32 ``x2 [m, d] @ table.T`` (``unembed``'s routes; DTensors only in
+    f32)."""
+    if x2.dtype == table.dtype == torch.float32:
+        return x2 @ table.t()
+    if x2.is_cuda:
+        return _WideLogits.apply(x2, table)
+    return unembed_chunked(table, x2)
+
+
+def _logits_local_rows(table: DTensor, x: DTensor) -> DTensor:
+    """``unembed`` of DTensor rows x [B, S, d] (batch and sequence sharded
+    as they lie) by a table gathered whole: each rank's own rows, logits
+    on x's row placements; the table's grad is a partial sum over the mesh
+    dims that split the rows (``sharding.rows_matmul``'s scheme, with f32
+    logits)."""
+    mesh = x.device_mesh
+    last = x.dim() - 1
+    px = [Replicate() if p.is_partial() or p.is_shard(last) else p for p in x.placements]
+    xl = x.redistribute(mesh, px).to_local()
+    tl = table.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+        grad_placements=[Partial() if p.is_shard() else Replicate() for p in px])
+    y = _logits(xl.reshape(-1, xl.shape[-1]), tl)
+    return DTensor.from_local(y.reshape(*xl.shape[:-1], -1), mesh, px)
 
 
 class _WideLogits(torch.autograd.Function):

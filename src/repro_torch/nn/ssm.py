@@ -55,7 +55,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from repro_torch.distributed.sharding import row_placements, rows_matmul
+from repro_torch.distributed.sharding import (placed_like, replicate_dim, row_placements,
+                                              rows_matmul)
 from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_chunk_plain
 from repro_torch.launch.mesh import ambient_mesh
 from repro_torch.nn.layers import _dense_init
@@ -304,6 +305,47 @@ def _seq_parallel_mesh(spec: SSMSpec, length: int):
     return mesh if n_model > 1 and length % (n_model * spec.chunk) == 0 else None
 
 
+def _decode_update(s_prev, x, bg, cg, dt, a, d_skip):
+    """One token of the recurrence: s_prev [B,H,P,N] f32, x [B,H,P], bg/cg
+    [B,H,N], dt [B,H], a and d_skip [H] -> (y [B,H,P] f32, S' [B,H,P,N])."""
+    ad = torch.exp(dt * a[None, :])                            # [B,H]
+    bx = torch.einsum("bhp,bhn,bh->bhpn", x.float(), bg.float(), dt)
+    s_new = s_prev * ad[..., None, None] + bx
+    y = torch.einsum("bhn,bhpn->bhp", cg.float(), s_new)
+    return y + d_skip[None, :, None] * x.float(), s_new
+
+
+# each operand of ``_decode_update``: (its heads dim, whether dim 0 is the batch)
+_DECODE_DIMS = ((1, True), (1, True), (1, True), (1, True), (1, True), (0, False),
+                (0, False))
+
+
+def _decode_local(ops):
+    """``_decode_update`` on each rank's rows (batch over the mesh's data
+    axes) and heads (over 'model'), where those divide them, on its local
+    shards: the recurrence is independent across both, so no collective
+    runs inside.  DTensor's own einsums merge a data-sharded batch with
+    model-sharded heads into one strided dim, which its propagation
+    refuses.  Plain operands are whole on every rank."""
+    mesh = ops[0].device_mesh
+    names = list(mesh.mesh_dim_names)
+    rows, _, _ = row_placements(mesh, ops[0].shape[0])
+    heads = ("model" in names and ops[0].shape[1] % mesh.shape[names.index("model")] == 0)
+    local = []
+    for t, (hd, batched) in zip(ops, _DECODE_DIMS):
+        pl = [p if batched else Replicate() for p in rows]
+        if heads:
+            pl[names.index("model")] = Shard(hd)
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        local.append(t.redistribute(mesh, pl).to_local())
+    y, s_new = _decode_update(*local)
+    pl = list(rows)
+    if heads:
+        pl[names.index("model")] = Shard(1)
+    return DTensor.from_local(y, mesh, pl), DTensor.from_local(s_new, mesh, pl)
+
+
 def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                  k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Causal depthwise conv over time in f32: xbc [B, L, C], w [K, C] ->
@@ -337,6 +379,12 @@ def ssm_forward(
     bsz, l, _ = u.shape
     h, p, n, g = spec.n_heads, spec.head_dim, spec.d_state, spec.n_groups
     di = spec.d_inner
+    u_in = u
+    if not decode and _seq_parallel_mesh(spec, l + (-l) % spec.chunk) is None:
+        # a sequence-sharded residual that the sequence-parallel scan does
+        # not take (its shards are no whole chunks a rank) is gathered whole
+        # at the block's entry, and the output goes back on its sharding
+        u = replicate_dim(u, 1)
 
     proj = rows_matmul(u, params["in_proj"])
     # split: [d_inner gate | conv_dim (x,B,C) | n_heads dt]
@@ -361,14 +409,13 @@ def ssm_forward(
     a = -torch.exp(params["a_log"])                                      # [H]
 
     if decode:
-        s_prev = state[0]                                      # [B,H,P,N]
-        ad = torch.exp(dt[:, 0, :] * a[None, :])               # [B,H]
         bg = bmat[:, 0].repeat_interleave(h // g, dim=1)       # [B,H,N]
         cg = cmat[:, 0].repeat_interleave(h // g, dim=1)
-        bx = torch.einsum("bhp,bhn,bh->bhpn", xs[:, 0].float(), bg.float(), dt[:, 0])
-        s_new = s_prev * ad[..., None, None] + bx
-        y = torch.einsum("bhn,bhpn->bhp", cg.float(), s_new)
-        y = y + params["d_skip"][None, :, None] * xs[:, 0].float()
+        ops = (state[0], xs[:, 0], bg, cg, dt[:, 0], a, params["d_skip"])
+        if isinstance(state[0], DTensor):
+            y, s_new = _decode_local(ops)
+        else:
+            y, s_new = _decode_update(*ops)
         y = y.reshape(bsz, 1, di)
         new_state = (s_new, new_conv)
     else:
@@ -392,7 +439,7 @@ def ssm_forward(
     var = yz.square().mean(dim=-1, keepdim=True)
     yz = yz * torch.rsqrt(var + 1e-6) * params["norm_scale"].float()
     out = rows_matmul(yz.to(u.dtype), params["out_proj"])
-    return out, new_state
+    return placed_like(out, u_in), new_state
 
 
 def init_ssm_state(bsz: int, spec: SSMSpec, dtype=torch.float32, device=None):

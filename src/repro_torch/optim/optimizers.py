@@ -46,6 +46,7 @@ import dataclasses
 from typing import Any, Callable, Dict, NamedTuple, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.optim.schedules import warmup_cosine
 from repro_torch.tree import DTYPES, leaves, unflatten
@@ -259,8 +260,15 @@ def accumulate_grads(loss_fn: Callable, params, batch, n_micro: int,
         return loss.detach(), _detach(metrics), unflatten(params, pin(grads))
 
     def micro(i):
-        return {k: v[i * (v.shape[0] // n_micro):(i + 1) * (v.shape[0] // n_micro)]
-                for k, v in batch.items()}
+        # a DTensor batch's slice comes back replicated whole on every rank
+        # (DTensor slices a sharded dim that way): it is put back on the
+        # batch's sharding, so each rank computes on its rows alone
+        out = {}
+        for k, v in batch.items():
+            part = v[i * (v.shape[0] // n_micro):(i + 1) * (v.shape[0] // n_micro)]
+            out[k] = (part.redistribute(v.device_mesh, v.placements)
+                      if isinstance(v, DTensor) else part)
+        return out
 
     acc = pin(torch.zeros_like(p, dtype=acc_dtype) for p in ps)
     loss_acc = torch.zeros((), dtype=torch.float32, device=ps[0].device)

@@ -36,18 +36,20 @@ def leaves(tree, is_leaf: Optional[Callable] = None) -> List[Any]:
 
 def unflatten(like, values: list):
     """``values`` (in ``leaves(like)`` order) in the structure of ``like``."""
-    it = iter(values)
+    return _build(like, iter(values))
 
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        if isinstance(t, tuple) and hasattr(t, "_fields"):       # NamedTuple
-            return type(t)(*(build(v) for v in t))
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(v) for v in t)
-        return next(it)
 
-    return build(like)
+def _build(t, it):
+    # a module-level function: a recursive closure is a reference cycle,
+    # which would keep ``values`` (a step's grads) alive until the cyclic
+    # garbage collector runs
+    if isinstance(t, dict):
+        return {k: _build(t[k], it) for k in sorted(t)}
+    if isinstance(t, tuple) and hasattr(t, "_fields"):       # NamedTuple
+        return type(t)(*(_build(v, it) for v in t))
+    if isinstance(t, (list, tuple)):
+        return type(t)(_build(v, it) for v in t)
+    return next(it)
 
 
 def records_grad(*ts: torch.Tensor) -> bool:

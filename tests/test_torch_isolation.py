@@ -5,7 +5,8 @@ training path — ``optim``, ``data``, ``checkpoint``,
 ``distributed.fault_tolerance``, ``launch.train``, ``serving.kv_cache`` —
 and the mesh runtime — ``launch.mesh``, ``distributed.sharding``,
 ``distributed.collectives``, ``distributed.pipeline_parallel``, ``nn.ssm``
-— named among them) and ``chip_smoke`` (which runs nothing on import) in a
+— and the dry run — ``launch.dryrun``, ``core.hlo_analysis``,
+``core.flops``, ``configs.shapes`` — named among them) and ``chip_smoke`` (which runs nothing on import) in a
 fresh interpreter must leave ``jax`` and every ``repro`` module out of
 ``sys.modules``.  The entry point resolves its
 device to the card and raises without CUDA; a kernel wrapper handed a
@@ -49,7 +50,9 @@ def test_port_imports_no_jax_and_no_repro():
                            "repro_torch.distributed.sharding",
                            "repro_torch.distributed.collectives",
                            "repro_torch.distributed.pipeline_parallel",
-                           "repro_torch.nn.ssm"}} - set(names))
+                           "repro_torch.nn.ssm", "repro_torch.launch.dryrun",
+                           "repro_torch.core.hlo_analysis", "repro_torch.core.flops",
+                           "repro_torch.configs.shapes"}} - set(names))
         print(len(names), missing, bad)
         sys.exit(1 if bad or missing or len(names) < 15 else 0)
     """)

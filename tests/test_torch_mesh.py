@@ -239,6 +239,130 @@ def check_sharded_train_step(rank, world):
     return out
 
 
+def check_uneven_heads_train_step(rank, world):
+    """qwen2 with 6 query and 2 KV heads on a (1, 4) mesh: neither divides
+    the 'model' degree, as qwen2-7b's 28 / 4 do not divide 16.  The sharded
+    and the unsharded step on the same weights and batch, as
+    ``check_sharded_train_step`` compares them."""
+    import dataclasses
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs.registry import get_config, reduced
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import train
+    from repro_torch.models.registry import get_api
+    from repro_torch.optim import optimizers as opt
+    from repro_torch.tree import leaves
+
+    # a vocab of 255 does not split over 4 either: the head multiplies each
+    # rank's rows by the whole table, the CE reduces them where they lie
+    cfg = dataclasses.replace(reduced(get_config("qwen2-7b"), vocab=255), n_heads=6, n_kv=2)
+    api = get_api(cfg, "cpu")
+    rng = np.random.default_rng(4)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (4, 32)).astype(np.int64),
+             "labels": rng.integers(0, cfg.vocab, (4, 32)).astype(np.int64)}
+    batch["labels"][1, :5] = -1
+    plain = train.trainable(api.init(cfg, torch.Generator().manual_seed(1)))
+    mesh = make_local_mesh(4, device_type="cpu")
+    pshard = shd.params_shardings(plain, mesh)
+    params = train.trainable(shd.shard_tree(plain, pshard))
+    dbatch = shd.shard_tree(batch, shd.batch_specs(batch, mesh))
+    loss_fn = lambda p, b: api.loss_fn(p, b, cfg)  # noqa: E731
+    l0, _, g0 = opt.accumulate_grads(loss_fn, plain, batch, 1)
+    with mesh, implicit_replication():
+        l1, _, g1 = opt.accumulate_grads(loss_fn, params, dbatch, 1, grad_shardings=pshard)
+    return {"heads": (cfg.n_heads, cfg.n_kv, tuple(mesh.shape)),
+            "loss": (float(l0), float(l1.full_tensor())),
+            "grad_err": max(float((a - b.full_tensor()).abs().max()) / float(a.abs().max())
+                            for a, b in zip(leaves(g0), leaves(g1))),
+            "wq_sharded": any(p.is_shard() for p in params["blocks"][0]["attn"]["wq"].placements),
+            "embed_vocab_whole": not any(p.is_shard(0) for p in params["embed"].placements)}
+
+
+def check_sharded_ssm_decode(rank, world):
+    """mamba2's decode step on DTensor params and serve state on a (2, 2)
+    mesh (rows over 'data', heads over 'model') against the unsharded
+    decode from the same prefilled state; returns the worst errors as
+    fractions of the scales, and the new state's placements."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs.registry import get_config, reduced
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.registry import get_api
+    from repro_torch.tree import leaves
+
+    cfg = reduced(get_config("mamba2-780m"), layers=2, d_model=64, vocab=256)
+    api = get_api(cfg, "cpu")
+    rng = np.random.default_rng(5)
+    prompt = rng.integers(0, cfg.vocab, (4, 16)).astype(np.int64)
+    tok = {"tokens": rng.integers(0, cfg.vocab, (4, 1)).astype(np.int64)}
+    params = api.init(cfg, torch.Generator().manual_seed(2))
+    _, state = api.prefill(params, {"tokens": prompt}, api.make_serve_state(cfg, 4, 32), cfg)
+    mesh = make_local_mesh(2, device_type="cpu")
+    dparams = shd.shard_tree(params, shd.params_shardings(params, mesh))
+    dstate = shd.shard_tree(state, shd.serve_state_specs(state, mesh))   # copies: a step
+    logits0, state0 = api.decode(params, state, tok, 16, cfg)            # updates in place
+    dtok = shd.shard_tree(tok, shd.batch_specs(tok, mesh))
+    with mesh, implicit_replication():
+        logits1, state1 = api.decode(dparams, dstate, dtok, 16, cfg)
+
+    def err(a, b):
+        return float((a - b.full_tensor()).abs().max()) / float(a.abs().max())
+
+    return {"logits_err": err(logits0, logits1),
+            "state_err": max(err(a, b) for a, b in zip(leaves(state0), leaves(state1))),
+            "ssm_placements": tuple(state1[0].placements),
+            "all_dtensor": all(isinstance(t, DTensor) for t in leaves(state1))}
+
+
+def check_remat_backward_in_another_thread(rank, world):
+    """mamba2's sharded loss on a (2, 2) mesh, its backward run in a thread
+    of its own, as autograd runs a CUDA backward: the remat recomputation
+    must take the forward's routes (the sequence-parallel scan, the
+    ``constrain`` placements), though the mesh stack is thread-local.
+    Returns the worst grad difference from the backward in this thread."""
+    import threading
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs.registry import get_config, reduced
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import train
+    from repro_torch.models.registry import get_api
+    from repro_torch.tree import leaves
+
+    cfg = reduced(get_config("mamba2-780m"), layers=2, d_model=64, vocab=256)
+    assert cfg.remat
+    api = get_api(cfg, "cpu")
+    rng = np.random.default_rng(6)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (4, 32)).astype(np.int64),
+             "labels": rng.integers(0, cfg.vocab, (4, 32)).astype(np.int64)}
+    plain = api.init(cfg, torch.Generator().manual_seed(3))
+    mesh = make_local_mesh(2, device_type="cpu")
+    params = train.trainable(shd.shard_tree(plain, shd.params_shardings(plain, mesh)))
+    dbatch = shd.shard_tree(batch, shd.batch_specs(batch, mesh))
+    ps = leaves(params)
+    grads = []
+    for threaded in (False, True):
+        with mesh, implicit_replication():
+            loss, _ = api.loss_fn(params, dbatch, cfg)
+            if not threaded:
+                grads.append(torch.autograd.grad(loss, ps))
+                continue
+        out = {}
+
+        def backward():
+            try:
+                with implicit_replication():
+                    out["g"] = torch.autograd.grad(loss, ps)
+            except Exception as e:          # noqa: BLE001 - reported to the test
+                out["error"] = repr(e)
+
+        t = threading.Thread(target=backward)
+        t.start()
+        t.join()
+        if "error" in out:
+            return {"error": out["error"]}
+        grads.append(out["g"])
+    return {"err": max(float((a - b).full_tensor().abs().max()) for a, b in zip(*grads))}
+
+
 CHECKS = {
     "local_mesh": check_local_mesh,
     "compressed_psum": check_compressed_psum,
@@ -247,6 +371,9 @@ CHECKS = {
     "checkpoint": check_checkpoint_reshard,
     "constrain": check_constrain_inside_mesh,
     "train": check_sharded_train_step,
+    "uneven_heads": check_uneven_heads_train_step,
+    "ssm_decode": check_sharded_ssm_decode,
+    "remat_thread": check_remat_backward_in_another_thread,
 }
 
 
@@ -392,3 +519,31 @@ def test_sharded_train_step_matches_the_unsharded_step(ranks, arch):
         # (and again in each backward's recomputation under remat)
         want = 2 * 2 * (2 if got["remat"] else 1) if arch == "mamba2-780m" else 0
         assert got["seq_parallel_calls"] == want
+
+
+def test_sharded_step_with_heads_uneven_on_the_model_axis(ranks):
+    """The q / k / v widths are gathered over 'model' where the heads do
+    not divide it (``nn.attention._whole_heads``); the step equals the
+    unsharded one at ``test_sharded_train_step_matches_the_unsharded_step``'s
+    tolerances."""
+    for out in result(ranks, "uneven_heads"):
+        assert out["heads"] == (6, 2, (1, 4)) and out["wq_sharded"] and out["embed_vocab_whole"]
+        np.testing.assert_allclose(out["loss"][1], out["loss"][0], rtol=1e-5)
+        assert out["grad_err"] <= 1e-4
+
+
+def test_ssm_decode_on_dtensors_matches_the_unsharded_decode(ranks):
+    """The decode recurrence runs on each rank's rows and heads
+    (``nn.ssm._decode_local``), where DTensor's einsums merged a
+    data-sharded batch with model-sharded heads and raised."""
+    for out in result(ranks, "ssm_decode"):
+        assert out["logits_err"] <= 1e-5 and out["state_err"] <= 1e-5
+        assert out["ssm_placements"] == (Shard(1), Shard(2)) and out["all_dtensor"]
+
+
+def test_remat_recomputes_inside_the_forwards_mesh(ranks):
+    """A backward run where the mesh stack is empty (autograd's CUDA thread)
+    gives the grads of one run where it is not (``models.lm.remat``)."""
+    for out in result(ranks, "remat_thread"):
+        assert "error" not in out, out
+        assert out["err"] == 0.0
