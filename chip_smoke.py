@@ -151,7 +151,8 @@ printing JSON lines:
    against the uninterrupted run at RESUME_TOL, and the kernel guard (a
    flash call with q requiring grad raises); and the paged KV cache at
    qwen2-7b's widths, written token by token and gathered bit for bit;
-11. mesh_ssd, mesh_prefill, mesh_collectives, mesh_pipeline, mesh_train —
+11. mesh_ssd, mesh_prefill, mesh_collectives, mesh_pipeline, mesh_train,
+   mesh_moe_train, mesh_serve_int8 —
    the mesh runtime, K ranks spawned on cuda:0 under gloo by the
    multi-rank tests' harness, ``tests/torch_ranks.py`` (NCCL takes one
    rank a card; the kernel library is built before they start): the
@@ -167,23 +168,36 @@ printing JSON lines:
    the CPU; gemma3-1b's sharded train step (4 of 26 layers, DTensor
    params, state and batch on a (1, 1) mesh of one NCCL rank) against the
    unsharded step (equal losses, no kernel launch, every leaf a DTensor,
-   both steps' host ms);
+   both steps' host ms); grok-1's sharded train step at full width
+   (MESH_MOE_LAYERS of 64 layers, grad_accum cut to MESH_MOE_ACCUM; the
+   MoE layer routing each rank's rows on its local tensors) against the
+   unsharded step (losses, CE and aux losses at MESH_TRAIN_TOL, no kernel
+   launch, every leaf a DTensor, host ms and peak GB); grok-1 from int8
+   weights (MESH_SERVE_LAYERS of 64) prefilling one MESH_SERVE_TOKENS
+   prompt and decoding DECODE_STEPS tokens on DTensor params and cache
+   against the unsharded int8 serve (the flash kernel once a layer a
+   prefill, the same tokens, prefill logits at BF16_TOL);
 12. dryrun, dryrun_ground — the dry run (``launch/dryrun.py``) on
    ``--device cuda``: ``run_cell`` traces qwen2-7b's train_4k on the
-   16 x 16 production mesh and mamba2-780m's prefill_32k on 2 x 16 x 16,
-   both as shipped (the latter the SSD kernel's
+   16 x 16 production mesh, mamba2-780m's prefill_32k on 2 x 16 x 16,
+   grok-1's train_4k on 16 x 16 (cut in depth, the cut printed) and
+   internvl2-2b's decode_32k on 16 x 16 (int8 weights), the others as
+   shipped (mamba2's the SSD kernel's
    route, through its custom op), each over a fake process group of 256 /
    512 ranks, fake tensors only, no kernel launched; each record on a line
-   of its own.  Then the dry run's prediction of mesh_train's exact cell
-   (gemma3-1b, MESH_TRAIN_LAYERS layers, TRAIN_BATCH x TRAIN_SEQ, a (1, 1)
+   of its own.  Then the dry run's prediction of mesh_train's and
+   mesh_moe_train's exact cells (gemma3-1b, MESH_TRAIN_LAYERS layers;
+   grok-1, MESH_MOE_LAYERS layers at grad_accum MESH_MOE_ACCUM; each
+   TRAIN_BATCH x TRAIN_SEQ on a (1, 1)
    mesh) against that step on the card: the counted FLOPs equal the real
    sharded step's (the same counter) and the unsharded step's
    ``FlopCounterMode`` count; the predicted peak within DRYRUN_PEAK_TOL of
    ``max_memory_allocated()`` over the step (less what was allocated
    before it that is not the step's input); the step's ms beside the
    roofline's bound (ungated);
-13. the ``kernels`` line (the SSD row with each rank's launches in the
-   mesh phases, as counted there), the card line, and the final ``ok`` line.
+13. the ``kernels`` line (the SSD and flash rows with each rank's
+   launches in the mesh phases, as counted there), the card line, and the
+   final ``ok`` line.
 
 Any failure raises: the script then exits non-zero and prints no result.
 """
@@ -315,9 +329,19 @@ MESH_SSD = dict(h=48, p=64, g=1, n=128, chunk=128)
 MESH_PSUM_STEPS = 30
 MESH_PSUM_BOUNDS = (0.05, 0.02)       # last step's mean, the mean over the steps
 MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS, MESH_TRAIN_TOL = 4, 3, 1e-5
-# the dry run's cells (arch, shape, multi-pod), as shipped, and the
-# peak-memory gate of its prediction against the card
-DRYRUN_CELLS = (("qwen2-7b", "train_4k", False), ("mamba2-780m", "prefill_32k", True))
+# mesh_moe_train: grok-1 at full width, MESH_MOE_LAYERS of its 64 layers,
+# its grad_accum cut from 16 to MESH_MOE_ACCUM (one row a microbatch),
+# MESH_TRAIN_STEPS steps on a (1, 1) mesh of one NCCL rank; mesh_serve_int8:
+# grok-1 at full width from int8 weights, MESH_SERVE_LAYERS of 64, one
+# prompt of MESH_SERVE_TOKENS tokens and DECODE_STEPS greedy steps on a
+# (1, 1) mesh, against the unsharded int8 serve.
+MESH_MOE_LAYERS, MESH_MOE_ACCUM = 1, 2
+MESH_SERVE_LAYERS, MESH_SERVE_TOKENS = 2, 2048
+# the dry run's cells (arch, shape, multi-pod, layers: None as shipped, or
+# the depth cut that keeps the trace near two minutes on the card's host),
+# and the peak-memory gate of its prediction against the card
+DRYRUN_CELLS = (("qwen2-7b", "train_4k", False, 8), ("mamba2-780m", "prefill_32k", True, None),
+                ("grok-1-314b", "train_4k", False, 4), ("internvl2-2b", "decode_32k", False, None))
 DRYRUN_PEAK_TOL = 0.10
 DRYRUN_GROUND_STEPS = 3
 KERNELS = {
@@ -1746,8 +1770,8 @@ class RouteLog:
         self.moe, self.route, self.calls = moe, moe._route, None
 
     def __enter__(self):
-        def hooked(params, x2d, spec):
-            out = self.route(params, x2d, spec)
+        def hooked(params, x2d, spec, *rest):
+            out = self.route(params, x2d, spec, *rest)
             if self.calls is not None:
                 self.calls.append(out[1].sort(dim=-1).values)
             return out
@@ -2999,6 +3023,23 @@ def mesh_pipeline_line() -> None:
           "held_by": "tests/test_torch_seq_parallel.py (gloo, CPU, S = 2 and 4)"})
 
 
+@contextlib.contextmanager
+def one_nccl_rank():
+    """A world of one NCCL rank, this process, over a FileStore in a
+    temporary directory; destroyed on exit."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
 def run_mesh_train(torch, kernels_mod):
     """``mesh_train``: a world of one NCCL rank on a (1, 1) mesh; gemma3-1b
     at full width, MESH_TRAIN_LAYERS of its 26 layers (bf16 params, f32
@@ -3009,7 +3050,6 @@ def run_mesh_train(torch, kernels_mod):
     step; no kernel launch; each loss within MESH_TRAIN_TOL relative of the
     unsharded step's.  Prints both steps' host ms (DTensor's dispatch
     cost)."""
-    import torch.distributed as dist
     from torch.distributed.tensor import DTensor
 
     from repro_torch import tree
@@ -3028,56 +3068,50 @@ def run_mesh_train(torch, kernels_mod):
     params = api.init(cfg, torch.Generator(device="cuda").manual_seed(0))
     data = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH, seed=0)
     batches = [next(data) for _ in range(MESH_TRAIN_STEPS)]
-    import tempfile
-    with tempfile.TemporaryDirectory() as tmp:
-        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
-                                rank=0, world_size=1)
-        try:
-            mesh = make_local_mesh()
-            pshard = shd.params_shardings(params, mesh)
-            sharded = train.trainable(shd.shard_tree(params, pshard))
-            plain = train.trainable(tree.unflatten(params, [p.clone() for p in tree.leaves(params)]))
-            del params
-            state_plain = opt.init(adam, plain)
-            state_sh = shd.shard_tree(opt.init(adam, plain),
-                                      shd.opt_state_shardings(state_plain, plain, mesh))
-            step_plain = train.build_train_step(cfg, adam)
-            step_sh = train.build_train_step(cfg, adam, grad_shardings=pshard)
-            rows = []
-            for i, batch in enumerate(batches):
-                row = {"step": i + 1}
-                for name, fn, ctx in (("unsharded", lambda: step_plain(plain, state_plain, batch),
-                                       contextlib.nullcontext()),
-                                      ("sharded", lambda: step_sh(
-                                          sharded, state_sh, shd.shard_tree(
-                                              batch, shd.batch_specs(batch, mesh))), mesh)):
-                    reset_counts(kernels_mod)
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    with ctx:
-                        _, st, metrics = fn()
-                    loss = metrics["loss"]
-                    loss = float(loss.full_tensor() if isinstance(loss, DTensor) else loss)
-                    torch.cuda.synchronize()
-                    row[f"{name}_host_ms"] = (time.perf_counter() - t0) * 1e3
-                    row[f"{name}_loss"] = loss
-                    require(not any(read_counts(kernels_mod).values()),
-                            f"mesh_train: kernels launched in the {name} step")
-                    if name == "sharded":
-                        state_sh = st
-                        leaves = tree.leaves(sharded) + tree.leaves(state_sh)
-                        require(all(isinstance(t, DTensor) for t in leaves),
-                                "mesh_train: a leaf is no DTensor after the step")
-                    else:
-                        state_plain = st
-                rel = abs(row["sharded_loss"] - row["unsharded_loss"]) / abs(row["unsharded_loss"])
-                require(math.isfinite(row["sharded_loss"]) and rel <= MESH_TRAIN_TOL,
-                        f"mesh_train step {i + 1}: loss {row['sharded_loss']} vs "
-                        f"{row['unsharded_loss']} (relative {rel})")
-                row["loss_rel_err"] = rel
-                rows.append(row)
-        finally:
-            dist.destroy_process_group()
+    with one_nccl_rank():
+        mesh = make_local_mesh()
+        pshard = shd.params_shardings(params, mesh)
+        sharded = train.trainable(shd.shard_tree(params, pshard))
+        plain = train.trainable(tree.unflatten(params, [p.clone() for p in tree.leaves(params)]))
+        del params
+        state_plain = opt.init(adam, plain)
+        state_sh = shd.shard_tree(opt.init(adam, plain),
+                                  shd.opt_state_shardings(state_plain, plain, mesh))
+        step_plain = train.build_train_step(cfg, adam)
+        step_sh = train.build_train_step(cfg, adam, grad_shardings=pshard)
+        rows = []
+        for i, batch in enumerate(batches):
+            row = {"step": i + 1}
+            for name, fn, ctx in (("unsharded", lambda: step_plain(plain, state_plain, batch),
+                                   contextlib.nullcontext()),
+                                  ("sharded", lambda: step_sh(
+                                      sharded, state_sh, shd.shard_tree(
+                                          batch, shd.batch_specs(batch, mesh))), mesh)):
+                reset_counts(kernels_mod)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with ctx:
+                    _, st, metrics = fn()
+                loss = metrics["loss"]
+                loss = float(loss.full_tensor() if isinstance(loss, DTensor) else loss)
+                torch.cuda.synchronize()
+                row[f"{name}_host_ms"] = (time.perf_counter() - t0) * 1e3
+                row[f"{name}_loss"] = loss
+                require(not any(read_counts(kernels_mod).values()),
+                        f"mesh_train: kernels launched in the {name} step")
+                if name == "sharded":
+                    state_sh = st
+                    leaves = tree.leaves(sharded) + tree.leaves(state_sh)
+                    require(all(isinstance(t, DTensor) for t in leaves),
+                            "mesh_train: a leaf is no DTensor after the step")
+                else:
+                    state_plain = st
+            rel = abs(row["sharded_loss"] - row["unsharded_loss"]) / abs(row["unsharded_loss"])
+            require(math.isfinite(row["sharded_loss"]) and rel <= MESH_TRAIN_TOL,
+                    f"mesh_train step {i + 1}: loss {row['sharded_loss']} vs "
+                    f"{row['unsharded_loss']} (relative {rel})")
+            row["loss_rel_err"] = rel
+            rows.append(row)
     emit({"phase": "mesh_train", "model": cfg.name, "layers": MESH_TRAIN_LAYERS,
           "d_model": cfg.d_model, "vocab": cfg.vocab, "param_dtype": cfg.param_dtype,
           "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ, "mesh": [1, 1], "backend": "nccl",
@@ -3087,20 +3121,220 @@ def run_mesh_train(torch, kernels_mod):
     torch.cuda.empty_cache()
 
 
+def _full(t) -> float:
+    from torch.distributed.tensor import DTensor
+
+    return float(t.full_tensor() if isinstance(t, DTensor) else t)
+
+
+def run_mesh_moe_train(torch, kernels_mod):
+    """``mesh_moe_train``: grok-1-314b at full width, MESH_MOE_LAYERS of its
+    64 layers, its grad_accum cut from 16 to MESH_MOE_ACCUM (one row a
+    microbatch; the bf16 accumulator and factored Adam as shipped),
+    MESH_TRAIN_STEPS steps of SyntheticLM seed-0 batches of TRAIN_BATCH x
+    TRAIN_SEQ tokens through ``build_train_step`` on DTensor params, state
+    and batch on a (1, 1) mesh of one NCCL rank (the MoE layer on each
+    rank's rows, ``nn.moe._moe_on_mesh``), against the unsharded step on
+    the same weights and batches.  The unsharded steps run first and keep
+    their losses only; the sharded ones start from the same weights drawn
+    again from the seeded generator, so two copies of the weights never
+    sit beside a step.  Before each step the loss function runs without
+    grad on its batch for the CE and the aux loss (a step at grad_accum >
+    1 reports neither).  Gates: every param and state leaf a DTensor after
+    each step; no kernel launch; each step's loss, CE and aux loss within
+    MESH_TRAIN_TOL relative of the unsharded ones.  Prints each step's
+    host ms and each mode's peak GB."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch import tree
+    from repro_torch.configs.base import param_count
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.registry import get_api
+    from repro_torch.optim import optimizers as opt
+
+    full = get_config("grok-1-314b")
+    cfg = dataclasses.replace(full, n_layers=MESH_MOE_LAYERS, grad_accum=MESH_MOE_ACCUM)
+    api = get_api(cfg)
+    adam = train.adam_config_for(cfg, lr=TRAIN_LR, total_steps=MESH_TRAIN_STEPS,
+                                 warmup_steps=1)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH, seed=0)
+    batches = [next(data) for _ in range(MESH_TRAIN_STEPS)]
+
+    def weights():
+        return train.trainable(api.init(cfg, torch.Generator(device="cuda").manual_seed(0)))
+
+    def steps(name, params, state, inputs, step, ctx):
+        torch.cuda.reset_peak_memory_stats()
+        for row, batch in zip(rows, inputs):
+            with ctx(), implicit_replication(), torch.no_grad():
+                _, metrics = api.loss_fn(params, batch, cfg)
+            row[f"{name}_ce"], row[f"{name}_aux"] = _full(metrics["ce"]), _full(metrics["aux"])
+            reset_counts(kernels_mod)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with ctx():
+                _, state, metrics = step(params, state, batch)
+            row[f"{name}_loss"] = _full(metrics["loss"])
+            torch.cuda.synchronize()
+            row[f"{name}_host_ms"] = (time.perf_counter() - t0) * 1e3
+            require(not any(read_counts(kernels_mod).values()),
+                    f"mesh_moe_train: kernels launched in the {name} step")
+            if name == "sharded":
+                require(all(isinstance(t, DTensor)
+                            for t in tree.leaves(params) + tree.leaves(state)),
+                        "mesh_moe_train: a leaf is no DTensor after the step")
+        peak[name] = torch.cuda.max_memory_allocated() / 1e9
+
+    rows = [{"step": i + 1} for i in range(MESH_TRAIN_STEPS)]
+    peak = {}
+    plain = weights()
+    steps("unsharded", plain, opt.init(adam, plain), batches,
+          train.build_train_step(cfg, adam), contextlib.nullcontext)
+    with one_nccl_rank():
+        mesh = make_local_mesh()
+        pshard = shd.params_shardings(plain, mesh)
+        del plain
+        torch.cuda.empty_cache()
+        params = weights()
+        sharded = train.trainable(shd.shard_tree(params, pshard))
+        state = opt.init(adam, params)
+        state = shd.shard_tree(state, shd.opt_state_shardings(state, params, mesh))
+        del params
+        torch.cuda.empty_cache()
+        steps("sharded", sharded, state, [shd.shard_tree(b, shd.batch_specs(b, mesh))
+                                          for b in batches],
+              train.build_train_step(cfg, adam, grad_shardings=pshard), lambda: mesh)
+        del sharded, state
+    torch.cuda.empty_cache()
+    for row in rows:
+        for key in ("loss", "ce", "aux"):
+            a, b = row[f"unsharded_{key}"], row[f"sharded_{key}"]
+            rel = abs(b - a) / abs(a)
+            row[f"{key}_rel_err"] = rel
+            require(math.isfinite(b) and rel <= MESH_TRAIN_TOL,
+                    f"mesh_moe_train step {row['step']}: {key} {b} vs {a} (relative {rel})")
+    emit({"phase": "mesh_moe_train", "model": cfg.name, "layers": MESH_MOE_LAYERS,
+          "cuts": {"n_layers": [full.n_layers, MESH_MOE_LAYERS],
+                   "grad_accum": [full.grad_accum, MESH_MOE_ACCUM]},
+          "params": param_count(cfg), "d_model": cfg.d_model, "experts": cfg.moe_experts,
+          "top_k": cfg.moe_top_k, "param_dtype": cfg.param_dtype,
+          "grad_accum_dtype": cfg.grad_accum_dtype, "adam_factored": cfg.adam_factored,
+          "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ, "mesh": [1, 1], "backend": "nccl",
+          "steps": rows, "tolerance": MESH_TRAIN_TOL, "kernel_launches": 0,
+          "peak_gb": peak,
+          "loss_note": "ce and aux: loss_fn without grad on the step's batch before it"})
+
+
+def run_mesh_serve_int8(torch, kernels_mod):
+    """``mesh_serve_int8``: grok-1-314b at full width, MESH_SERVE_LAYERS of
+    its 64 layers, from int8 weights as the ``moe`` phase builds them
+    (``lm.init(quantize=True)``), one prompt of MESH_SERVE_TOKENS tokens
+    prefilled then DECODE_STEPS greedy steps, first unsharded, then on
+    DTensor params (the int8 leaves sharded like their parents, dequantized
+    shard by shard), cache and tokens on a (1, 1) mesh of one NCCL rank.
+    Gates: the flash kernel launched once a layer in each prefill; the
+    sharded tokens equal the unsharded ones; the sharded prefill's logits
+    within BF16_TOL of the unsharded logits' scale.  Prints the largest
+    difference and both runs' host ms; returns the sharded prefill's
+    launch counts."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.registry import get_api
+
+    cfg = dataclasses.replace(get_config("grok-1-314b"), n_layers=MESH_SERVE_LAYERS)
+    require(cfg.serve_weight_quant, f"{cfg.name} ships with int8 serve weights")
+    api = get_api(cfg)
+    params = build_params(torch, "mesh_serve_int8", cfg, quantize=True)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    prompt = {"tokens": torch.randint(0, cfg.vocab, (1, MESH_SERVE_TOKENS), generator=gen,
+                                      device="cuda")}
+    max_len = MESH_SERVE_TOKENS + DECODE_STEPS
+    runs = {}
+
+    def serve(p, state, tokens, ctx):
+        reset_counts(kernels_mod)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ctx(), implicit_replication():
+            logits, state = api.prefill(p, tokens(prompt), state, cfg)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        launches = read_counts(kernels_mod)
+        first = logits.full_tensor() if isinstance(logits, DTensor) else logits
+        out = [int(first[0, -1].argmax())]
+        t0 = time.perf_counter()
+        for i in range(DECODE_STEPS):
+            tok = {"tokens": torch.tensor([[out[-1]]], device="cuda")}
+            with ctx(), implicit_replication():
+                logits, state = api.decode(p, state, tokens(tok), MESH_SERVE_TOKENS + i, cfg)
+            step = logits.full_tensor() if isinstance(logits, DTensor) else logits
+            out.append(int(step[0, -1].argmax()))
+        torch.cuda.synchronize()
+        return {"prefill_host_ms": prefill_ms, "launches": launches, "tokens": out,
+                "decode_host_ms_a_step": (time.perf_counter() - t0) * 1e3 / DECODE_STEPS,
+                "logits": first.float()}
+
+    with torch.no_grad():
+        runs["unsharded"] = serve(params, api.make_serve_state(cfg, 1, max_len),
+                                  lambda b: b, contextlib.nullcontext)
+        with one_nccl_rank():
+            mesh = make_local_mesh()
+            dparams = shd.shard_tree(params, shd.params_shardings(params, mesh))
+            del params
+            torch.cuda.empty_cache()
+            state = api.make_serve_state(cfg, 1, max_len)
+            dstate = shd.shard_tree(state, shd.serve_state_specs(state, mesh))
+            del state
+            require(isinstance(dparams["blocks"][0]["moe"]["w_up"]["__q__"], DTensor),
+                    "mesh_serve_int8: the int8 leaves are no DTensors")
+            runs["sharded"] = serve(dparams, dstate,
+                                    lambda b: shd.shard_tree(b, shd.batch_specs(b, mesh)),
+                                    lambda: mesh)
+            del dparams, dstate
+    torch.cuda.empty_cache()
+    want, got = runs["unsharded"].pop("logits"), runs["sharded"].pop("logits")
+    scale = max(1.0, float(want.abs().max()))
+    err = float((got - want).abs().max())
+    for name, run in runs.items():
+        require(run["launches"]["flash_attention"] == cfg.n_layers,
+                f"mesh_serve_int8 ({name}): {run['launches']} launches a prefill")
+    emit({"phase": "mesh_serve_int8", "model": cfg.name, "layers": cfg.n_layers,
+          "weights": "int8 (lm.init(quantize=True))", "prompt_tokens": MESH_SERVE_TOKENS,
+          "decode_steps": DECODE_STEPS, "mesh": [1, 1], "backend": "nccl",
+          "prefill_logits_max_abs_err": err, "scale": scale, "tolerance": BF16_TOL,
+          "tokens_equal": runs["sharded"]["tokens"] == runs["unsharded"]["tokens"], **runs})
+    require(err <= BF16_TOL * scale, f"mesh_serve_int8: prefill logits max|err| {err} > "
+            f"{BF16_TOL} x {scale}")
+    require(runs["sharded"]["tokens"] == runs["unsharded"]["tokens"],
+            "mesh_serve_int8: the sharded serve's tokens differ from the unsharded one's")
+    return runs["sharded"]["launches"]
+
+
 def run_dryrun(torch, kernels_mod):
     """``dryrun``: ``launch.dryrun.run_cell`` on ``--device cuda`` for
-    DRYRUN_CELLS as shipped, each over a fake process group of the
-    production mesh's ranks; every record printed.  Gates: status ok,
-    FLOPs, collectives and peak bytes above 0, no kernel launched, and the
-    SSM prefill's trace reaching the SSD kernel's op."""
+    DRYRUN_CELLS, as shipped or cut in depth where the cell says so, each
+    over a fake process group of the production mesh's ranks; every record
+    printed with its cut.  Gates: status ok, FLOPs, collectives and peak
+    bytes above 0, no kernel launched, and the SSM prefill's trace
+    reaching the SSD kernel's op."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch import dryrun
 
-    for arch, shape, multi_pod in DRYRUN_CELLS:
-        cfg = get_config(arch)
+    for arch, shape, multi_pod, layers in DRYRUN_CELLS:
+        full = get_config(arch)
+        cfg = full if layers is None else dataclasses.replace(full, n_layers=layers)
         reset_counts(kernels_mod)
         t0 = time.perf_counter()
-        rec = dryrun.run_cell(arch, shape, multi_pod=multi_pod, device="cuda")
+        rec = dryrun.run_cell(arch, shape, multi_pod=multi_pod, device="cuda", cfg=cfg)
         seconds = time.perf_counter() - t0
         require(rec["status"] == "ok", f"dryrun {arch} {shape}: {rec.get('error')}")
         require(not any(read_counts(kernels_mod).values()),
@@ -3110,29 +3344,37 @@ def run_dryrun(torch, kernels_mod):
         if cfg.family == "ssm" and shape.startswith("prefill"):
             require("repro_torch.ssd_chunk" in rec["flops"]["counted_by_op"],
                     f"dryrun {arch} {shape}: the trace missed the SSD kernel's op")
-        emit({"phase": "dryrun", "layers": cfg.n_layers, "seconds": seconds, **rec})
+        emit({"phase": "dryrun", "layers": cfg.n_layers,
+              **({} if layers is None else {"cut": {"n_layers": [full.n_layers, layers]}}),
+              "seconds": seconds, **rec})
 
 
-def run_dryrun_ground(torch, kernels_mod):
-    """``dryrun_ground``: the dry run's prediction of ``mesh_train``'s
-    cell (gemma3-1b at full width, MESH_TRAIN_LAYERS layers, one step of
-    TRAIN_BATCH x TRAIN_SEQ tokens on a (1, 1) mesh) against the step on
-    the card, one NCCL rank.  Step 1 of the unsharded step runs under
-    ``FlopCounterMode``, step 1 of the sharded one under the dry run's own
-    counter (``StepCounter``); steps 2.. are timed, the peak of the last
-    read after ``reset_peak_memory_stats``.  Gates: the three FLOP counts
-    equal; the predicted peak within DRYRUN_PEAK_TOL of the measured one,
-    which is ``max_memory_allocated`` less what was allocated before the
-    step beside its inputs (their storages, rounded as the allocator
-    rounds them)."""
-    import tempfile
+def dryrun_ground_cells() -> list:
+    """The cells ``dryrun_ground`` holds to the card: mesh_train's
+    (gemma3-1b) and mesh_moe_train's (grok-1), each (cfg, phase name)."""
+    from repro_torch.configs.registry import get_config
 
-    import torch.distributed as dist
+    return [(dataclasses.replace(get_config("gemma3-1b"), n_layers=MESH_TRAIN_LAYERS),
+             "mesh_train"),
+            (dataclasses.replace(get_config("grok-1-314b"), n_layers=MESH_MOE_LAYERS,
+                                 grad_accum=MESH_MOE_ACCUM), "mesh_moe_train")]
+
+
+def run_dryrun_ground(torch, kernels_mod, cfg, cell):
+    """``dryrun_ground``: the dry run's prediction of ``cell``'s step
+    (``cfg``, one step of TRAIN_BATCH x TRAIN_SEQ tokens on a (1, 1) mesh)
+    against the step on the card, one NCCL rank.  Step 1 of the unsharded
+    step runs under ``FlopCounterMode``, step 1 of the sharded one under
+    the dry run's own counter (``StepCounter``); steps 2.. are timed, the
+    peak of the last read after ``reset_peak_memory_stats``.  Gates: the
+    three FLOP counts equal; the predicted peak within DRYRUN_PEAK_TOL of
+    the measured one, which is ``max_memory_allocated`` less what was
+    allocated before the step beside its inputs (their storages, rounded
+    as the allocator rounds them)."""
     from torch.distributed.tensor import DTensor
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch import tree
-    from repro_torch.configs.registry import get_config
     from repro_torch.configs.shapes import ShapeSuite
     from repro_torch.core.hlo_analysis import StepCounter, storage_bytes
     from repro_torch.data.pipeline import SyntheticLM
@@ -3142,12 +3384,11 @@ def run_dryrun_ground(torch, kernels_mod):
     from repro_torch.models.registry import get_api
     from repro_torch.optim import optimizers as opt
 
-    cfg = dataclasses.replace(get_config("gemma3-1b"), n_layers=MESH_TRAIN_LAYERS)
-    shape = ShapeSuite("mesh_train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    shape = ShapeSuite(cell, TRAIN_SEQ, TRAIN_BATCH, "train")
     t0 = time.perf_counter()
     rec = dryrun.run_cell(cfg.name, shape, cfg=cfg, mesh_shape=(1, 1), device="cuda")
     trace_s = time.perf_counter() - t0
-    require(rec["status"] == "ok", f"dryrun_ground: the trace failed: {rec.get('error')}")
+    require(rec["status"] == "ok", f"dryrun_ground {cell}: the trace failed: {rec.get('error')}")
 
     api = get_api(cfg)
     adam = train.adam_config_for(cfg)
@@ -3159,51 +3400,47 @@ def run_dryrun_ground(torch, kernels_mod):
     with fc:
         train.build_train_step(cfg, adam)(plain, state, batches[0])
     unsharded_flops = fc.get_total_flops()
-    with tempfile.TemporaryDirectory() as tmp:
-        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
-                                rank=0, world_size=1)
-        try:
-            mesh = make_local_mesh()
-            pshard = shd.params_shardings(plain, mesh)
-            params = train.trainable(shd.shard_tree(plain, pshard))
-            state = shd.shard_tree(state, shd.opt_state_shardings(state, plain, mesh))
-            del plain
-            torch.cuda.empty_cache()
-            step = train.build_train_step(cfg, adam, grad_shardings=pshard)
-            placed = [shd.shard_tree(b, shd.batch_specs(b, mesh)) for b in batches]
-            counter = StepCounter(mesh)
-            reset_counts(kernels_mod)
-            with mesh, counter:
-                step(params, state, placed[0])
-            sharded_flops = counter.flops
-            del counter
-            times = []
-            for batch in placed[1:]:
-                torch.cuda.synchronize()
-                base = torch.cuda.memory_allocated()
-                torch.cuda.reset_peak_memory_stats()
-                t1 = time.perf_counter()
-                with mesh:
-                    _, _, metrics = step(params, state, batch)
-                torch.cuda.synchronize()
-                times.append((time.perf_counter() - t1) * 1e3)
-                peak = torch.cuda.max_memory_allocated()
-                del metrics
-            require(not any(read_counts(kernels_mod).values()),
-                    "dryrun_ground: a kernel launched in a train step")
-            held = sum(storage_bytes(t.to_local() if isinstance(t, DTensor) else t)
-                       for t in tree.leaves([params, state, placed[-1]]) if torch.is_tensor(t))
-            step_peak = peak - base + held
-            del params, state, placed
-        finally:
-            dist.destroy_process_group()
+    with one_nccl_rank():
+        mesh = make_local_mesh()
+        pshard = shd.params_shardings(plain, mesh)
+        params = train.trainable(shd.shard_tree(plain, pshard))
+        state = shd.shard_tree(state, shd.opt_state_shardings(state, plain, mesh))
+        del plain
+        torch.cuda.empty_cache()
+        step = train.build_train_step(cfg, adam, grad_shardings=pshard)
+        placed = [shd.shard_tree(b, shd.batch_specs(b, mesh)) for b in batches]
+        counter = StepCounter(mesh)
+        reset_counts(kernels_mod)
+        with mesh, counter:
+            step(params, state, placed[0])
+        sharded_flops = counter.flops
+        del counter
+        times = []
+        for batch in placed[1:]:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            with mesh:
+                _, _, metrics = step(params, state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+            peak = torch.cuda.max_memory_allocated()
+            del metrics
+        require(not any(read_counts(kernels_mod).values()),
+                f"dryrun_ground {cell}: a kernel launched in a train step")
+        held = sum(storage_bytes(t.to_local() if isinstance(t, DTensor) else t)
+                   for t in tree.leaves([params, state, placed[-1]]) if torch.is_tensor(t))
+        step_peak = peak - base + held
+        del params, state, placed
     torch.cuda.empty_cache()
     predicted = rec["memory"]["peak_bytes"]
     flops = rec["flops"]["counted_per_rank"]
     step_ms = statistics.median(times)
     bound_ms = rec["roofline"]["bound_s"] * 1e3
-    row = {"phase": "dryrun_ground", "model": cfg.name, "layers": cfg.n_layers,
-           "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ, "mesh": [1, 1], "trace_s": trace_s,
+    row = {"phase": "dryrun_ground", "cell": cell, "model": cfg.name, "layers": cfg.n_layers,
+           "grad_accum": cfg.grad_accum, "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+           "mesh": [1, 1], "trace_s": trace_s,
            "flops": {"dryrun": flops, "card_step_counter": sharded_flops,
                      "card_unsharded_flop_counter_mode": unsharded_flops,
                      "analytic": rec["flops"]["analytic_per_rank"]},
@@ -3216,10 +3453,10 @@ def run_dryrun_ground(torch, kernels_mod):
            "bound_over_step": bound_ms / step_ms, "peak_tolerance": DRYRUN_PEAK_TOL}
     emit(row)
     require(flops == sharded_flops == unsharded_flops,
-            f"dryrun_ground: FLOPs {flops} (dry run) against {sharded_flops} (card, "
+            f"dryrun_ground {cell}: FLOPs {flops} (dry run) against {sharded_flops} (card, "
             f"sharded step) and {unsharded_flops} (card, FlopCounterMode, unsharded)")
     require(abs(predicted - step_peak) <= DRYRUN_PEAK_TOL * step_peak,
-            f"dryrun_ground: predicted peak {predicted} against {step_peak} on the card")
+            f"dryrun_ground {cell}: predicted peak {predicted} against {step_peak} on the card")
 
 
 def summarise(name, rows) -> dict:
@@ -3391,13 +3628,19 @@ def main() -> int:
     run_mesh_collectives(torch)
     mesh_pipeline_line()
     run_mesh_train(torch, kernels_mod)
+    run_mesh_moe_train(torch, kernels_mod)
+    serve_int8_launches = run_mesh_serve_int8(torch, kernels_mod)
     run_dryrun(torch, kernels_mod)
-    run_dryrun_ground(torch, kernels_mod)
+    for cfg, cell in dryrun_ground_cells():
+        run_dryrun_ground(torch, kernels_mod, cfg, cell)
 
     out = kernels_line(bench, launches)
     for row in out:
         if row["name"] == "ssd_chunk":
             row["mesh_launches_per_rank"] = mesh_launches
+        if row["name"] == "flash_attention":
+            row["mesh_launches_per_rank"] = {
+                "mesh_serve_int8": serve_int8_launches["flash_attention"]}
     emit({"kernels": out})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -340,20 +340,35 @@ def logical_spec(shape, logical: Tuple[Optional[str], ...], mesh) -> P:
 
 def row_placements(mesh, rows: int) -> Tuple[list, int, int]:
     """DTensor placements that split dim 0 (``rows``, a batch) over the
-    mesh's data axes where their product divides it, with ``Replicate()``
-    elsewhere; this rank's index among the row shards and their count (0
-    and 1 when the rows stay whole)."""
+    mesh's data axes where their product divides it and there is more
+    than one row (``logical_spec``'s rule: DTensor refuses a view that
+    merges a sharded dim of one), with ``Replicate()`` elsewhere; this
+    rank's index among the row shards and their count (0 and 1 when the
+    rows stay whole)."""
     names = list(mesh.mesh_dim_names)
     data = [i for i, n in enumerate(names) if n in ("pod", "data")]
     pl, index, count = [Replicate()] * len(names), 0, 1
     for i in data:
         count *= mesh.shape[i]
-    if rows % count:
+    if rows % count or rows == 1:
         return pl, 0, 1
     for i in data:
         pl[i] = Shard(0)
         index = index * mesh.shape[i] + mesh.get_local_rank(i)
     return pl, index, count
+
+
+def local_range(x: DTensor, dim: int) -> Tuple[int, int]:
+    """(offset, length) of this rank's shard of DTensor ``x`` along ``dim``:
+    the mesh dims that shard it split it in mesh order, each as
+    ``torch.chunk`` does (the last chunks shorter, or empty)."""
+    lo, size = 0, x.shape[dim]
+    for i, p in enumerate(x.placements):
+        if p.is_shard(dim):
+            step = -(-size // x.device_mesh.shape[i])
+            c = x.device_mesh.get_local_rank(i)
+            lo, size = lo + c * step, max(0, min(step, size - c * step))
+    return lo, size
 
 
 def replicate_dim(x: torch.Tensor, dim: int) -> torch.Tensor:

@@ -43,7 +43,7 @@ import torch.utils.checkpoint
 from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import constrain, local_range
 from repro_torch.launch.mesh import ambient_mesh
 from repro_torch.tree import leaves, records_grad
 from repro_torch.nn.attention import AttnSpec, attention, init_attention
@@ -294,12 +294,7 @@ def _logz_gold_sharded(logits: DTensor, labels: torch.Tensor):
         return DTensor.from_local(local, mesh, split).redistribute(mesh, rows)
 
     local = logits.to_local()
-    lo, size = 0, logits.shape[vdim]        # this rank's vocab offset (torch.chunk's split)
-    for i, p in enumerate(logits.placements):
-        if p.is_shard(vdim):
-            step = -(-size // mesh.shape[i])
-            c = mesh.get_local_rank(i)
-            lo, size = lo + c * step, max(0, min(step, size - c * step))
+    lo, size = local_range(logits, vdim)    # this rank's vocab offset and width
     lab = labels if isinstance(labels, DTensor) else DTensor.from_local(
         labels, mesh, [Replicate()] * mesh.ndim, run_check=False)
     idx = lab.redistribute(mesh, rows).to_local().clamp(min=0) - lo

@@ -48,9 +48,16 @@ def forward(params: dict, tokens: torch.Tensor, patches: torch.Tensor,
 
 def loss_fn(params: dict, batch: dict, cfg: ModelConfig):
     """CE on the text region only (the labels are text-aligned) + 0.01 aux:
-    batch {"tokens", "labels"} [B, St], {"patches"} [B, Np, d]."""
+    batch {"tokens", "labels"} [B, St], {"patches"} [B, Np, d].  The patch
+    positions take label -1, which the CE masks, rather than the logits a
+    slice: logits sharded along the sequence would be gathered whole on
+    every rank to be sliced (internvl2-2b's train_4k: [16, 3840, 92553] f32
+    a rank on 16 x 16, 116.5 GB at the peak)."""
     logits, aux = forward(params, batch["tokens"], batch["patches"], cfg)
-    ce = lm.cross_entropy(logits[:, cfg.n_patches:], batch["labels"])
+    labels = batch["labels"]
+    pad = torch.full((labels.shape[0], cfg.n_patches), -1, dtype=labels.dtype,
+                     device=labels.device)
+    ce = lm.cross_entropy(logits, torch.cat([pad, labels], dim=1))
     return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 

@@ -67,9 +67,10 @@ from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.distributed.tensor import DTensor, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from repro_torch.distributed.sharding import placed_like, replicate_dim, row_placements
+from repro_torch.distributed.sharding import (local_range, placed_like, replicate_dim,
+                                              row_placements)
 from repro_torch.kernels.flash_attention import attention_impl
 from repro_torch.nn.embeddings import rope
 from repro_torch.nn.quant import exact_divisor
@@ -159,24 +160,41 @@ def _merge_heads(o: torch.Tensor) -> torch.Tensor:
 
 
 def _attend_local(attend, qh, kh, vh, q_pos):
-    """``attend(q, k, v, q_pos) -> [B, Sq, H * D]`` on DTensors q [B, Hkv,
-    G, Sq, D] or [B, H, Sq, D], k/v [B, Hkv, Sk, D]: each rank attends its
-    own rows (batch over the mesh's data axes) and heads (KV heads over
-    'model'), where those divide them, on its local shards, and merges its
-    heads there.  Attention is independent across rows and heads, so no
-    collective runs inside; DTensor's own propagation of the score
-    products over merged (strided) batch-head shards cost seconds a shape,
-    and its view of the merged heads refuses a grad sharded unevenly over
-    them.  The flash kernel takes a rank's shards as plain tensors.
-    Positions are plain tensors, sliced to the rank's rows."""
+    """``attend(q [B, H, Sq, D], k, v [B, Hkv, Sk, D], q_pos) -> [B, Sq, H
+    * D]`` on DTensors: each rank attends its own rows (batch over the
+    mesh's data axes, where those divide it) and its own q heads over
+    'model' where they split (``_heads_stay_split``), against the KV heads
+    they map to (q head h reads KV head ``h // (H / Hkv)``): its KV shard
+    where the KV heads split over 'model' too, else its contiguous slice
+    of the whole KV heads, whose grad is then a partial sum over 'model'.
+    Attention is independent across rows and heads, so no collective runs
+    inside; DTensor's own propagation of the score products over merged
+    (strided) batch-head shards cost seconds a shape, and its view of the
+    merged heads refuses a grad sharded unevenly over them.  The flash
+    kernel takes a rank's shards as plain tensors.  Positions are plain
+    tensors, sliced to the rank's rows."""
     mesh = qh.device_mesh
     names = list(mesh.mesh_dim_names)
     pl, row, rows = row_placements(mesh, qh.shape[0])
-    out_pl = list(pl)
-    if "model" in names and kh.shape[1] % mesh.shape[names.index("model")] == 0:
-        pl[names.index("model")] = Shard(1)
-        out_pl[names.index("model")] = Shard(2)
-    ql, kl, vl = (t.redistribute(mesh, pl).to_local() for t in (qh, kh, vh))
+    q_pl, kv_pl, kv_grad, out_pl = list(pl), list(pl), list(pl), list(pl)
+    h, hkv = qh.shape[1], kh.shape[1]
+    kv_slice = None
+    if "model" in names:
+        m = names.index("model")
+        n = mesh.shape[m]
+        if _heads_stay_split(h, h // hkv, n):
+            q_pl[m], out_pl[m] = Shard(1), Shard(2)
+            if hkv % n == 0:
+                kv_pl[m] = kv_grad[m] = Shard(1)
+            else:
+                local, group = h // n, h // hkv
+                first = mesh.get_local_rank(m) * local // group
+                kv_slice = slice(first, first + max(1, local // group))
+                kv_grad[m] = Partial()
+    ql = qh.redistribute(mesh, q_pl).to_local()
+    kl, vl = (t.redistribute(mesh, kv_pl).to_local(grad_placements=kv_grad) for t in (kh, vh))
+    if kv_slice is not None:
+        kl, vl = kl[:, kv_slice].contiguous(), vl[:, kv_slice].contiguous()
     if q_pos.dim() >= 2:
         q_pos = q_pos.chunk(rows)[row]
     return DTensor.from_local(attend(ql, kl, vl, q_pos), mesh, out_pl)
@@ -275,6 +293,24 @@ def _quantize_kv(t):
     return torch.clamp(torch.round(tf / s[..., None]), -127, 127).to(torch.int8), s
 
 
+def _put(c, t, start: int) -> None:
+    """``c[:, start:start + Sq] = t`` in place (t [B, Sq, ...]).  A DTensor
+    cache is written shard by shard: each rank writes, into its local
+    shard, the positions it holds of its rows, from ``t`` placed like the
+    cache but whole along the positions (DTensor's own indexed write
+    into a dim sharded over positions lands in a copy: the cache would
+    stay empty)."""
+    if not isinstance(c, DTensor):
+        c[:, start:start + t.shape[1]] = t.to(c.dtype)
+        return
+    want = [p if p.is_shard() and p.dim != 1 else Replicate() for p in c.placements]
+    tl = t.redistribute(c.device_mesh, want).to_local()
+    lo, n = local_range(c, 1)
+    a, b = max(start, lo), min(start + tl.shape[1], lo + n)
+    if a < b:
+        c.to_local()[:, a - lo:b - lo] = tl[:, a - start:b - start].to(c.dtype)
+
+
 def _write_cache(caches, values, cache_len, sq):
     """Write each of ``values`` ([B, Sq, ...]) into its cache ([B, Smax,
     ...]) in place at ``cache_len`` (a scalar, or one start per row): the
@@ -288,7 +324,7 @@ def _write_cache(caches, values, cache_len, sq):
             raise ValueError(f"cache write at {start}..{start + sq} outside the "
                              f"cache's {smax} positions")
         for c, t in zip(caches, values):
-            c[:, start:start + sq] = t.to(c.dtype)
+            _put(c, t, start)
         return start + sq, start == 0
     if not (torch.is_tensor(cache_len) and cache_len.is_cuda):
         # host positions are checked here; a device tensor is the caller's
@@ -329,9 +365,12 @@ def _write_ring(ck, cv, k, v, cache_len, sq):
                     t = torch.cat([t[:, w - shift:], t[:, :w - shift]], dim=1)
                 c.copy_(t.to(c.dtype))
         else:
-            slots = (start + torch.arange(sq, device=dev)) % w
-            ck[:, slots] = k.to(ck.dtype)
-            cv[:, slots] = v.to(cv.dtype)
+            # slots start mod w onwards, wrapping past the ring's end
+            first = min(sq, w - start % w)
+            for c, t in ((ck, k), (cv, v)):
+                _put(c, t[:, :first], start % w)
+                if first < sq:
+                    _put(c, t[:, first:], 0)
         return k, v, (None if start == 0 else start + torch.arange(sq, device=dev))
     if per_row:
         start = torch.as_tensor(cache_len, dtype=torch.long, device=dev)
@@ -341,21 +380,34 @@ def _write_ring(ck, cv, k, v, cache_len, sq):
         start = start[:, None]
     else:
         start = int(cache_len)
-        ck[:, start % w] = k[:, 0].to(ck.dtype)
-        cv[:, start % w] = v[:, 0].to(cv.dtype)
+        _put(ck, k, start % w)
+        _put(cv, v, start % w)
     t = start - ((start - torch.arange(w, device=dev)) % w)
     return ck, cv, torch.where(t >= 0, t, _EMPTY)
 
 
-def _whole_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
-    """A projection ``[B, S, heads * D]`` ready to split into its heads (q
-    into its ``heads`` KV groups): a DTensor whose width is sharded over a
-    mesh dim that does not divide ``heads`` (qwen2's 4 KV heads on a
-    'model' axis of 16) is gathered whole along the width, since DTensor
-    refuses an uneven split of a sharded dim where XLA pads it.  Heads that
-    divide stay sharded."""
+def _heads_stay_split(heads: int, group: int, n: int) -> bool:
+    """Whether ``heads`` heads, ``group`` of them a KV head, split over a
+    mesh dim of ``n`` ranks so that each rank's heads lie inside one KV
+    head or form whole groups of them: a contiguous range of KV heads
+    serves each rank.  (KV heads: ``group`` 1, they split where ``n``
+    divides them.)"""
+    if heads % n:
+        return False
+    local = heads // n
+    return group % local == 0 or local % group == 0
+
+
+def _whole_heads(t: torch.Tensor, heads: int, group: int = 1) -> torch.Tensor:
+    """A projection ``[B, S, heads * D]`` ready to split into its heads
+    (``group`` of them a KV head): a DTensor whose width is sharded over a
+    mesh dim its heads do not split over (``_heads_stay_split``: qwen2's 4
+    KV heads on a 'model' axis of 16) is gathered whole along the width,
+    since DTensor refuses an uneven split of a sharded dim where XLA pads
+    it.  Heads that split stay sharded: q's 48 heads over 16 (grok-1) stay
+    split though its 8 KV heads are gathered (``_attend_local``)."""
     if isinstance(t, DTensor) and any(
-            p.is_shard(t.dim() - 1) and heads % n
+            p.is_shard(t.dim() - 1) and not _heads_stay_split(heads, group, n)
             for p, n in zip(t.placements, t.device_mesh.shape)):
         return replicate_dim(t, -1)
     return t
@@ -411,7 +463,7 @@ def attention(
         k = k + params["bk"]
         v = v + params["bv"]
 
-    q = _whole_heads(q, nkv).reshape(b, sq, h, dh)
+    q = _whole_heads(q, h, g).reshape(b, sq, h, dh)
     k = _whole_heads(k, nkv).reshape(b, src.shape[1], nkv, dh)
     v = _whole_heads(v, nkv).reshape(b, src.shape[1], nkv, dh)
 
@@ -460,7 +512,7 @@ def attention(
             out = core(qh, kh, vh, **({} if causal else {"causal": False}))
             return out.transpose(1, 2).reshape(qh.shape[0], sq, -1)
     else:
-        qh = q.reshape(b, sq, nkv, g, dh).permute(0, 2, 3, 1, 4)  # [B, Hkv, G, Sq, D]
+        qh = q.transpose(1, 2)                                     # [B, H, Sq, D]
         kh = k.transpose(1, 2)                                     # [B, Hkv, Sk, D]
         vh = v.transpose(1, 2)
         ordered = not positions_given and k_pos is None
@@ -477,7 +529,9 @@ def attention(
             **blocks)
 
         def attend(qh, kh, vh, q_pos):
-            return _merge_heads(scores(qh, kh, vh, q_pos))
+            b_, h_, sq_, d_ = qh.shape                             # q as [B, Hkv, G, Sq, D]
+            qg = qh.reshape(b_, kh.shape[1], h_ // kh.shape[1], sq_, d_)
+            return _merge_heads(scores(qg, kh, vh, q_pos))
     if isinstance(qh, DTensor):
         out = _attend_local(attend, qh, kh, vh, q_positions)
     else:

@@ -20,6 +20,24 @@ expert products and the scatter form's buffers carry the JAX package's
 ``constrain`` sharding hints (``distributed.sharding``), no-ops outside
 a mesh and on plain tensors.  Plain functions on tensors, as in
 ``nn/layers.py``.
+
+**On a mesh** (a DTensor input, ``_moe_on_mesh``) each rank runs the
+form on its own rows as plain tensors: the residual is gathered along
+the sequence at the entry (``replicate_dim``) and the output handed back
+on the input's placements at the exit (``placed_like``), as ``ffn`` does.
+Routing, buffer positions, the one-hot dispatch and the scatter are
+data-dependent ops that DTensor lacks rules for or plans as strided
+shards; they are exact on local rows because a dispatch group never
+leaves a batch row (an einsum group is ``g`` consecutive tokens with ``g``
+dividing the sequence, a scatter group is one row) and the batch is split
+over the data axes by whole rows.  The expert stacks keep the JAX
+package's placements: each rank gathers them over 'data' (FSDP) and keeps
+its own slice of the hidden width ``f`` over 'model', so no rank computes
+another's share of an expert product; the products' partial sums are
+added over 'model' where the reference's ``constrain`` hint replicates
+them, and the dispatch's grad is added there in the backward.  The
+auxiliary loss is a product of two means over *all* tokens: each mean is
+summed over the data ranks before the product (``_Ranks.row_mean``).
 """
 from __future__ import annotations
 
@@ -28,8 +46,9 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import constrain, placed_like, replicate_dim
 from repro_torch.nn.layers import _dense_init, ffn, init_ffn
 from repro_torch.nn.quant import EXPERT_SLAB
 
@@ -81,17 +100,71 @@ def init_moe(generator: torch.Generator, spec: MoESpec, dtype=torch.float32,
     return p
 
 
-def _route(params, x2d, spec: MoESpec):
+@dataclasses.dataclass(frozen=True)
+class _Ranks:
+    """Where a rank's local MoE run sits on its mesh: per mesh dim, whether
+    it splits the batch rows (``rows``) and whether it splits the experts'
+    hidden width (``tp``); ``tokens`` is the whole batch's token count."""
+
+    mesh: object
+    rows: tuple
+    tp: tuple
+    tokens: int
+
+    def _placed(self, tp_placement):
+        return [tp_placement if t else Shard(0) if r else Replicate()
+                for r, t in zip(self.rows, self.tp)]
+
+    def local(self, w, f_dim=None):
+        """Weight ``w`` on this rank: whole, but for its hidden dim
+        ``f_dim`` split over the tp dims; its grad is summed over the row
+        dims (each rank's rows add their share)."""
+        keep = [Shard(f_dim) if t and f_dim is not None else Replicate() for t in self.tp]
+        grad = [k if k.is_shard() else Partial() if r else Replicate()
+                for k, r in zip(keep, self.rows)]
+        return w.redistribute(self.mesh, keep).to_local(grad_placements=grad)
+
+    def row_mean(self, t):
+        """The mean over every rank's rows of ``t`` [rows, ...] (this
+        rank's): local sums over the whole batch's count, summed over the
+        row dims -> a replicated DTensor."""
+        part = [Partial() if r else Replicate() for r in self.rows]
+        return DTensor.from_local(t.sum(0) / self.tokens, self.mesh, part).redistribute(
+            self.mesh, [Replicate()] * self.mesh.ndim)
+
+    def enter(self, t):
+        """The expert products' input: itself, its grad (this tp rank's
+        share) summed over the tp dims."""
+        if not any(self.tp):
+            return t
+        return DTensor.from_local(t, self.mesh, self._placed(Replicate())).to_local(
+            grad_placements=self._placed(Partial()))
+
+    def exit(self, t):
+        """The expert products' output, this tp rank's partial sums added
+        over the tp dims."""
+        if not any(self.tp):
+            return t
+        return DTensor.from_local(t, self.mesh, self._placed(Partial())).redistribute(
+            self.mesh, self._placed(Replicate())).to_local()
+
+
+def _route(params, x2d, spec: MoESpec, on: _Ranks = None):
     """-> (gates [T, k] f32, idx [T, k], aux loss).  The router may come
     back from ``dequantize_tree`` in the model's dtype: the logits are an
-    f32 product all the same, as the JAX package's promotion makes them."""
+    f32 product all the same, as the JAX package's promotion makes them.
+    ``on``: the rows are this rank's; the aux loss's means span every
+    rank's rows."""
     logits = x2d.float() @ params["router"].float()
     probs = torch.softmax(logits, dim=-1)
     gates, idx = torch.topk(probs, spec.top_k, dim=-1)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
     # load-balancing auxiliary loss (Switch-style)
-    me = probs.mean(0)
-    ce = F.one_hot(idx, spec.n_experts).float().sum(1).mean(0)
+    picked = F.one_hot(idx, spec.n_experts).float().sum(1)
+    if on is None:
+        me, ce = probs.mean(0), picked.mean(0)
+    else:
+        me, ce = on.row_mean(probs), on.row_mean(picked)
     return gates, idx, spec.n_experts * torch.sum(me * ce)
 
 
@@ -109,10 +182,13 @@ def buffer_positions(idx: torch.Tensor, n_experts: int, cap: int):
     return pos, pos < cap
 
 
-def _expert_ffn_grouped(p, xe, kind):
+def _expert_ffn_grouped(p, xe, kind, on: _Ranks = None):
     """xe: [G, E, C, d] -> [G, E, C, d].  The group dim G aligns with the
     batch sharding and the hidden dim f with tensor parallelism (the
-    ``constrain`` hints, no-ops outside a mesh)."""
+    ``constrain`` hints, no-ops outside a mesh and on a rank's local
+    tensors, where ``on`` adds the partial sums over 'model')."""
+    if on is not None:
+        xe = on.enter(xe)
     xe = constrain(xe, ("batch", None, None, None))
     up = constrain(torch.einsum("gecd,edf->gecf", xe, p["w_up"]),
                    ("batch", None, None, "tp"))
@@ -122,8 +198,9 @@ def _expert_ffn_grouped(p, xe, kind):
         act = (F.silu(gate) if kind == "swiglu" else F.gelu(gate, approximate="tanh")) * up
     else:
         act = F.gelu(up, approximate="tanh")
-    return constrain(torch.einsum("gecf,efd->gecd", act, p["w_down"]),
-                     ("batch", None, None, None))
+    out = constrain(torch.einsum("gecf,efd->gecd", act, p["w_down"]),
+                    ("batch", None, None, None))
+    return out if on is None else on.exit(out)
 
 
 def _with_shared(params, y, x, spec: MoESpec):
@@ -132,12 +209,12 @@ def _with_shared(params, y, x, spec: MoESpec):
     return y
 
 
-def moe_scatter(params: dict, x: torch.Tensor, spec: MoESpec):
+def moe_scatter(params: dict, x: torch.Tensor, spec: MoESpec, on: _Ranks = None):
     """x: [B, S, d] -> ([B, S, d], aux).  One group a batch row."""
     b, s, d = x.shape
     k, e = spec.top_k, spec.n_experts
     cap = capacity(spec, s)
-    gates, idx, aux = _route(params, x.reshape(b * s, d), spec)
+    gates, idx, aux = _route(params, x.reshape(b * s, d), spec, on)
     pos, keep = buffer_positions(idx.reshape(b, s, k), e, cap)
     idx_r, pos_c = idx.reshape(b, s * k), torch.where(keep, pos, cap).reshape(b, s * k)
     rows = torch.arange(b, device=x.device)[:, None].expand(b, s * k)
@@ -146,7 +223,7 @@ def moe_scatter(params: dict, x: torch.Tensor, spec: MoESpec):
     xe = torch.zeros((b, e, cap + 1, d), dtype=x.dtype, device=x.device)
     xe.index_put_((rows, idx_r, pos_c), xr, accumulate=True)
     xe = constrain(xe, ("batch", None, None, None))
-    ye = _expert_ffn_grouped(params, xe[:, :, :cap], spec.ffn_kind)
+    ye = _expert_ffn_grouped(params, xe[:, :, :cap], spec.ffn_kind, on)
     ye = constrain(F.pad(ye, (0, 0, 0, 1)),           # the dropped bucket reads 0
                    ("batch", None, None, None))
     yr = constrain(ye[rows, idx_r, pos_c], ("batch", None, None))
@@ -155,7 +232,7 @@ def moe_scatter(params: dict, x: torch.Tensor, spec: MoESpec):
     return _with_shared(params, y, x, spec).to(x.dtype), aux
 
 
-def moe_einsum(params: dict, x: torch.Tensor, spec: MoESpec):
+def moe_einsum(params: dict, x: torch.Tensor, spec: MoESpec, on: _Ranks = None):
     """One-hot dispatch over token groups: ``disp`` and ``comb`` [G, g, E, C]
     in x's dtype (the gates cast to it before the sum over k)."""
     b, s, d = x.shape
@@ -166,7 +243,7 @@ def moe_einsum(params: dict, x: torch.Tensor, spec: MoESpec):
     g = max(g, 1)
     ng = (b * s) // g
     cap = capacity(spec, g)
-    gates, idx, aux = _route(params, x.reshape(-1, d), spec)
+    gates, idx, aux = _route(params, x.reshape(-1, d), spec, on)
     idx_r = idx.reshape(ng, g, k)
     pos, keep = buffer_positions(idx_r, e, cap)
     disp = (F.one_hot(idx_r, e)[..., None] * F.one_hot(torch.where(keep, pos, 0), cap)
@@ -174,23 +251,23 @@ def moe_einsum(params: dict, x: torch.Tensor, spec: MoESpec):
     comb = (disp * gates.reshape(ng, g, k)[..., None, None].to(x.dtype)).sum(2)
     disp = disp.sum(2)
     xe = torch.einsum("gsec,gsd->gecd", disp, x.reshape(ng, g, d))
-    ye = _expert_ffn_grouped(params, xe, spec.ffn_kind)
+    ye = _expert_ffn_grouped(params, xe, spec.ffn_kind, on)
     y = torch.einsum("gsec,gecd->gsd", comb, ye).reshape(b, s, d)
     return _with_shared(params, y, x, spec).to(x.dtype), aux
 
 
-def moe_ragged(params: dict, x: torch.Tensor, spec: MoESpec):
+def moe_ragged(params: dict, x: torch.Tensor, spec: MoESpec, on: _Ranks = None):
     """Dropless: the routed copies sorted by expert, one product per
     expert over its rows (the reference's ``lax.ragged_dot``), the mixture
     summed in f32 with ``index_add_``.  One host read of the group sizes."""
     b, s, d = x.shape
     t = b * s
     x2 = x.reshape(t, d)
-    gates, idx, aux = _route(params, x2, spec)
+    gates, idx, aux = _route(params, x2, spec, on)
     flat_e = idx.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
     tok = torch.arange(t, device=x.device).repeat_interleave(spec.top_k)[order]
-    xg = x2[tok]
+    xg = x2[tok] if on is None else on.enter(x2[tok])
     sizes = torch.bincount(flat_e, minlength=spec.n_experts).tolist()
     yg = torch.empty_like(xg)
     start = 0
@@ -206,14 +283,35 @@ def moe_ragged(params: dict, x: torch.Tensor, spec: MoESpec):
                 act = F.gelu(up, approximate="tanh")
             yg[start:start + n] = act @ params["w_down"][ex]
         start += n
+    if on is not None:
+        yg = on.exit(yg)
     y = torch.zeros((t, d), dtype=torch.float32, device=x.device).index_add_(
         0, tok, yg.float() * gates.reshape(-1)[order][:, None])
     return _with_shared(params, y.reshape(b, s, d).to(x.dtype), x, spec), aux
 
 
 def moe(params: dict, x: torch.Tensor, spec: MoESpec):
-    if spec.impl == "ragged":
-        return moe_ragged(params, x, spec)
-    if spec.impl == "scatter":
-        return moe_scatter(params, x, spec)
-    return moe_einsum(params, x, spec)
+    form = {"ragged": moe_ragged, "scatter": moe_scatter}.get(spec.impl, moe_einsum)
+    if isinstance(x, DTensor):
+        return _moe_on_mesh(form, params, x, spec)
+    return form(params, x, spec)
+
+
+def _moe_on_mesh(form, params: dict, x: DTensor, spec: MoESpec):
+    """``form`` on each rank's own rows of a (sequence-sharded) DTensor
+    ``x`` [B, S, d], with the expert stacks' hidden width ``f`` split over
+    the mesh dims that split it in ``w_up`` (module note) -> (y on ``x``'s
+    placements, the aux loss as a replicated DTensor).  The shared expert
+    runs as a dense FFN on ``x``."""
+    x_in, x = x, replicate_dim(x, 1)          # rows over the data axes, or whole
+    mesh = x.device_mesh
+    on = _Ranks(mesh, tuple(p.is_shard(0) for p in x.placements),
+                tuple(p.is_shard(2) for p in params["w_up"].placements),
+                x.shape[0] * x.shape[1])
+    local = {"router": on.local(params["router"]),
+             "w_up": on.local(params["w_up"], 2), "w_down": on.local(params["w_down"], 1)}
+    if "w_gate" in params:
+        local["w_gate"] = on.local(params["w_gate"], 2)
+    y, aux = form(local, x.to_local(), dataclasses.replace(spec, shared_expert=False), on)
+    y = DTensor.from_local(y, mesh, x.placements, shape=x.shape, stride=x.stride())
+    return _with_shared(params, placed_like(y, x_in), x_in, spec), aux

@@ -31,6 +31,7 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 # Expert stacks ([E, d, f] under a layer) are drawn (``nn.moe.init_moe``),
 # quantized and dequantized this many experts at a time: the scale is an amax over dim -2, within
@@ -125,18 +126,39 @@ def dequantize_tree(tree: Any, dtype=torch.bfloat16) -> Any:
     """Full-precision weights from a (slice of a) quantized tree: an f32
     product, then a cast to ``dtype`` (expert stacks a slab at a time);
     other leaves come back as they are, uncopied.  The serve passes call
-    it on one layer at a time."""
+    it on one layer at a time.  A leaf whose ``__q__`` is a DTensor
+    (params on a mesh) is dequantized shard by shard, each rank's local
+    ``__q__`` against its columns of ``__s__``, and comes back a DTensor
+    on ``__q__``'s placements: the whole leaf's values, bit for bit."""
     if _is_qleaf(tree):
         q, s = tree["__q__"], tree["__s__"]
-        out = torch.empty(q.shape, dtype=dtype, device=q.device)
-        for sl in _slabs(q):
-            out[sl] = q[sl].float() * s[sl]
-        return out
+        if isinstance(q, DTensor):
+            return _dequantize_shards(q, s, dtype)
+        return _dequantize(q, s, dtype)
     if isinstance(tree, dict):
         return {k: dequantize_tree(v, dtype) for k, v in tree.items()}
     if isinstance(tree, list):
         return [dequantize_tree(v, dtype) for v in tree]
     return tree
+
+
+def _dequantize(q: torch.Tensor, s: torch.Tensor, dtype) -> torch.Tensor:
+    out = torch.empty(q.shape, dtype=dtype, device=q.device)
+    for sl in _slabs(q):
+        out[sl] = q[sl].float() * s[sl]
+    return out
+
+
+def _dequantize_shards(q: DTensor, s: DTensor, dtype) -> DTensor:
+    """``__s__`` (row dim 1) is placed by the parent's spec with the row
+    axis dropped; where that splits its columns otherwise than ``__q__``'s
+    (an embedding table's vocab rows over 'model', its columns whole), it
+    is moved to ``__q__``'s column split, so the local shards broadcast."""
+    mesh, rows = q.device_mesh, q.dim() - 2
+    want = [p if p.is_shard() and p.dim != rows else Replicate() for p in q.placements]
+    s = s.redistribute(mesh, want).to_local()
+    return DTensor.from_local(_dequantize(q.to_local(), s, dtype), mesh, q.placements,
+                              shape=q.shape, stride=q.stride())
 
 
 def _children(tree) -> list:

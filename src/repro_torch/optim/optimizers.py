@@ -46,7 +46,7 @@ import dataclasses
 from typing import Any, Callable, Dict, NamedTuple, Tuple
 
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.optim.schedules import warmup_cosine
 from repro_torch.tree import DTYPES, leaves, unflatten
@@ -193,7 +193,7 @@ def _factored(cfg, layers, scale, lr, b1c, b2c) -> None:
     ``r (x) c / mean(r)`` is never formed; its rsqrt factors are small f32
     vectors broadcast into a multiply in the param's width (f32, or bf16
     for any narrower param), as in the JAX package."""
-    one = len(layers) == 1
+    one = layers[0][0].dim() >= 2           # a matrix; else layers of a vector, one or more
 
     def joined(ts):
         return ts[0] if one else torch.stack(ts)
@@ -231,6 +231,24 @@ def _factored(cfg, layers, scale, lr, b1c, b2c) -> None:
 # gradient accumulation
 # ---------------------------------------------------------------------------
 
+def _rows_split(v: DTensor, rows: int) -> list:
+    """``v``'s placements for a slice of ``rows`` of its rows: dim 0 stays
+    split over the mesh dims that split it, innermost first, as far as
+    their sizes' product divides ``rows``; the others hold the slice
+    whole (grok-1's microbatches of 16 rows on the 32 data ranks of a
+    2 x 16 x 16 mesh: split over 'data', whole on each 'pod', where the
+    JAX package pads half the ranks' rows).  Even rows keep the whole
+    batch's placements."""
+    pl, n = list(v.placements), 1
+    for i in reversed(range(len(pl))):
+        if pl[i].is_shard(0):
+            if rows % (n * v.device_mesh.shape[i]):
+                pl[i] = Replicate()
+            else:
+                n *= v.device_mesh.shape[i]
+    return pl
+
+
 def accumulate_grads(loss_fn: Callable, params, batch, n_micro: int,
                      grad_shardings=None, acc_dtype=torch.float32):
     """Loop over microbatches; returns (mean_loss, metrics, grads).
@@ -266,7 +284,7 @@ def accumulate_grads(loss_fn: Callable, params, batch, n_micro: int,
         out = {}
         for k, v in batch.items():
             part = v[i * (v.shape[0] // n_micro):(i + 1) * (v.shape[0] // n_micro)]
-            out[k] = (part.redistribute(v.device_mesh, v.placements)
+            out[k] = (part.redistribute(v.device_mesh, _rows_split(v, part.shape[0]))
                       if isinstance(v, DTensor) else part)
         return out
 

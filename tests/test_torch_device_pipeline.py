@@ -14,8 +14,8 @@ reference's one-CPU host), plus:
   links within ``TOL`` (1e-4) of the logits' scale, int8 links within
   ``INT8_LINK_TOL`` (2e-2); port against port, ``run`` equals
   ``apply_staged`` on each micro-batch bit for bit;
-* ``WallClockReport``'s structural fields and the tracer's dispatch /
-  transfer spans (names, pids, tids, micro-batches) exactly;
+* (``WallClockReport``'s structural fields and the tracer's spans are
+  ``tests/test_torch_device_pipeline_measure.py``);
 * the stream engine's ``execute="devices"`` against ``execute=True``
   (port against port bit for bit; against the reference's at ``TOL``),
   ``transfer_bytes{edge,dtype}`` equal to the reference's with fp32
@@ -45,10 +45,8 @@ from repro_torch.core.stage_partition import round_robin_placement  # noqa: E402
 from repro_torch.distributed.device_pipeline import (  # noqa: E402
     DevicePipeline,
     DevicePipelineError,
-    WallClockReport,
     device_placement_rows,
 )
-from repro_torch.distributed.pipeline_parallel import microbatch_utilization  # noqa: E402
 from repro_torch.models import cnn  # noqa: E402
 from repro_torch.models.registry import get_cnn_api  # noqa: E402
 from repro_torch.serving import ServeConfig, ServingError  # noqa: E402
@@ -261,46 +259,6 @@ def test_repeated_runs_and_donation_safety():
     c = dp.run(np.ascontiguousarray(x[::-1]), microbatch=2)
     np.testing.assert_allclose(c.numpy(), a.numpy()[::-1], atol=1e-5, rtol=1e-5)
     assert dp.pipeline._ready == {}
-
-
-def test_measure_report_fields():
-    """The report's structural fields equal the reference's exactly; its
-    times are this host's."""
-    ra, rc, rp, pa, pc, pp, x = _setup()
-    dp = DevicePipeline.build(pa.graph(pc), pp, partition=pa.partition(pc, F(1), 2))
-    rep = dp.measure(x, microbatch=1, warmup=1, repeats=1)
-    ref = _ref_pipeline(ra, rc, rp, ra.partition(rc, F(1), 2)).measure(
-        x, microbatch=1, warmup=1, repeats=1)
-    assert isinstance(rep, WallClockReport)
-    for field in ("frames", "microbatch", "n_micro", "n_stages", "n_devices",
-                  "placement", "utilization_bound"):
-        assert getattr(rep, field) == getattr(ref, field), field
-    assert rep.frames == 4 and rep.n_micro == 4 and rep.n_stages == 2
-    assert rep.utilization_bound == pytest.approx(4 / 5) == microbatch_utilization(4, 2)
-    assert rep.overlap_s > 0 and rep.sequential_s > 0
-    assert rep.fps_overlap > 0 and rep.speedup > 0
-    assert len(rep.stage_busy_s) == 2 and all(b > 0 for b in rep.stage_busy_s)
-
-
-def test_tracer_spans_match_reference():
-    """With a tracer, the dispatch and transfer spans carry the
-    reference's names, pids (one per device ordinal), tids (one per stage)
-    and micro-batches, and ``measure`` adds its block_until_ready span."""
-    ra, rc, rp, pa, pc, pp, x = _setup()
-    rplan, plan = ra.partition(rc, F(1), 3), pa.partition(pc, F(1), 3)
-    rdp = _ref_pipeline(ra, rc, rp, rplan, tracer=True)
-    dp = DevicePipeline.build(pa.graph(pc), pp, partition=plan, tracer=True)
-
-    def rows(tracer):
-        return sorted((s.name, s.pid, s.tid, s.clock, s.args)
-                      for s in tracer.spans())
-
-    rdp.run(x, microbatch=1)
-    dp.run(x, microbatch=1)
-    assert rows(dp.tracer) == rows(rdp.tracer)
-    assert len(dp.tracer.spans("dispatch")) == 4 * 3
-    dp.measure(x, microbatch=2, warmup=1, repeats=2)
-    assert [s.pid for s in dp.tracer.spans("block_until_ready")] == ["host"] * 2
 
 
 # ---------------------------------------------------------------------------

@@ -13,8 +13,11 @@ abstract specs) on the CPU, in this process.
 * The flash and SSD wrappers on fake CUDA tensors reach their custom ops:
   output shapes, the kernels' own FLOP formulas, no launch.
 * ``run_cell`` on fake worlds: a reduced qwen2 and mamba2 on (4, 2), train
-  and serve; qwen2 at ``grad_accum`` 1 and 2 (the same FLOPs a rank); the
-  five dense / SSM archs' train steps at (16, 16).
+  and serve; reduced grok-1 and internvl2-2b prefill and decode from int8
+  weights on (4, 2); qwen2 at ``grad_accum`` 1 and 2 (the same FLOPs a
+  rank); reduced grok-1 at ``grad_accum`` 4 on 2 x 16 x 16 (16 rows a
+  microbatch for 32 data ranks); the five dense / SSM archs', the two MoE archs' and the vlm's
+  train steps at (16, 16).
 """
 import dataclasses
 import math
@@ -170,6 +173,18 @@ def test_run_cell_on_a_fake_4x2_mesh(arch, kind):
                                   device="cpu"))
 
 
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+@pytest.mark.parametrize("arch", ["grok-1-314b", "internvl2-2b"])
+def test_int8_serve_cells_trace_on_a_fake_4x2_mesh(arch, kind):
+    """The ``serve_weight_quant`` configs' serve cells: int8 leaves
+    sharded like their parents, dequantized shard by shard
+    (``nn.quant.dequantize_tree``)."""
+    cfg = _small(arch)
+    assert cfg.serve_weight_quant
+    shape = ShapeSuite(f"small_{kind}", 64, 8, kind)
+    _check_record(dryrun.run_cell(arch, shape, cfg=cfg, mesh_shape=(4, 2), device="cpu"))
+
+
 def test_microbatches_stay_on_the_batch_sharding():
     """``grad_accum`` 2 splits each rank's rows, so a rank counts the FLOPs
     of one whole-batch step; a microbatch replicated whole on every rank
@@ -184,11 +199,27 @@ def test_microbatches_stay_on_the_batch_sharding():
     assert recs[0]["flops"]["counted_per_rank"] == recs[1]["flops"]["counted_per_rank"]
 
 
+def test_microbatches_narrower_than_the_data_ranks_trace():
+    """grad_accum 4 on 64 rows leaves 16 rows a microbatch for the 32 data
+    ranks of the 2 x 16 x 16 mesh, as grok-1's train_4k does at
+    grad_accum 16: each microbatch splits over 'data' and is whole on each
+    'pod' (``optim.optimizers._rows_split``), where a split over all 32
+    raised in the CE."""
+    shape = ShapeSuite("small_train", 16, 64, "train")
+    cfg = dataclasses.replace(reduced(get_config("grok-1-314b"), layers=1, d_model=64,
+                                      vocab=256), grad_accum=4)
+    rec = dryrun.run_cell("grok-1-314b", shape, cfg=cfg, multi_pod=True, device="cpu")
+    assert rec["status"] == "ok" and rec["chips"] == 512, rec.get("error")
+
+
 @pytest.mark.parametrize("arch", ["qwen2-7b", "deepseek-coder-33b", "starcoder2-15b",
-                                  "gemma3-1b", "mamba2-780m"])
+                                  "gemma3-1b", "mamba2-780m", "grok-1-314b",
+                                  "llama4-maverick-400b-a17b", "internvl2-2b"])
 def test_train_steps_trace_on_a_fake_16x16_world(arch):
     """Reduced configs at 256 ranks: every head count is uneven on a
-    'model' axis of 16, as the shipped configs' are."""
+    'model' axis of 16, as the shipped configs' are; the MoE steps route
+    each rank's rows on its local tensors (``nn.moe._moe_on_mesh``); the
+    vlm's CE masks its patch positions (``models.vlm.loss_fn``)."""
     shape = ShapeSuite("small_train", 32, 16, "train")
     rec = dryrun.run_cell(arch, shape, cfg=_small(arch), mesh_shape=(16, 16), device="cpu")
     assert rec["status"] == "ok" and rec["chips"] == 256
