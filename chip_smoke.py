@@ -152,7 +152,7 @@ printing JSON lines:
    flash call with q requiring grad raises); and the paged KV cache at
    qwen2-7b's widths, written token by token and gathered bit for bit;
 11. mesh_ssd, mesh_prefill, mesh_collectives, mesh_pipeline, mesh_train,
-   mesh_moe_train, mesh_serve_int8 —
+   mesh_moe_train, mesh_serve_int8, examples —
    the mesh runtime, K ranks spawned on cuda:0 under gloo by the
    multi-rank tests' harness, ``tests/torch_ranks.py`` (NCCL takes one
    rank a card; the kernel library is built before they start): the
@@ -164,8 +164,15 @@ printing JSON lines:
    bf16 within the ssm phase's tolerance; host and device ms beside one
    process's); ``compressed_psum`` on 4 ranks at gemma3-1b's wq shape
    (bit for bit the CPU's every step, error feedback within the JAX
-   package's test bounds); a line saying why the ring pipeline stays on
-   the CPU; gemma3-1b's sharded train step (4 of 26 layers, DTensor
+   package's test bounds); the ring pipeline (``pipeline_forward``) at K
+   in MESH_WORLDS, MESH_PIPE_LAYERS qwen2-7b layers a stage at full width
+   in bf16 through ``lm._block`` (the flash kernel once a layer a tick),
+   MESH_PIPE_MICRO microbatches of 1 x MESH_PIPE_TOKENS tokens, each
+   tick's shift through host buffers (gloo's send / recv take no CUDA
+   tensor): flash launches == layers x ticks on every rank, the output
+   within BF16_TOL of the same stages run one after another in one
+   process, host ms a tick and the shift's share; gemma3-1b's sharded
+   train step (4 of 26 layers, DTensor
    params, state and batch on a (1, 1) mesh of one NCCL rank) against the
    unsharded step (equal losses, no kernel launch, every leaf a DTensor,
    both steps' host ms); grok-1's sharded train step at full width
@@ -176,7 +183,12 @@ printing JSON lines:
    weights (MESH_SERVE_LAYERS of 64) prefilling one MESH_SERVE_TOKENS
    prompt and decoding DECODE_STEPS tokens on DTensor params and cache
    against the unsharded int8 serve (the flash kernel once a layer a
-   prefill, the same tokens, prefill logits at BF16_TOL);
+   prefill, the same tokens, prefill logits at BF16_TOL); then the
+   port's eight entry points (``examples``): each
+   ``examples/<name>_torch.py`` run in a subprocess on the card,
+   EXAMPLE_WORKERS at a time, train_lm_torch.py twice so that the second
+   run resumes from the first's checkpoint, each exiting 0, with its wall
+   seconds;
 12. dryrun, dryrun_ground — the dry run (``launch/dryrun.py``) on
    ``--device cuda``: ``run_cell`` traces qwen2-7b's train_4k on the
    16 x 16 production mesh, mamba2-780m's prefill_32k on 2 x 16 x 16,
@@ -196,7 +208,8 @@ printing JSON lines:
    before it that is not the step's input); the step's ms beside the
    roofline's bound (ungated);
 13. the ``kernels`` line (the SSD and flash rows with each rank's
-   launches in the mesh phases, as counted there), the card line, and the
+   launches in the mesh phases, mesh_pipeline's among the flash row's,
+   as counted there), the card line, and the
    final ``ok`` line.
 
 Any failure raises: the script then exits non-zero and prints no result.
@@ -337,6 +350,19 @@ MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS, MESH_TRAIN_TOL = 4, 3, 1e-5
 # (1, 1) mesh, against the unsharded int8 serve.
 MESH_MOE_LAYERS, MESH_MOE_ACCUM = 1, 2
 MESH_SERVE_LAYERS, MESH_SERVE_TOKENS = 2, 2048
+# mesh_pipeline: the ring pipeline on K in MESH_WORLDS gloo ranks on cuda:0,
+# MESH_PIPE_LAYERS qwen2-7b layers (full width, bf16) a stage,
+# MESH_PIPE_MICRO microbatches of 1 x MESH_PIPE_TOKENS tokens
+MESH_PIPE_LAYERS, MESH_PIPE_MICRO, MESH_PIPE_TOKENS = 2, 8, 512
+# examples: each entry point run as ``python examples/<name>_torch.py`` on
+# the card, EXAMPLE_WORKERS at a time; train_lm_torch.py cut to
+# EXAMPLE_TRAIN_STEPS steps, then run again to twice as many from the
+# first run's last checkpoint
+EXAMPLES = ("quickstart", "rate_sweep", "cnn_stream_demo", "pipeline_demo", "fleet_demo",
+            "trace_demo", "serve_lm", "train_lm")
+EXAMPLE_TRAIN_STEPS = 4
+EXAMPLE_TIMEOUT = 300
+EXAMPLE_WORKERS = 4
 # the dry run's cells (arch, shape, multi-pod, layers: None as shipped, or
 # the depth cut that keeps the trace near two minutes on the card's host),
 # and the peak-memory gate of its prediction against the card
@@ -3012,15 +3038,227 @@ def run_mesh_collectives(torch):
           "per_rank": ranks, "check": "mean and residual bit for bit the CPU's, every step"})
 
 
-def mesh_pipeline_line() -> None:
-    """The ring pipeline (``pipeline_forward``) does not run on the card:
-    its ticks move activations with ``batch_isend_irecv``, and gloo's send
-    and recv take no CUDA tensors (a device pointer fails in the TCP
-    transport's writev), while NCCL takes one rank a card.  It is held on
-    the CPU, against the JAX package, by tests/test_torch_seq_parallel.py."""
-    emit({"phase": "mesh_pipeline", "ran": False,
-          "reason": "gloo send/recv take no CUDA tensors; NCCL needs a card a rank",
-          "held_by": "tests/test_torch_seq_parallel.py (gloo, CPU, S = 2 and 4)"})
+def _pipeline_stages(torch, world):
+    """qwen2-7b's config and MESH_PIPE_LAYERS x ``world`` of its layers at
+    full width in bf16, drawn on the card from one seed (the same on every
+    rank), stacked ``[S, L/S, ...]`` by ``stack_stage_params`` on
+    ``plan_stages_for_layers``'s uniform plan.  The vocabulary is cut to
+    256: the stages run layers only, and the embedding is no stage's."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed.pipeline_parallel import (plan_stages_for_layers,
+                                                           stack_stage_params)
+    from repro_torch.models import lm
+    from repro_torch.tree import leaves, unflatten
+
+    n = MESH_PIPE_LAYERS * world
+    cfg = dataclasses.replace(get_config("qwen2-7b"), n_layers=n, vocab=256)
+    blocks = lm.init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")["blocks"]
+    stacked = unflatten(blocks[0], [torch.stack(ts) for ts in zip(*map(leaves, blocks))])
+    del blocks
+    staged = stack_stage_params(stacked, plan_stages_for_layers([1.0] * n, world))
+    del stacked
+    torch.cuda.empty_cache()
+    return cfg, staged
+
+
+def _mesh_pipeline_rank(rank, world):
+    """One rank of ``mesh_pipeline``: ``pipeline_forward`` over the stage
+    axis of a (K,) mesh of gloo ranks on cuda:0, its ``block_fn`` one
+    stage's qwen2-7b layers through ``lm._block`` (causal from position 0:
+    the flash kernel once a layer a tick); a warm-up run, then a timed run
+    with the flash launches counted and each ring shift timed between two
+    syncs; then the same ``block_fn`` stage after stage over the same
+    microbatches in this process (rank 0 timed while the others wait).
+    Returns launches, the largest difference, the routes and the times."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed import pipeline_parallel as pp
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import lm
+    from repro_torch.tree import leaves, unflatten
+
+    cfg, staged = _pipeline_stages(torch, world)
+    mesh = init_device_mesh("cuda", (world,), mesh_dim_names=("stage",))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn((MESH_PIPE_MICRO, 1, MESH_PIPE_TOKENS, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+
+    def block_fn(ps, h):
+        for i in range(MESH_PIPE_LAYERS):
+            h, _, _ = lm._block(unflatten(ps, [t[i] for t in leaves(ps)]), h, None, cfg)
+        return h
+
+    ring_shift, shifts = pp._ring_shift, []
+
+    def timed_shift(y, nxt, prv, group, route, host):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ring_shift(y, nxt, prv, group, route, host)
+        torch.cuda.synchronize()
+        shifts.append((route, time.perf_counter() - t0))
+        return out
+
+    with torch.no_grad():
+        pp.pipeline_forward(block_fn, staged, x, mesh)          # warm-up
+        pp._ring_shift = timed_shift
+        try:
+            fa.flash_attention.launches = 0
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            got = pp.pipeline_forward(block_fn, staged, x, mesh)
+            torch.cuda.synchronize()
+            ring_s = time.perf_counter() - t0
+            launches = fa.flash_attention.launches
+        finally:
+            pp._ring_shift = ring_shift
+
+        def one_process():
+            outs = []
+            for m in range(MESH_PIPE_MICRO):
+                h = x[m]
+                for s in range(world):
+                    h = block_fn(unflatten(staged, [t[s] for t in leaves(staged)]), h)
+                outs.append(h)
+            return torch.stack(outs)
+
+        one_s = None
+        for turn in (0, 1):                   # rank 0 alone, then the others
+            if (rank == 0) == (turn == 0):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                want = one_process()
+                torch.cuda.synchronize()
+                one_s = time.perf_counter() - t0
+            dist.barrier()
+    ticks = MESH_PIPE_MICRO + world - 1
+    diff = (got.float() - want.float()).abs()
+    return {"launches": launches, "ticks": ticks, "routes": sorted({r for r, _ in shifts}),
+            "shifts": len(shifts), "max_abs_err": diff.max().item(),
+            "bit_equal": torch.equal(got, want), "scale": want.float().abs().max().item(),
+            "finite": bool(torch.isfinite(got).all()), "shape": list(got.shape),
+            "ring_ms_per_tick": ring_s * 1e3 / ticks,
+            "shift_ms_per_tick": sum(t for _, t in shifts) * 1e3 / ticks,
+            "shift_share": sum(t for _, t in shifts) / ring_s,
+            "one_process_ms_per_stage_call": one_s * 1e3 / (MESH_PIPE_MICRO * world),
+            "ring_ms": ring_s * 1e3, "one_process_ms": one_s * 1e3,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def run_mesh_pipeline(torch, smi):
+    """``mesh_pipeline``: the ring pipeline (``pipeline_forward``) on K in
+    MESH_WORLDS gloo ranks on cuda:0, one stage a rank, MESH_PIPE_LAYERS
+    qwen2-7b layers a stage at full width in bf16, MESH_PIPE_MICRO
+    microbatches of 1 x MESH_PIPE_TOKENS tokens.  The ranks share the card
+    under gloo, so every tick's shift takes the host route
+    (``pipeline_parallel.shift_route``).  Gates, on every rank: the host
+    route on every shift; flash launches == layers a stage x ticks; the
+    ring's output finite and within BF16_TOL of its scale of the same
+    ``block_fn`` run stage after stage in one process (expected bit-equal:
+    the same ops at the same shapes on the same card).  Prints host ms a
+    tick beside one process's ms a stage call, and the shift's share of
+    the ring's time.  Returns each rank's flash launches by K."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()          # the ranks draw 4-8 GB each beside this process
+    launches = {}
+    for world in MESH_WORLDS:
+        ranks = run_ranks(world, _mesh_pipeline_rank)
+        for rank, r in enumerate(ranks):
+            want = MESH_PIPE_LAYERS * r["ticks"]
+            require(r["routes"] == ["host"] and r["shifts"] == r["ticks"],
+                    f"mesh_pipeline K={world} rank {rank}: shifts {r['shifts']} by "
+                    f"{r['routes']} (want {r['ticks']} by the host route)")
+            require(r["launches"] == want, f"mesh_pipeline K={world} rank {rank}: "
+                    f"{r['launches']} flash launches (want {want})")
+            limit = BF16_TOL * max(1.0, r["scale"])
+            require(r["finite"] and r["max_abs_err"] <= limit,
+                    f"mesh_pipeline K={world} rank {rank}: max|ring - one process| "
+                    f"{r['max_abs_err']} > {limit} (finite {r['finite']})")
+        launches[f"K={world}"] = [r["launches"] for r in ranks]
+        emit({"phase": "mesh_pipeline", "ran": True, "ranks": world, "mesh": [world],
+              "backend": "gloo", "device": "cuda:0 (every rank)", "model": "qwen2-7b",
+              "layers_per_stage": MESH_PIPE_LAYERS, "microbatches": MESH_PIPE_MICRO,
+              "microbatch_shape": [1, MESH_PIPE_TOKENS, ranks[0]["shape"][-1]],
+              "dtype": "bfloat16", "shift_route": ranks[0]["routes"],
+              "ticks": ranks[0]["ticks"], "flash_launches_per_rank": launches[f"K={world}"],
+              "max_abs_err_per_rank": [r["max_abs_err"] for r in ranks],
+              "bit_equal_per_rank": [r["bit_equal"] for r in ranks],
+              "scale": ranks[0]["scale"], "tolerance": BF16_TOL,
+              "gate": "max|ring - one process| <= tolerance x max(1, max|one process|)",
+              "ring_ms_per_tick_per_rank": [r["ring_ms_per_tick"] for r in ranks],
+              "shift_ms_per_tick_per_rank": [r["shift_ms_per_tick"] for r in ranks],
+              "shift_share_per_rank": [r["shift_share"] for r in ranks],
+              "one_process_ms_per_stage_call": ranks[0]["one_process_ms_per_stage_call"],
+              "ring_ms_per_rank": [r["ring_ms"] for r in ranks],
+              "one_process_ms": ranks[0]["one_process_ms"],
+              "peak_gb_per_rank": [r["peak_gb"] for r in ranks], "card": smi,
+              "note": f"host clock; {world} ranks share one card's SMs and its host "
+                      f"link: a time here says nothing about {world} cards"})
+    return launches
+
+
+def run_examples(torch, smi):
+    """``examples``: each of the port's entry points run as ``python
+    examples/<name>_torch.py`` in a subprocess on the card (its default
+    device), in a temporary working directory, EXAMPLE_WORKERS at a time
+    (each run is mostly a fresh interpreter's imports and the card's
+    context); train_lm_torch.py for EXAMPLE_TRAIN_STEPS steps with a
+    checkpoint every other step among them, then, once it is done, again
+    to twice as many, resuming.  Gates: exit code 0 from each, and the
+    second training run resumes.  Prints each run's wall seconds and last
+    line, and the phase's."""
+    import tempfile
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(root, "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    torch.cuda.empty_cache()
+    rows, lock = [], threading.Lock()
+    with tempfile.TemporaryDirectory() as tmp:
+
+        def run(name, extra):
+            cmd = [sys.executable, os.path.join(root, "examples", f"{name}_torch.py"), *extra]
+            t0 = time.perf_counter()
+            out = subprocess.run(cmd, capture_output=True, text=True, cwd=tmp, env=env,
+                                 timeout=EXAMPLE_TIMEOUT)
+            wall = time.perf_counter() - t0
+            lines = out.stdout.strip().splitlines()
+            row = {"script": f"examples/{name}_torch.py",
+                   "args": [a.replace(tmp, "<tmp>") for a in extra],
+                   "returncode": out.returncode, "wall_s": wall,
+                   "last_line": lines[-1] if lines else ""}
+            with lock:
+                emit({"phase": "examples_run", **row})
+                rows.append(row)
+            require(out.returncode == 0, f"examples: {name}_torch.py {extra} exited "
+                    f"{out.returncode}:\n{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+            return out.stdout
+
+        train = ["--ckpt", os.path.join(tmp, "ckpt"), "--ckpt-every", "2",
+                 "--log", os.path.join(tmp, "loss.json")]
+        runs = [(name, []) for name in EXAMPLES if name != "train_lm"]
+        runs.append(("train_lm", ["--steps", str(EXAMPLE_TRAIN_STEPS)] + train))
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(EXAMPLE_WORKERS) as pool:
+            for done in [pool.submit(run, *r) for r in runs]:
+                done.result()
+        again = run("train_lm", ["--steps", str(2 * EXAMPLE_TRAIN_STEPS)] + train)
+        phase_s = time.perf_counter() - t0
+        resumed = f"[train] resumed from step {EXAMPLE_TRAIN_STEPS}"
+        require(resumed in again, f"examples: the second train_lm_torch.py run did "
+                f"not resume:\n{again[-2000:]}")
+    emit({"phase": "examples", "device": "cuda (each script's default)",
+          "wall_s": {f"{r['script']} {' '.join(r['args'])}".strip(): r["wall_s"] for r in rows},
+          "phase_wall_s": phase_s, "workers": EXAMPLE_WORKERS, "card": smi,
+          "note": f"wall seconds of the whole subprocess, interpreter start, imports and "
+                  f"the card's context included, {EXAMPLE_WORKERS} runs at a time on one "
+                  f"card and one host"})
 
 
 @contextlib.contextmanager
@@ -3626,10 +3864,11 @@ def main() -> int:
     run_paged_kv(torch)
     mesh_launches = {"mesh_ssd": run_mesh_ssd(torch), "mesh_prefill": run_mesh_prefill(torch)}
     run_mesh_collectives(torch)
-    mesh_pipeline_line()
+    pipeline_launches = run_mesh_pipeline(torch, smi)
     run_mesh_train(torch, kernels_mod)
     run_mesh_moe_train(torch, kernels_mod)
     serve_int8_launches = run_mesh_serve_int8(torch, kernels_mod)
+    run_examples(torch, smi)
     run_dryrun(torch, kernels_mod)
     for cfg, cell in dryrun_ground_cells():
         run_dryrun_ground(torch, kernels_mod, cfg, cell)
@@ -3640,7 +3879,8 @@ def main() -> int:
             row["mesh_launches_per_rank"] = mesh_launches
         if row["name"] == "flash_attention":
             row["mesh_launches_per_rank"] = {
-                "mesh_serve_int8": serve_int8_launches["flash_attention"]}
+                "mesh_serve_int8": serve_int8_launches["flash_attention"],
+                "mesh_pipeline": pipeline_launches}
     emit({"kernels": out})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

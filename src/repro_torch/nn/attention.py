@@ -159,8 +159,8 @@ def _merge_heads(o: torch.Tensor) -> torch.Tensor:
     return o.permute(0, 3, 1, 2, 4).reshape(b, sq, -1)
 
 
-def _attend_local(attend, qh, kh, vh, q_pos):
-    """``attend(q [B, H, Sq, D], k, v [B, Hkv, Sk, D], q_pos) -> [B, Sq, H
+def _attend_local(attend, qh, kh, vh, per_row):
+    """``attend(q [B, H, Sq, D], k, v [B, Hkv, Sk, D], per_row) -> [B, Sq, H
     * D]`` on DTensors: each rank attends its own rows (batch over the
     mesh's data axes, where those divide it) and its own q heads over
     'model' where they split (``_heads_stay_split``), against the KV heads
@@ -171,8 +171,10 @@ def _attend_local(attend, qh, kh, vh, q_pos):
     inside; DTensor's own propagation of the score products over merged
     (strided) batch-head shards cost seconds a shape, and its view of the
     merged heads refuses a grad sharded unevenly over them.  The flash
-    kernel takes a rank's shards as plain tensors.  Positions are plain
-    tensors, sliced to the rank's rows."""
+    kernel takes a rank's shards as plain tensors.  ``per_row`` maps names
+    to plain tensors of one entry a row (``[B, ...]``: the query positions,
+    and at decode the per-row key lengths and ring slot positions); each
+    is sliced to the rank's rows."""
     mesh = qh.device_mesh
     names = list(mesh.mesh_dim_names)
     pl, row, rows = row_placements(mesh, qh.shape[0])
@@ -195,9 +197,8 @@ def _attend_local(attend, qh, kh, vh, q_pos):
     kl, vl = (t.redistribute(mesh, kv_pl).to_local(grad_placements=kv_grad) for t in (kh, vh))
     if kv_slice is not None:
         kl, vl = kl[:, kv_slice].contiguous(), vl[:, kv_slice].contiguous()
-    if q_pos.dim() >= 2:
-        q_pos = q_pos.chunk(rows)[row]
-    return DTensor.from_local(attend(ql, kl, vl, q_pos), mesh, out_pl)
+    local = {name: t.chunk(rows)[row] for name, t in per_row.items()}
+    return DTensor.from_local(attend(ql, kl, vl, local), mesh, out_pl)
 
 
 def _block_size(block: int, n: int) -> int:
@@ -311,6 +312,31 @@ def _put(c, t, start: int) -> None:
         c.to_local()[:, a - lo:b - lo] = tl[:, a - start:b - start].to(c.dtype)
 
 
+def _put_rows(c, t, start: torch.Tensor) -> None:
+    """``c[b, start[b]:start[b] + Sq] = t[b]`` for every row b, in place (t
+    [B, Sq, ...], ``start`` [B] on the cache's device).  A DTensor cache is
+    written shard by shard, as ``_put`` writes it: each rank writes its
+    local rows at the positions its shard holds, one query step at a time
+    (one entry a row, so no two writes of a step meet); a position outside
+    the shard writes back what is there."""
+    if not isinstance(c, DTensor):
+        rows = start[:, None] + torch.arange(t.shape[1], device=start.device)
+        c[torch.arange(c.shape[0], device=start.device)[:, None], rows] = t.to(c.dtype)
+        return
+    want = [p if p.is_shard() and p.dim != 1 else Replicate() for p in c.placements]
+    tl = t.redistribute(c.device_mesh, want).to_local()
+    (r0, nr), (p0, n) = local_range(c, 0), local_range(c, 1)
+    if nr == 0 or n == 0:
+        return
+    cl = c.to_local()
+    bidx = torch.arange(nr, device=cl.device)
+    for j in range(tl.shape[1]):
+        at = start[r0:r0 + nr] + (j - p0)
+        inside = ((at >= 0) & (at < n)).reshape((nr,) + (1,) * (cl.dim() - 2))
+        at = at.clamp(0, n - 1)
+        cl[bidx, at] = torch.where(inside, tl[:, j].to(cl.dtype), cl[bidx, at])
+
+
 def _write_cache(caches, values, cache_len, sq):
     """Write each of ``values`` ([B, Sq, ...]) into its cache ([B, Smax,
     ...]) in place at ``cache_len`` (a scalar, or one start per row): the
@@ -333,12 +359,9 @@ def _write_cache(caches, values, cache_len, sq):
         if pos.min() < 0 or pos.max() + sq > smax:
             raise ValueError(f"cache writes at {pos.tolist()} (+{sq}) outside "
                              f"the cache's {smax} positions")
-    dev = caches[0].device
-    start = torch.as_tensor(cache_len, dtype=torch.long, device=dev)
-    rows = start[:, None] + torch.arange(sq, device=dev)
-    bidx = torch.arange(caches[0].shape[0], device=dev)[:, None]
+    start = torch.as_tensor(cache_len, dtype=torch.long, device=caches[0].device)
     for c, t in zip(caches, values):
-        c[bidx, rows] = t.to(c.dtype)
+        _put_rows(c, t, start)
     return start + sq, False
 
 
@@ -374,9 +397,8 @@ def _write_ring(ck, cv, k, v, cache_len, sq):
         return k, v, (None if start == 0 else start + torch.arange(sq, device=dev))
     if per_row:
         start = torch.as_tensor(cache_len, dtype=torch.long, device=dev)
-        rows = torch.arange(ck.shape[0], device=dev)
-        ck[rows, start % w] = k[:, 0].to(ck.dtype)
-        cv[rows, start % w] = v[:, 0].to(cv.dtype)
+        _put_rows(ck, k, start % w)
+        _put_rows(cv, v, start % w)
         start = start[:, None]
     else:
         start = int(cache_len)
@@ -508,7 +530,7 @@ def attention(
         vh = v[:, :n_keys].transpose(1, 2).to(dt).contiguous()
         core = flash if flash is not None else attention_impl()
 
-        def attend(qh, kh, vh, q_pos):
+        def attend(qh, kh, vh, per_row):
             out = core(qh, kh, vh, **({} if causal else {"causal": False}))
             return out.transpose(1, 2).reshape(qh.shape[0], sq, -1)
     else:
@@ -528,13 +550,21 @@ def attention(
             causal=causal, window=window, kv_len=kv_len, scale=1.0 / math.sqrt(dh),
             **blocks)
 
-        def attend(qh, kh, vh, q_pos):
+        def attend(qh, kh, vh, per_row):
             b_, h_, sq_, d_ = qh.shape                             # q as [B, Hkv, G, Sq, D]
             qg = qh.reshape(b_, kh.shape[1], h_ // kh.shape[1], sq_, d_)
-            return _merge_heads(scores(qg, kh, vh, q_pos))
+            return _merge_heads(scores(qg, kh, vh, **per_row))
+    # what differs row by row: the query positions, and at decode each row's
+    # key length and ring slot positions (``_attend_local`` cuts them to a
+    # rank's rows); the rest is bound into ``scores``
+    per_row = {"q_pos": q_positions if q_positions.dim() >= 2 else q_positions.expand(b, sq)}
+    if torch.is_tensor(kv_len):
+        per_row["kv_len"] = kv_len
+    if torch.is_tensor(k_pos) and k_pos.dim() >= 2:
+        per_row["k_pos"] = k_pos
     if isinstance(qh, DTensor):
-        out = _attend_local(attend, qh, kh, vh, q_positions)
+        out = _attend_local(attend, qh, kh, vh, per_row)
     else:
-        out = attend(qh, kh, vh, q_positions)
+        out = attend(qh, kh, vh, per_row)
     out = out.to(x.dtype) @ params["wo"]
     return placed_like(out, x_in), new_cache

@@ -6,8 +6,9 @@ training path — ``optim``, ``data``, ``checkpoint``,
 and the mesh runtime — ``launch.mesh``, ``distributed.sharding``,
 ``distributed.collectives``, ``distributed.pipeline_parallel``, ``nn.ssm``
 — and the dry run — ``launch.dryrun``, ``core.hlo_analysis``,
-``core.flops``, ``configs.shapes`` — named among them) and ``chip_smoke`` (which runs nothing on import) in a
-fresh interpreter must leave ``jax`` and every ``repro`` module out of
+``core.flops``, ``configs.shapes`` — named among them), ``chip_smoke`` (which runs nothing on import) and
+the port's eight entry points ``examples/*_torch.py`` in a fresh
+interpreter must leave ``jax`` and every ``repro`` module out of
 ``sys.modules``.  The entry point resolves its
 device to the card and raises without CUDA; a kernel wrapper handed a
 CUDA tensor launches its kernel or raises, and never falls back.
@@ -38,6 +39,12 @@ def test_port_imports_no_jax_and_no_repro():
         for n in names:
             importlib.import_module(n)
         import chip_smoke
+        import glob, importlib.util, os
+        examples = sorted(glob.glob(os.path.join({ROOT!r}, "examples", "*_torch.py")))
+        for path in examples:
+            name = os.path.basename(path)[:-3]
+            spec = importlib.util.spec_from_file_location(name, path)
+            spec.loader.exec_module(importlib.util.module_from_spec(spec))
         bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(
             ("jax.", "jaxlib")) or m == "repro" or m.startswith("repro."))
         missing = sorted({{"repro_torch.nn.moe", "repro_torch.nn.attention",
@@ -53,8 +60,8 @@ def test_port_imports_no_jax_and_no_repro():
                            "repro_torch.nn.ssm", "repro_torch.launch.dryrun",
                            "repro_torch.core.hlo_analysis", "repro_torch.core.flops",
                            "repro_torch.configs.shapes"}} - set(names))
-        print(len(names), missing, bad)
-        sys.exit(1 if bad or missing or len(names) < 15 else 0)
+        print(len(names), len(examples), missing, bad)
+        sys.exit(1 if bad or missing or len(names) < 15 or len(examples) != 8 else 0)
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT, timeout=300)

@@ -41,6 +41,8 @@ from torch_ranks import result, run_ranks  # noqa: E402
 WORLD = 4
 STEPS = 30
 TRAIN_ARCHS = ("qwen2-7b", "mamba2-780m")
+PROMPT = 24
+ROW_POSITIONS = (24, 21, 18, 23)     # each row's length before the first decode step
 
 
 def _grads_rows():
@@ -51,6 +53,11 @@ def _tree_rows():
     rng = np.random.default_rng(1)
     return {"a": rng.standard_normal((WORLD, 3, 5)).astype(np.float32) * 4,
             "b": {"c": rng.standard_normal((WORLD, 7)).astype(np.float32) * 1e-3}}
+
+
+def _err(a, b) -> float:
+    """max|a - b| over max|a|, ``b`` a DTensor."""
+    return float((a - b.full_tensor()).abs().max()) / max(float(a.abs().max()), 1e-30)
 
 
 # --------------------------------------------------------------------------
@@ -363,6 +370,58 @@ def check_remat_backward_in_another_thread(rank, world):
     return {"err": max(float((a - b).full_tensor().abs().max()) for a, b in zip(*grads))}
 
 
+def check_per_row_decode(rank, world):
+    """Two greedy decode steps with every row at its own position (the
+    engine's slots), on DTensor params, caches and tokens on a (4, 1) and
+    a (2, 2) mesh, against the unsharded ``decode_step`` from the same
+    prefilled caches: qwen2's bf16-layout (f32 here) and int8 caches and
+    gemma3's rings.  The second step reads what the first wrote.  Returns
+    the worst logits and cache errors as fractions of their scales."""
+    import dataclasses
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs.registry import get_config, reduced
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.registry import get_api
+    from repro_torch.tree import leaves, unflatten
+
+    qwen = reduced(get_config("qwen2-7b"), layers=2, d_model=64, vocab=256)
+    out = {}
+    for kind, cfg, max_len in (("plain", qwen, 64),
+                               ("int8", dataclasses.replace(qwen, kv_quant=True), 64),
+                               ("ring", reduced(get_config("gemma3-1b"), layers=2,
+                                                d_model=64, vocab=256), 40)):
+        api = get_api(cfg, "cpu")
+        params = api.init(cfg, torch.Generator().manual_seed(21))
+        prompt = {"tokens": np.random.default_rng(22).integers(
+            0, cfg.vocab, (4, PROMPT)).astype(np.int64)}
+        with torch.no_grad():
+            _, state = api.prefill(params, prompt, api.make_serve_state(cfg, 4, max_len), cfg)
+        for degree in (1, 2):
+            mesh = make_local_mesh(degree, device_type="cpu")
+            dparams = shd.shard_tree(params, shd.params_shardings(params, mesh))
+            dstate = shd.shard_tree(state, shd.serve_state_specs(state, mesh))   # copies
+            s0 = unflatten(state, [t.clone() for t in leaves(state)])
+            pos = np.asarray(ROW_POSITIONS)
+            tok = {"tokens": np.random.default_rng(23).integers(
+                0, cfg.vocab, (4, 1)).astype(np.int64)}
+            errs = []
+            with torch.no_grad():
+                for _ in range(2):
+                    l0, s0 = api.decode(params, s0, tok, pos, cfg)
+                    with mesh, implicit_replication():
+                        l1, dstate = api.decode(dparams, dstate, shd.shard_tree(
+                            tok, shd.batch_specs(tok, mesh)), pos, cfg)
+                    errs.append(_err(l0, l1))
+                    tok = {"tokens": l0[:, -1].argmax(-1)[:, None].numpy()}
+                    pos = pos + 1
+            out[(kind, tuple(mesh.shape))] = {
+                "errs": errs,
+                "cache_err": max(_err(a, b) for a, b in zip(leaves(s0), leaves(dstate))),
+                "cache_dtensor": all(isinstance(t, DTensor) for t in leaves(dstate)),
+                "rings": isinstance(state, list), "int8": leaves(state)[0].dtype == torch.int8}
+    return out
+
+
 CHECKS = {
     "local_mesh": check_local_mesh,
     "compressed_psum": check_compressed_psum,
@@ -374,6 +433,7 @@ CHECKS = {
     "uneven_heads": check_uneven_heads_train_step,
     "ssm_decode": check_sharded_ssm_decode,
     "remat_thread": check_remat_backward_in_another_thread,
+    "per_row_decode": check_per_row_decode,
 }
 
 
@@ -547,3 +607,19 @@ def test_remat_recomputes_inside_the_forwards_mesh(ranks):
     for out in result(ranks, "remat_thread"):
         assert "error" not in out, out
         assert out["err"] == 0.0
+
+
+@pytest.mark.parametrize("kind", ["plain", "int8", "ring"])
+def test_per_row_decode_on_dtensors_matches_the_unsharded_decode(ranks, kind):
+    """Rows at different positions (``ROW_POSITIONS``) decode two steps on
+    (4, 1) and (2, 2): each rank attends its rows against their own key
+    lengths and slot positions, and writes its rows at their own positions
+    into the shards of a DTensor cache (``nn.attention._put_rows``), where
+    DTensor's own indexed write refused the cache's placements."""
+    for out in result(ranks, "per_row_decode"):
+        for shape in ((4, 1), (2, 2)):
+            got = out[(kind, shape)]
+            assert got["cache_dtensor"] and got["rings"] == (kind == "ring")
+            assert got["int8"] == (kind == "int8")
+            assert len(got["errs"]) == 2 and max(got["errs"]) <= 1e-4, got["errs"]
+            assert got["cache_err"] <= 1e-4

@@ -22,7 +22,11 @@ through a file in the directory they share.
   plan padded with zero layers at S = 4) against the reference's
   ``pipeline_forward`` on its 1-stage mesh and its vmapped ``block_fn``,
   at rtol / atol 1e-5; ``stack_stage_params`` and
-  ``plan_stages_for_layers`` against the reference's, exactly.
+  ``plan_stages_for_layers`` against the reference's, exactly.  The ring
+  shift's route (``shift_route``): sends of the tensors themselves on CPU
+  tensors, host buffers only where gloo meets a CUDA tensor, and the
+  host-staged route's output bit for bit the other's (the CUDA route
+  itself is held on the card by ``chip_smoke.py``'s ``mesh_pipeline``).
 """
 import os
 import pickle
@@ -160,10 +164,44 @@ def check_pipeline(rank, world):
     return out.numpy(), plan.boundaries, stacked["w"].numpy()
 
 
+def check_pipeline_routes(rank, world):
+    """The ring shift's routes on CPU tensors: the route each tick took
+    (``shift_route`` gives ``"p2p"`` for gloo on the CPU), and the output
+    again with every shift staged through host buffers (the route gloo
+    ranks take on the card), which must equal the sends of the tensors
+    themselves bit for bit."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.distributed import pipeline_parallel as pp
+    w, x = _pipe_inputs()
+    stacked = pp.stack_stage_params({"w": torch.from_numpy(w)},
+                                    pp.plan_stages_for_layers([1.0] * PIPE["layers"], world))
+    mesh = init_device_mesh("cpu", (world,), mesh_dim_names=("stage",))
+    ring_shift, route_of, taken = pp._ring_shift, pp.shift_route, []
+
+    def spied(y, nxt, prv, group, route, host):
+        taken.append(route)
+        return ring_shift(y, nxt, prv, group, route, host)
+
+    pp._ring_shift = spied
+    try:
+        p2p = pp.pipeline_forward(_block_fn, stacked, torch.from_numpy(x), mesh)
+        routes = list(taken)
+        taken.clear()
+        pp.shift_route = lambda backend, device: "host"
+        host = pp.pipeline_forward(_block_fn, stacked, torch.from_numpy(x), mesh)
+    finally:
+        pp._ring_shift, pp.shift_route = ring_shift, route_of
+    return {"routes": routes, "host_routes": taken, "equal": torch.equal(p2p, host),
+            "backend": dist.get_backend(mesh.get_group("stage"))}
+
+
 CHECKS_2 = {"ssd_plain": check_ssd_plain, "ssd_grad": check_ssd_grad,
-            "prefill": check_prefill, "pipeline": check_pipeline}
+            "prefill": check_prefill, "pipeline": check_pipeline,
+            "pipeline_routes": check_pipeline_routes}
 CHECKS_4 = {"ssd_plain": check_ssd_plain, "ssd_dtensor": check_ssd_dtensor,
-            "prefill": check_prefill, "pipeline": check_pipeline}
+            "prefill": check_prefill, "pipeline": check_pipeline,
+            "pipeline_routes": check_pipeline_routes}
 
 
 # --------------------------------------------------------------------------
@@ -326,6 +364,27 @@ def test_pipeline_forward_matches_the_references(ranks, pipe_reference):
         assert bounds == plan.boundaries
         np.testing.assert_array_equal(stacked, np.asarray(ref_stack({"w": jax.numpy.asarray(w)},
                                                                     plan)["w"]))
+
+
+def test_ring_shift_routes(ranks):
+    """gloo ranks on CPU tensors send the tensors themselves every tick;
+    the host-staged route (CUDA tensors under gloo) gives the same output
+    bit for bit."""
+    per_rank = result(ranks, "pipeline_routes")
+    ticks = PIPE["m"] + len(per_rank) - 1
+    for out in per_rank:
+        assert out["backend"] == "gloo"
+        assert out["routes"] == ["p2p"] * ticks
+        assert out["host_routes"] == ["host"] * ticks and out["equal"]
+
+
+@pytest.mark.parametrize("backend,device,want", [
+    ("gloo", "cpu", "p2p"), ("gloo", "cuda", "host"), ("gloo", "cuda:1", "host"),
+    ("nccl", "cuda", "p2p"), ("nccl", "cuda:0", "p2p")])
+def test_shift_route_follows_backend_and_device(backend, device, want):
+    """Host staging only where gloo meets a CUDA tensor."""
+    from repro_torch.distributed.pipeline_parallel import shift_route
+    assert shift_route(backend, torch.device(device)) == want
 
 
 def test_stack_stage_params_pads_with_zero_layers():
