@@ -1,0 +1,8 @@
+"""Percent: the yardstick's bound (work.py) of the traced passes through
+the KPU's layers over the profiled device time of the port's
+kpu_conv device functions."""
+from portbench import work
+
+
+def read(ctx):
+    return work.roofline_share(ctx, "kpu")
