@@ -55,6 +55,7 @@ from repro_torch.nn.quant import (
     fake_quant_link,
     quantize_link,
 )
+from repro_torch.obs.trace import host_span
 
 Impl = Callable[..., torch.Tensor]
 Params = Dict[str, Dict[str, torch.Tensor]]
@@ -405,22 +406,24 @@ def _build_table(
     """Assemble the dispatch table: kind-level plain versions, then
     plan-derived per-node kernels, then kind-level ``impls``, then
     node-keyed user ``overrides`` (which always win, and are validated
-    against the graph so a typoed node name fails loudly)."""
-    table = default_impls()
-    if plan is not None:
-        table.update(kernel_impls(plan=plan, executed=executed))
-    if impls:
-        table.update(impls)
-    if overrides:
-        unknown = [n for n in overrides if n not in graph]
-        if unknown:
-            raise GraphExecutionError(f"overrides for unknown nodes: {unknown}")
-        bad = [n for n in overrides if not _is_arith(graph.spec(n))]
-        if bad:
-            raise GraphExecutionError(
-                f"overrides for non-arithmetic (wiring) nodes: {bad}"
-            )
-        table.update(overrides)
+    against the graph so a typoed node name fails loudly).  Host span
+    ``executor.table``."""
+    with host_span("executor.table"):
+        table = default_impls()
+        if plan is not None:
+            table.update(kernel_impls(plan=plan, executed=executed))
+        if impls:
+            table.update(impls)
+        if overrides:
+            unknown = [n for n in overrides if n not in graph]
+            if unknown:
+                raise GraphExecutionError(f"overrides for unknown nodes: {unknown}")
+            bad = [n for n in overrides if not _is_arith(graph.spec(n))]
+            if bad:
+                raise GraphExecutionError(
+                    f"overrides for non-arithmetic (wiring) nodes: {bad}"
+                )
+            table.update(overrides)
     return table
 
 
@@ -521,46 +524,47 @@ def _run_nodes(
     the boundary carries the payload) or fake-quantized in place
     (monolithic path: the same values).  The transform applies before
     split-lane slicing: the producer encodes its whole stream once, with
-    one scale."""
+    one scale.  Host span ``executor.nodes``, around the whole loop."""
     executed = executed if executed is not None else {}
-    for name in names:
-        spec = graph.spec(name)
-        preds = graph.preds(name)
-        if preds:
-            missing = [p for p in preds if p not in values]
-            if missing:
-                raise GraphExecutionError(
-                    f"{name}: operands {missing} not materialized — "
-                    f"producer scheduled in a later stage?"
-                )
-            operands = []
-            for pr in preds:
-                v = values[pr]
-                if link_quant:
-                    dt = link_quant.get((pr, name))
-                    if dt is not None:
-                        v = _link_decode(v, dt, dtype)
-                if graph.spec(pr).kind == "split":
-                    # Replication lane: consume the dealt subsequence of
-                    # the split stream (this lane's slot in deal order).
-                    lanes = graph.succs(pr)
-                    v = v[lanes.index(name):: len(lanes)]
-                operands.append(v)
-        else:
-            if x_input is None:
-                raise GraphExecutionError(
-                    f"{name}: source node executed outside the input stage"
-                )
-            operands = [x_input]
-        p = params.get(name)
-        if _is_arith(spec) and p is None:
-            raise GraphExecutionError(f"{name}: missing parameters")
-        y = _node_forward(spec, operands, p, table)
-        if check:
-            _check_node(spec, p, y)
-        if plan is not None and not (name in overridden and executed.get(name) is None):
-            _check_planned_tile(spec, plan.get(name), executed.get(name))
-        values[name] = y
+    with host_span("executor.nodes"):
+        for name in names:
+            spec = graph.spec(name)
+            preds = graph.preds(name)
+            if preds:
+                missing = [p for p in preds if p not in values]
+                if missing:
+                    raise GraphExecutionError(
+                        f"{name}: operands {missing} not materialized — "
+                        f"producer scheduled in a later stage?"
+                    )
+                operands = []
+                for pr in preds:
+                    v = values[pr]
+                    if link_quant:
+                        dt = link_quant.get((pr, name))
+                        if dt is not None:
+                            v = _link_decode(v, dt, dtype)
+                    if graph.spec(pr).kind == "split":
+                        # Replication lane: consume the dealt subsequence of
+                        # the split stream (this lane's slot in deal order).
+                        lanes = graph.succs(pr)
+                        v = v[lanes.index(name):: len(lanes)]
+                    operands.append(v)
+            else:
+                if x_input is None:
+                    raise GraphExecutionError(
+                        f"{name}: source node executed outside the input stage"
+                    )
+                operands = [x_input]
+            p = params.get(name)
+            if _is_arith(spec) and p is None:
+                raise GraphExecutionError(f"{name}: missing parameters")
+            y = _node_forward(spec, operands, p, table)
+            if check:
+                _check_node(spec, p, y)
+            if plan is not None and not (name in overridden and executed.get(name) is None):
+                _check_planned_tile(spec, plan.get(name), executed.get(name))
+            values[name] = y
 
 
 def apply_graph(

@@ -44,6 +44,7 @@ import torch
 from repro_torch.core.graph import plan_graph
 from repro_torch.models import encdec, hybrid, lm, mamba, mobilenet, resnet, vlm
 from repro_torch.nn.quant import is_quantized
+from repro_torch.obs.trace import host_span
 
 
 def resolve_device(device=None) -> torch.device:
@@ -241,8 +242,9 @@ def _cnn_api(family: str, make_config: Callable, mod, device) -> CNNApi:
         return torch.as_tensor(x).to(device)
 
     def apply(params, x, cfg, **kwargs):
-        kwargs.setdefault("graph", graph(cfg))
-        return mod.apply(params, on_device(x), cfg, **kwargs)
+        with host_span("step.apply", frames=len(x)):
+            kwargs.setdefault("graph", graph(cfg))
+            return mod.apply(params, on_device(x), cfg, **kwargs)
 
     def apply_staged(params, x, cfg, **kwargs):
         kwargs.setdefault("graph", graph(cfg))

@@ -4,8 +4,8 @@ of the JAX package's ``obs/`` (it imports nothing of it).
 Three layers, all opt-in and zero-overhead when off:
 
 * ``obs.trace`` — per-frame lifecycle spans on the exact rational clock
-  (plus host wall-clock spans), Chrome trace-event JSON export, and a
-  plain-Python query API;
+  (plus host wall-clock spans, ``host_span``), Chrome trace-event JSON
+  export, and a plain-Python query API;
 * ``obs.metrics`` — counters / gauges / histograms snapshotable at any
   tick and folded into ``ServeSummary``;
 * ``obs.audit`` — the continuous drift auditor: replays a trace
@@ -37,6 +37,7 @@ from repro_torch.obs.trace import (
     TraceError,
     TraceEvent,
     Tracer,
+    host_span,
     iter_spans,
     resolve_tracer,
 )
@@ -58,6 +59,7 @@ __all__ = [
     "WindowVerdict",
     "audit",
     "audit_fleet",
+    "host_span",
     "iter_spans",
     "metric_key",
     "resolve_tracer",

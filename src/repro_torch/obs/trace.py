@@ -25,6 +25,15 @@ Two clock domains share one trace:
   its execution on the card).  Tick-model and measured timelines land
   in one file, directly comparable.
 
+``host_span`` is the one emission point for the port's host spans
+(``step.apply``, ``executor.*``, ``stream.*``, ``exec``): inside a
+recording ``torch.profiler`` it enters a ``record_function`` range, so
+the span lands among the profiler's events on the clock of the card's
+operations; given a ``Tracer`` it also records a ``clock="host"`` B/E
+pair with its args.  With neither it returns a shared null context: one
+branch, and no ``record_function``, which costs microseconds even with
+no profiler running.
+
 Events follow the Chrome trace-event phases: ``B``/``E`` span begin/end,
 ``i`` instant, ``C`` counter.  ``to_chrome()`` exports the
 Perfetto-viewable JSON object format (one ``pid`` per engine / tenant /
@@ -40,10 +49,14 @@ property the tests pin).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import time
 from fractions import Fraction
 from typing import Dict, Iterable, List, Optional, Tuple
+
+from torch.autograd import profiler as _profiler
 
 
 class TraceError(ValueError):
@@ -449,6 +462,58 @@ def resolve_tracer(trace) -> Optional[Tracer]:
     raise TraceError(
         f"trace={trace!r} — expected None/False, True, or an obs.Tracer"
     )
+
+
+_OFF = contextlib.nullcontext()
+
+
+class _HostSpan:
+    """The context ``host_span`` returns while a profiler records or a
+    tracer is given."""
+
+    __slots__ = ("name", "tracer", "pid", "tid", "args", "_range", "_t0")
+
+    def __init__(self, name, tracer, pid, tid, args) -> None:
+        self.name, self.tracer, self.pid, self.tid = name, tracer, pid, tid
+        self.args = args
+        self._range = None
+
+    def __enter__(self):
+        if _profiler._is_profiler_enabled:
+            text = ", ".join(f"{k}={v}" for k, v in self.args.items())
+            self._range = _profiler.record_function(self.name, text or None)
+            self._range.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        t1 = time.perf_counter()
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        if self.tracer is not None:
+            self.tracer.span(
+                self.name,
+                Fraction(self._t0),
+                Fraction(t1),
+                pid=self.pid,
+                tid=self.tid,
+                clock="host",
+                **self.args,
+            )
+        return False
+
+
+def host_span(
+    name: str, tracer: Optional[Tracer] = None, *, pid: str = "0",
+    tid: str = "0", **args,
+):
+    """A host span around a ``with`` block (see the module docstring):
+    a ``record_function(name)`` range while ``torch.profiler`` records,
+    a ``clock="host"`` span with ``args`` in ``tracer`` when one is
+    given, nothing otherwise."""
+    if tracer is None and not _profiler._is_profiler_enabled:
+        return _OFF
+    return _HostSpan(name, tracer, str(pid), str(tid), args)
 
 
 def iter_spans(spans: Iterable[Span], **arg_filters) -> List[Span]:

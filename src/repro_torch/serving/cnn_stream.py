@@ -120,8 +120,8 @@ On the card:
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-import time
 from collections import deque
 from fractions import Fraction
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -132,7 +132,7 @@ from repro_torch.core.replicate import lane_multiplicity, replicate_params
 from repro_torch.core.stage_partition import LINK_DTYPE_BITS
 from repro_torch.models import cnn
 from repro_torch.obs.metrics import MetricsRegistry
-from repro_torch.obs.trace import resolve_tracer
+from repro_torch.obs.trace import host_span, resolve_tracer
 from repro_torch.serving.config import ServeConfig
 from repro_torch.serving.overload import ShedPolicy, SwitchPolicy
 from repro_torch.serving.scenarios import ArrivalProcess
@@ -709,9 +709,12 @@ class CNNStreamEngine:
         self._active = 0
         self._requests: List[FrameRequest] = []
         # observability (docs/observability.md): None when off — every
-        # emission below is guarded on it, so an untraced run touches
-        # no obs code at all (event-identical to pre-obs engines)
+        # tick-domain emission below is guarded on it, so an untraced
+        # run is event-identical to pre-obs engines; the host spans
+        # (obs.trace.host_span) go into it in an executed run only, so a
+        # timing-only trace stays the tick model alone
         self._tracer = resolve_tracer(config.trace)
+        self._host_tracer = self._tracer if config.execute else None
         self._trace_pid = config.trace_pid
         self._trace_chips = dict(config.trace_chips or {})
         self.metrics: Optional[MetricsRegistry] = None
@@ -837,41 +840,31 @@ class CNNStreamEngine:
     def _start_batch_exec(self, s: int, batch: _Batch) -> None:
         if not self.execute:
             return
-        t0 = time.perf_counter() if self._tracer is not None else None
-        rung = self._rungs[batch.rung]
-        if s == 0:
-            # the batch's rows gathered on the device, zero-padded there
-            # to the pinned batch (the reference's np.zeros_like pad)
-            xs = [f.x for f in batch.frames]
-            pad = self.microbatch - len(xs)
-            if pad:
-                xs = xs + [torch.zeros_like(xs[0])] * pad
-            x = torch.stack(xs).to(self.dtype)
-            batch.boundary = {}
-            rung.pipeline.run_stage(0, rung.params, batch.boundary, x)
-        else:
-            rung.pipeline.run_stage(s, rung.params, batch.boundary)
-        # an int8 crossing is one {"__q__", "__s__"} value under its
-        # producer's name, so pruning by name keeps each scale with its
-        # payload
-        keep = rung._keep_after[s]
-        for k in list(batch.boundary):
-            if k not in keep:
-                del batch.boundary[k]
-        if t0 is not None:
-            # host wall-clock around the stage's dispatch: on the card
-            # the kernels are queued, not run, within it, so this times
-            # the host's side of the stage, not its execution
-            self._tracer.span(
-                "exec",
-                Fraction(t0),
-                Fraction(time.perf_counter()),
-                pid=self._trace_pid,
-                tid=f"stage{s}",
-                clock="host",
-                bid=batch.bid,
-                frames=len(batch.frames),
-            )
+        # host span "exec" around the stage's dispatch: on the card the
+        # kernels are queued, not run, within it, so it times the host's
+        # side of the stage, not its execution
+        with host_span("exec", self._host_tracer, pid=self._trace_pid,
+                       tid=f"stage{s}", bid=batch.bid, frames=len(batch.frames)):
+            rung = self._rungs[batch.rung]
+            if s == 0:
+                # the batch's rows gathered on the device, zero-padded there
+                # to the pinned batch (the reference's np.zeros_like pad)
+                xs = [f.x for f in batch.frames]
+                pad = self.microbatch - len(xs)
+                if pad:
+                    xs = xs + [torch.zeros_like(xs[0])] * pad
+                x = torch.stack(xs).to(self.dtype)
+                batch.boundary = {}
+                rung.pipeline.run_stage(0, rung.params, batch.boundary, x)
+            else:
+                rung.pipeline.run_stage(s, rung.params, batch.boundary)
+            # an int8 crossing is one {"__q__", "__s__"} value under its
+            # producer's name, so pruning by name keeps each scale with its
+            # payload
+            keep = rung._keep_after[s]
+            for k in list(batch.boundary):
+                if k not in keep:
+                    del batch.boundary[k]
 
     def _finish_batch(self, batch: _Batch, t: Fraction) -> None:
         out = None
@@ -1373,28 +1366,30 @@ class CNNStreamEngine:
         loop on an exact rational clock; it ends when the pipeline
         drains (every frame served or shed).
         """
-        rt = self.begin(
-            arrival_rate=arrival_rate,
-            max_ticks=max_ticks,
-            flush_after_ticks=flush_after_ticks,
-        )
-        while True:
-            self.advance(rt.t)
-            if self.finished:
-                break
-            nxt = self.next_event(rt.t)
-            if nxt is None:
-                raise ServingError(
-                    f"serving deadlock at tick {float(rt.t / self.slot):.1f} "
-                    f"({rt.completed}/{rt.n} frames served)"
-                )
-            if nxt > rt.horizon:
-                raise ServingError(
-                    f"exceeded max_ticks={rt.max_ticks} with {rt.completed}/"
-                    f"{rt.n} frames served"
-                )
-            rt.t = nxt
-        return self.finish()
+        with host_span("stream.loop", self._host_tracer, pid=self._trace_pid,
+                       tid="host"):
+            rt = self.begin(
+                arrival_rate=arrival_rate,
+                max_ticks=max_ticks,
+                flush_after_ticks=flush_after_ticks,
+            )
+            while True:
+                self.advance(rt.t)
+                if self.finished:
+                    break
+                nxt = self.next_event(rt.t)
+                if nxt is None:
+                    raise ServingError(
+                        f"serving deadlock at tick {float(rt.t / self.slot):.1f} "
+                        f"({rt.completed}/{rt.n} frames served)"
+                    )
+                if nxt > rt.horizon:
+                    raise ServingError(
+                        f"exceeded max_ticks={rt.max_ticks} with {rt.completed}/"
+                        f"{rt.n} frames served"
+                    )
+                rt.t = nxt
+            return self.finish()
 
     # -- report assembly ---------------------------------------------------
 
@@ -1491,15 +1486,17 @@ class CNNStreamEngine:
         ]
         if missing:
             raise ServingError(f"frames not served yet: {missing[:5]}")
-        ordered = sorted(
-            (r for r in self._requests if r.out is not None),
-            key=lambda r: r.rid,
-        )
-        if not ordered:
-            raise ServingError("every frame was shed — no outputs")
-        for rung in self._rungs:
-            rung.pipeline.join()
-        return torch.stack([r.out for r in ordered])
+        with host_span("stream.outputs", self._host_tracer, pid=self._trace_pid,
+                       tid="host"):
+            ordered = sorted(
+                (r for r in self._requests if r.out is not None),
+                key=lambda r: r.rid,
+            )
+            if not ordered:
+                raise ServingError("every frame was shed — no outputs")
+            for rung in self._rungs:
+                rung.pipeline.join()
+            return torch.stack([r.out for r in ordered])
 
 
 # ==========================================================================
@@ -1547,6 +1544,14 @@ def serve_frames(
     ``plan_cache`` memoizes the DSE result per (graph, rate, stages,
     kwargs), the graph by identity (``CNNApi.serve`` passes its
     registry's ``plans`` dict, whose graphs it memoizes per config).
+
+    Host spans (``obs.trace.host_span``): ``stream.serve`` around the
+    call, ``stream.setup`` around the run's set-up split into
+    ``stream.plan`` (the cache lookup or the DSE, replication, the kernel
+    plan), ``stream.build`` (the engine) and ``stream.submit``; inside
+    the engine ``stream.loop``, ``exec`` and ``stream.outputs``.  An
+    executed run with ``config.trace`` records them in its tracer too,
+    under ``trace_pid``, on track ``host``.
     """
     from repro_torch.core.graph import plan_graph
 
@@ -1565,29 +1570,44 @@ def serve_frames(
     if overrides:
         cfg = cfg.with_(**overrides)
 
-    plan = key = None
-    if plan_cache is not None:
-        try:
-            key = (graph, Fraction(input_rate), n_stages,
-                   tuple(sorted(dse_kwargs.items())))
-            plan = plan_cache.get(key)
-        except TypeError:  # unhashable rate / kwargs: plan fresh
-            key = None
-    if plan is None:
-        plan = plan_graph(graph, input_rate, n_stages=n_stages, **dse_kwargs)
-        if key is not None:
-            plan_cache[key] = plan
-    if plan.replications:
-        graph = plan.graph
-        params = replicate_params(params, plan.replications)
-    if rate_matched:
-        cfg = cfg.with_(kernel_plan=plan.kernel_plan(batch=cfg.microbatch))
-    engine = CNNStreamEngine(graph, params, plan, cfg, device=device)
-    if cfg.execute:
-        engine.submit_all(frames)
-    else:
-        for _ in range(int(frames) if isinstance(frames, int) else len(frames)):
-            engine.submit(None)
-    report = engine.run()
-    outputs = engine.outputs() if cfg.execute else None
+    tracer = resolve_tracer(cfg.trace)
+    if cfg.trace is True:  # the engine records into the same tracer
+        cfg = cfg.with_(trace=tracer)
+    span = functools.partial(
+        host_span, tracer=tracer if cfg.execute else None, pid=cfg.trace_pid,
+        tid="host")
+    n_frames = int(frames) if isinstance(frames, int) else len(frames)
+
+    with span("stream.serve", frames=n_frames):
+        with span("stream.setup"):
+            with span("stream.plan"):
+                plan = key = None
+                if plan_cache is not None:
+                    try:
+                        key = (graph, Fraction(input_rate), n_stages,
+                               tuple(sorted(dse_kwargs.items())))
+                        plan = plan_cache.get(key)
+                    except TypeError:  # unhashable rate / kwargs: plan fresh
+                        key = None
+                if plan is None:
+                    plan = plan_graph(graph, input_rate, n_stages=n_stages,
+                                      **dse_kwargs)
+                    if key is not None:
+                        plan_cache[key] = plan
+                if plan.replications:
+                    graph = plan.graph
+                    params = replicate_params(params, plan.replications)
+                if rate_matched:
+                    cfg = cfg.with_(
+                        kernel_plan=plan.kernel_plan(batch=cfg.microbatch))
+            with span("stream.build"):
+                engine = CNNStreamEngine(graph, params, plan, cfg, device=device)
+            with span("stream.submit"):
+                if cfg.execute:
+                    engine.submit_all(frames)
+                else:
+                    for _ in range(n_frames):
+                        engine.submit(None)
+        report = engine.run()
+        outputs = engine.outputs() if cfg.execute else None
     return outputs, report

@@ -28,9 +28,7 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Tuple
 
-# measured occupancy may drift from the analytic bound by scheduling
-# quantization (micro-batch granularity) — beyond this it's a bug
-OCC_TOLERANCE = 0.05
+from repro_torch.obs.audit import OCC_TOLERANCE
 
 
 @dataclasses.dataclass(frozen=True)
