@@ -31,11 +31,16 @@ printing JSON lines:
    call's (``torch.matmul`` / ``F.conv2d`` with TF32 off, in the row's
    dtype, and ``F.scaled_dot_product_attention``; none for the SSD) and
    the roofline bound (``BOUND``); FCU and KPU rows name the cluster split
-   the kernel's plan takes; and the FCU wrapper's host µs a call beside
-   ``torch.matmul``'s;
+   the kernel's plan takes, KPU rows also the plan's pixel and column
+   tiles a block runs (``group``), which follow the batch: so every
+   ResNet-18 conv is also checked, untimed, at batch 64 in the plans at
+   rates 3 and 3/32 (rows ``.../r3/b64``, ``.../r3_32/b64``); and the FCU
+   wrapper's host µs a call beside ``torch.matmul``'s;
 4. slice — MobileNetV2, then ResNet-18, at 224x224: 4 requests of 8
    frames through ``api.apply(params, x, cfg, plan=kp)``, launch counts
-   set to 0 just before and read just after, executed tile == plan on
+   set to 0 just before and read just after (the KPU's grouped launches
+   too, held against ``kpu_conv.block_group``; the kernels line's
+   ``grouped_launches_in_slices``), executed tile == plan on
    every arithmetic node, logits held against the plain path on the card;
    one more forward pass under ``torch.profiler`` gives the device time
    by kernel and the device's busy share of the batch latency, and shows
@@ -504,13 +509,13 @@ class KernelBench:
 
 
 def bench_nodes(torch, bench, family, plan, graph, gen, dtype=None, only=None,
-                suffix="", timed=True):
-    """Every arithmetic node of ``family``'s main path, at its shapes; on
-    bf16 operands with ``dtype=torch.bfloat16`` (rows marked ``route``
-    "bf16", labelled ``.../bf16``, at the JAX tests' bf16 tolerances, the
-    bound at 2-byte elements and the FCU's and KPU's products at 989
-    TFLOP/s).  ``only`` limits the rows to those nodes, labelled with
-    ``suffix``; ``timed=False`` checks them without timing."""
+                suffix="", timed=True, batch=BATCH):
+    """Every arithmetic node of ``family``'s main path, at its shapes and
+    ``batch`` frames; on bf16 operands with ``dtype=torch.bfloat16`` (rows
+    marked ``route`` "bf16", labelled ``.../bf16``, at the JAX tests' bf16
+    tolerances, the bound at 2-byte elements and the FCU's and KPU's
+    products at 989 TFLOP/s).  ``only`` limits the rows to those nodes,
+    labelled with ``suffix``; ``timed=False`` checks them without timing."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import _build, dw_conv, fcu_matmul, kpu_conv
@@ -527,9 +532,9 @@ def bench_nodes(torch, bench, family, plan, graph, gen, dtype=None, only=None,
         label = f"{family}/{name}" + ("/bf16" if bf16 else "") + suffix
         tol = KERNEL_BF16_TOL[kernel] if bf16 else TOL
         info = {"route": "bf16"} if bf16 else {}
-        x = torch.randn((BATCH, *s.in_hw, s.d_in), generator=gen).to("cuda", dtype)
-        macs = s.total_macs * BATCH
-        out_elems = BATCH * s.out_hw[0] * s.out_hw[1] * s.d_out
+        x = torch.randn((batch, *s.in_hw, s.d_in), generator=gen).to("cuda", dtype)
+        macs = s.total_macs * batch
+        out_elems = batch * s.out_hw[0] * s.out_hw[1] * s.d_out
         if s.kind in ("pointwise", "dense"):
             x2 = x.reshape(-1, s.d_in)
             w = (torch.randn((s.d_in, s.d_out), generator=gen) / s.d_in ** 0.5).to(
@@ -557,6 +562,8 @@ def bench_nodes(torch, bench, family, plan, graph, gen, dtype=None, only=None,
             w_oihw = w.permute(3, 2, 0, 1)
             split = kpu_conv.cluster_split(x.shape, w.shape, stride=stride, bm=t.bm,
                                            bci=t.bk, bco=t.bn, dtype=dtype)
+            group = kpu_conv.block_group(x.shape, w.shape, stride=stride, bm=t.bm,
+                                         bci=t.bk, bco=t.bn, dtype=dtype)
             bench.case(
                 kernel, label,
                 lambda: kpu_conv.kpu_conv(x, w, stride=stride, bm=t.bm,
@@ -564,7 +571,8 @@ def bench_nodes(torch, bench, family, plan, graph, gen, dtype=None, only=None,
                 lambda: kpu_conv.kpu_conv_plain(x, w, stride),
                 lambda: F.conv2d(xp, w_oihw, stride=stride).permute(0, 2, 3, 1),
                 2 * macs, elem * (x.numel() + w.numel() + out_elems),
-                tol=tol, peak=mma_peak, info={**info, "split": split}, timed=timed,
+                tol=tol, peak=mma_peak,
+                info={**info, "split": split, "group": list(group)}, timed=timed,
             )
         else:
             w = (torch.randn((kh, kw, s.d_in), generator=gen) / (kh * kw) ** 0.5).to(
@@ -758,6 +766,7 @@ def device_ms_by_kernel(torch, fn, classes=DEVICE_FN):
 def reset_counts(kernels_mod) -> None:
     for name in KERNELS:
         getattr(kernels_mod[name], name).launches = 0
+    kernels_mod["kpu_conv"].kpu_conv.grouped_launches = 0
 
 
 def read_counts(kernels_mod) -> dict:
@@ -769,7 +778,10 @@ def run_slice(torch, family, kernels_mod, gen, bench, dtype=None):
     the rate-matched forward pass on the card; with ``dtype=torch.bfloat16``
     the same forward in bf16 (weights, frames and logits; phase
     ``slice_bf16``, logits at BF16_TOL of their scale, off the main path:
-    its launches stay out of the kernels line)."""
+    its launches stay out of the kernels line).  Returns the launches of
+    its counted runs, per kernel, and the KPU's grouped launches among
+    them (``kpu_conv.grouped_launches``)."""
+    from repro_torch.kernels import kpu_conv
     from repro_torch.kernels.fcu_matmul import _pick_bm
     from repro_torch.models.registry import get_cnn_api
 
@@ -796,12 +808,24 @@ def run_slice(torch, family, kernels_mod, gen, bench, dtype=None):
         logits.append(y)
         executed.append(ex)
     counts = read_counts(kernels_mod)
+    grouped = kpu_conv.kpu_conv.grouped_launches
 
     arith = [n for n, ip in kp.items() if ip.has_kernel]
     want = {k: 0 for k in KERNELS}
     for n in arith:
         want[KIND_KERNEL[kp[n].kind]] += REQUESTS
     require(counts == want, f"{family}: launches {counts} != nodes x requests {want}")
+    # the counter against the kernel's plan, as block_group reads it
+    groups = {}
+    for n in arith:
+        spec, t = graph.spec(n), kp[n].tile
+        if spec.kind == "conv":
+            groups[n] = kpu_conv.block_group(
+                (BATCH, *spec.in_hw, spec.d_in), (*spec.kernel, spec.d_in, spec.d_out),
+                stride=spec.stride[0], bm=t.bm, bci=t.bk, bco=t.bn, dtype=cfg.dtype)
+    want_grouped = REQUESTS * sum(r * c > 1 for r, c in groups.values())
+    require(grouped == want_grouped,
+            f"{family}: grouped KPU launches {grouped} != {want_grouped} from block_group")
     for ex in executed:
         require(sorted(ex) == sorted(arith), f"{family}: executed tiles miss nodes")
         for n in arith:
@@ -854,9 +878,11 @@ def run_slice(torch, family, kernels_mod, gen, bench, dtype=None):
         "device_busy_share": busy_ms / latency if device_ms else None,
         "kernel_ms_isolated": isolated,
         "logits_max_rel_err": max(errs), "tolerance": tol,
+        "kpu_grouped_launches": grouped,
+        "kpu_groups": {n: list(g) for n, g in groups.items()},
     }
     emit(row)
-    return counts
+    return counts, grouped
 
 
 def repinned_nodes(plan, pinned, graph) -> set:
@@ -3717,14 +3743,18 @@ def summarise(name, rows) -> dict:
     }
 
 
-def kernels_line(bench, launches) -> list:
+def kernels_line(bench, launches, kpu_grouped) -> list:
     """The ``kernels`` line: each kernel's main route (f32 rows; flash in
-    bf16) with the main path's launches, and its bf16 route beside it."""
+    bf16) with the main path's launches, and its bf16 route beside it;
+    the KPU's also the slices' launches whose blocks ran more than one
+    plan tile (``kpu_grouped``)."""
     out = []
     for name, (source, replaces) in KERNELS.items():
         rows = [r for r in bench.rows if r["kernel"] == name and "route" not in r]
         row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                "launches": launches[name], **summarise(name, rows)}
+        if name == "kpu_conv":
+            row["grouped_launches_in_slices"] = kpu_grouped
         if name in TF32_KERNELS:
             row["bound_ms_fp32"] = sum(r["bound_ms_fp32"] for r in rows if "ms" in r)
         if name in NO_LIBRARY:
@@ -3825,14 +3855,25 @@ def main() -> int:
             bench_nodes(torch, bench, family, pinned, api.graph(cfg), gen, dtype,
                         only=repinned_nodes(kp, pinned, api.graph(cfg)),
                         suffix="/pinned", timed=False)
+    # the KPU's groups and splits follow the batch: every ResNet-18 conv at
+    # the benchmark's batch of 64, in its plans at rates 3 and 3/32
+    api = get_cnn_api("resnet18")
+    cfg = api.make_config()
+    graph = api.graph(cfg)
+    for rate in (RATE, Fraction(3, 32)):
+        kp = api.plan(cfg, rate)
+        convs = {n for n, ip in kp.items() if ip.has_kernel and graph.spec(n).kind == "conv"}
+        bench_nodes(torch, bench, "resnet18", kp, graph, gen, only=convs,
+                    suffix=f"/r{str(rate).replace('/', '_')}/b64", timed=False, batch=64)
     bench_extras(torch, bench, gen)
     wrapper_host_us(torch)
     bench_flash(torch, bench, gen)
     bench_ssd(torch, bench, torch.Generator().manual_seed(2027))
 
-    launches = {k: 0 for k in KERNELS}
+    launches, kpu_grouped = {k: 0 for k in KERNELS}, 0
     for family in ("mobilenet_v2", "resnet18"):
-        counts = run_slice(torch, family, kernels_mod, gen, bench)
+        counts, grouped = run_slice(torch, family, kernels_mod, gen, bench)
+        kpu_grouped += grouped
         for k, v in counts.items():
             launches[k] += v
     for family in ("mobilenet_v2", "resnet18"):
@@ -3873,7 +3914,7 @@ def main() -> int:
     for cfg, cell in dryrun_ground_cells():
         run_dryrun_ground(torch, kernels_mod, cfg, cell)
 
-    out = kernels_line(bench, launches)
+    out = kernels_line(bench, launches, kpu_grouped)
     for row in out:
         if row["name"] == "ssd_chunk":
             row["mesh_launches_per_rank"] = mesh_launches

@@ -36,19 +36,23 @@ FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 LIB_NAME = "librepro_torch_kernels.so"
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)
 # C entry points (csrc/*.cu): pointers and the stream as c_void_p, ints as
-# c_int, floats as c_float; each returns the cudaError_t of its launch.
+# c_int, floats as c_float, int out-parameters as int*; each returns the
+# cudaError_t of its launch.
 SIGNATURES = {
     # x, w, y, m, d_in, d_out, bm, bk, bn, split (0: the rule), stream
     "fcu_matmul_f32": [_P, _P, _P] + [_I] * 7 + [_P],
     "fcu_matmul_bf16": [_P, _P, _P] + [_I] * 7 + [_P],
     # x, w, y, n, h, w, d_in, ho, wo, d_out, kh, kw, stride, pad_t, pad_l,
-    # bm, bci, bco, split (0: the rule), stream
-    "kpu_conv_f32": [_P, _P, _P] + [_I] * 16 + [_P],
-    "kpu_conv_bf16": [_P, _P, _P] + [_I] * 16 + [_P],
-    # n, h, w, d_in, ho, wo, d_out, kh, kw, bm, bk, bn, element bytes ->
-    # the rule's split
-    "mma_split": [_I] * 13,
+    # bm, bci, bco, split (0: the rule), the plan's pixel and column tiles
+    # a block (0: the rule), int[2] <- the two the launch took, stream
+    "kpu_conv_f32": [_P, _P, _P] + [_I] * 18 + [_IP, _P],
+    "kpu_conv_bf16": [_P, _P, _P] + [_I] * 18 + [_IP, _P],
+    # n, h, w, d_in, ho, wo, d_out, kh, kw, bm, bk, bn, element bytes, KPU
+    # (1) or FCU (0), int[3] <- the rule's split, pixel and column tiles a
+    # block -> 1, or 0 for a tile the kernels do not take
+    "mma_plan": [_I] * 14 + [_IP],
     # x, w, y, n, h, w, c, ho, wo, kh, kw, stride, pad_t, pad_l, rows, bc,
     # stream
     "dw_conv_f32": [_P, _P, _P] + [_I] * 13 + [_P],
@@ -141,6 +145,21 @@ def library() -> ctypes.CDLL:
     lib.rt_error_string.argtypes = [ctypes.c_int]
     lib.rt_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def mma_plan(n: int, h: int, wd: int, d_in: int, ho: int, wo: int, d_out: int,
+             kh: int, kw: int, bm: int, bk: int, bn: int, elem: int, kpu: bool
+             ) -> tuple[int, int, int]:
+    """The FCU / KPU kernels' own host plan (``tile_mma.cuh::plan_tile``)
+    of the (bm, bk, bn) tile of a call on the current card for
+    ``elem``-byte elements: (blocks a tile along a cluster, the plan's
+    pixel tiles a block, its column tiles a block); (0, 0, 0) for a tile
+    the kernels do not take."""
+    plan = (ctypes.c_int * 3)()
+    if not library().mma_plan(n, h, wd, d_in, ho, wo, d_out, kh, kw, bm, bk, bn, elem,
+                              int(kpu), plan):
+        return 0, 0, 0
+    return plan[0], plan[1], plan[2]
 
 
 def raw_stream(device: torch.device) -> int:

@@ -62,7 +62,8 @@ int fcu_launch(const T* x, const T* w, T* y, int m, int d_in, int d_out, int bm,
   FcuLaunch<T> f{x, w, y, s, {}, stream};
   const bool x_ok = (reinterpret_cast<uintptr_t>(x) & 15) == 0;
   const bool w_ok = (reinterpret_cast<uintptr_t>(w) & 15) == 0;
-  if (m < 1 || !rt::plan_tile(s, bm, bk, bn, split, x_ok, w_ok, sizeof(T), &f.l))
+  if (m < 1 ||
+      !rt::plan_tile(s, bm, bk, bn, split, {false, 0, 0}, x_ok, w_ok, sizeof(T), &f.l))
     return static_cast<int>(cudaErrorInvalidValue);
   return rt::dispatch(f.l, f);
 }

@@ -8,16 +8,27 @@
 // stride 1 and no padding (one frame of m pixels), so both run `mma_tile`
 // and differ only in the shape they pass.
 //
-// One block owns the plan's (bm x bn) output tile (or, where bm < 64, up
-// to 64 / bm of them, which share one 64-row wgmma atom) and walks its
-// share of the contraction in the plan's bk steps: (input-channel step,
-// tap) pairs.  Where the rows of x allow only 4-byte copies and one step
-// holds all d_in channels (conv1's 3), a row of kw taps is one step: its
-// (dx, ci) pairs lie contiguous in x's row and in w.  A ring slot holds a
-// `ks`-channel slab of one step (ks divides the step rounded up to 8
-// channels): the [rows][ks] window of x (rows padded so the consumers'
-// 8-byte reads hit distinct banks) and the [ks][bn] slice of w, both f32
-// as they lie in memory.
+// One block owns a group of the plan's (bm x bn) output tiles, `rows`
+// adjacent pixel tiles by `cols` adjacent column tiles, as one tile of
+// rows bm pixels and cols bn channels (`plan_tile`, `MmaGroup`).  The
+// FCU's group, and the KPU's on bf16, packs up to 64 / bm pixel tiles into
+// one 64-row wgmma atom where bm < 64, and one column tile.  The KPU's on
+// f32 packs up to 128 / bm pixel tiles where bm <= 64 (two atoms: two
+// consumer warpgroups share each slot) and the widest run of column tiles
+// that the accumulators allow, up to a wgmma width of 256 (each only where
+// the cluster split it gets leaves a block 3 steps or more), so that one
+// gathered window of x
+// feeds all of them.  A group adds columns and rows to the products and
+// changes no column's steps or their order, so at one cluster split (see
+// below: the split follows the block count) it changes no output bit.
+// The block walks its share of the contraction in the plan's bk steps:
+// (input-channel step, tap) pairs.  Where the rows of x allow only 4-byte
+// copies and one step holds all d_in channels (conv1's 3), a row of kw
+// taps is one step: its (dx, ci) pairs lie contiguous in x's row and in
+// w.  A ring slot holds a `ks`-channel slab of one step (ks divides the
+// step rounded up to 8 channels): the [rows][ks] window of x (rows padded
+// so the consumers' 8-byte reads hit distinct banks) and the [ks][bn]
+// slice of w, both f32 as they lie in memory.
 //
 // Warp roles.  Warps 0 .. 4 NC - 1 are NC consumer warpgroups, each
 // owning MA 64-row wgmma atoms of the tile (ragged rows read as zero and
@@ -25,10 +36,12 @@
 // fills the ring with cp.async, 16 bytes a copy where the rows allow it
 // and 4 bytes otherwise, zero-filling (src-size 0) rows past the tile,
 // taps in the SAME padding, channels past the step and columns past bn,
-// from a per-row table of window origins made once per block; each of its
-// threads arrives on the slot's `full` mbarrier as its copies land.  The
-// consumers wait on `full`, split the slot's w into hi = rna_tf32(v) and
-// lo = rna_tf32(v - hi) in the K-major [bn][8] layout wgmma takes for a
+// from a per-row table of window origins made once per block (four rows'
+// origins read before their copies, so that the reads overlap); each of
+// its threads arrives on the slot's `full` mbarrier as its copies land.
+// The consumers wait on `full`, split the slot's w into hi = rna_tf32(v)
+// and lo = rna_tf32(v - hi), a (k8 step, column) at a time in 16-byte
+// stores, in the K-major [bn][8] layout wgmma takes for a
 // tf32 B operand (tf32 has no transposed mode; k permuted to match the
 // reads of x), into one of two buffers by the item's parity, and meet at
 // a named barrier.  Each then reads its x values with one 8-byte shared
@@ -36,7 +49,8 @@
 // three wgmma m64nBNk8 tf32 products per k8 step into one f32 accumulator,
 // the two lo terms first, then hi x hi; the next steps' loads overlap
 // these steps' products.  The slot goes back to the producer through its
-// `empty` mbarrier once the products have read it.  Beside two consumer
+// `empty` mbarrier once its last x values are in registers (the products
+// read w from the consumers' own buffers).  Beside two consumer
 // warpgroups, setmaxnreg moves the producer's spare registers to them, so
 // that two blocks fit an SM.
 //
@@ -85,9 +99,9 @@ struct MmaShape {
 
 // The block's plan, made on the host by `plan_tile`.
 struct MmaTile {
-  int bm;           // the block's pixel rows: the plan's bm, or 64 / bm
-                    // of its tiles where bm < 64
-  int bk, bn;       // the plan's tile
+  int bm;           // the block's pixel rows: its pixel tiles x the plan's bm
+  int bk;           // the plan's contraction tile
+  int bn;           // the block's channels: its column tiles x the plan's bn
   int fold;         // a row of kw taps is one step (rows of x allow no
                     // 16-byte copy, d_in = bk)
   int kdim;         // channels a step contracts: bk, or kw d_in folded
@@ -701,8 +715,8 @@ __device__ __forceinline__ void mma_tile(const T* __restrict__ x,
         if (pr < rpp) {
           const bool kin = kofs + pc < t.kdim;
           const int ex = t.fold ? (kofs + pc) / s.d_in : 0;  // folded tap
-          for (int r = pr; r < ROWS; r += rpp) {
-            const int nn = rn[r], iy = riy[r] + dy, ix = rix[r] + dx;
+          // staged row r, whose tap window starts at input (nn, iy, ix)
+          const auto gather = [&](int r, int nn, int iy, int ix) {
             const bool live =
                 kin && nn >= 0 &&
                 static_cast<unsigned>(iy) < static_cast<unsigned>(s.h) &&
@@ -715,7 +729,22 @@ __device__ __forceinline__ void mma_tile(const T* __restrict__ x,
               cp_async16(xs + r * t.xs + pc, src, live ? 16 : 0);
             else
               cp_async4(xs + r * t.xs + pc, src, live ? 4 : 0);
+          };
+          // four rows a pass, their table reads ahead of their copies (no
+          // read moves past a copy's asm): the reads overlap
+          int r = pr;
+          for (; r + 3 * rpp < ROWS; r += 4 * rpp) {
+            int nn[4], iy[4], ix[4];
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              nn[u] = rn[r + u * rpp];
+              iy[u] = riy[r + u * rpp] + dy;
+              ix[u] = rix[r + u * rpp] + dx;
+            }
+#pragma unroll
+            for (int u = 0; u < 4; ++u) gather(r + u * rpp, nn[u], iy[u], ix[u]);
           }
+          for (; r < ROWS; r += rpp) gather(r, rn[r], riy[r] + dy, rix[r] + dx);
         }
         // w[tap][ci0 + kk][n0 + n] as it lies, [ks][BN] (zero past bk, bn)
         float* raw = xs + ROWS * t.xs;
@@ -846,16 +875,26 @@ __device__ __forceinline__ void mma_tile(const T* __restrict__ x,
       const float* raw = xs + ROWS * t.xs;
       float* ph = own + (it & 1) * 2 * t.ks * BN;
       float* pl = ph + t.ks * BN;
-      for (int e = threadIdx.x; e < t.ks * BN; e += kProducer * NC) {
-        const int kk = e / BN, n = e % BN;
-        const float v = raw[e];
-        const uint32_t hi = tf32_rna(v);
-        const uint32_t lo = tf32_rna(v - __uint_as_float(hi));
-        const int j = (kk % 8) / 2 + 4 * (kk % 2);
-        const int off = (kk / 8) * BN * 8 + ((n / 8) * 2 + j / 4) * 32 +
-                        (n % 8) * 4 + j % 4;
-        ph[off] = __uint_as_float(hi);
-        pl[off] = __uint_as_float(lo);
+      // item (k8 step c, column n): its even k are one 16-byte run of each
+      // half, its odd k the run 32 floats on
+      for (int e = threadIdx.x; e < nk * BN; e += kProducer * NC) {
+        const int c = e / BN, n = e % BN;
+        float h[2][4], l[2][4];  // [k % 2][k / 2]
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          const float v = raw[(8 * c + kk) * BN + n];
+          const uint32_t hi = tf32_rna(v);
+          h[kk % 2][kk / 2] = __uint_as_float(hi);
+          l[kk % 2][kk / 2] = __uint_as_float(tf32_rna(v - __uint_as_float(hi)));
+        }
+        const int off = c * BN * 8 + (n / 8) * 64 + (n % 8) * 4;
+#pragma unroll
+        for (int odd = 0; odd < 2; ++odd) {
+          *reinterpret_cast<float4*>(ph + off + 32 * odd) =
+              make_float4(h[odd][0], h[odd][1], h[odd][2], h[odd][3]);
+          *reinterpret_cast<float4*>(pl + off + 32 * odd) =
+              make_float4(l[odd][0], l[odd][1], l[odd][2], l[odd][3]);
+        }
       }
       fence_proxy_async();
       named_sync(1, kProducer * NC);  // every consumer's share is in
@@ -863,6 +902,12 @@ __device__ __forceinline__ void mma_tile(const T* __restrict__ x,
       const uint32_t bl = smem_u32(pl);
       load_a(f, xa, t.xs, nk);
       for (int j = 0; j < nk; j += KC) {
+        // the slot's last x values are in registers, and the products read
+        // w from the consumers' own buffers: the slot goes back
+        if (j + KC >= nk) {
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&empty[st]);
+        }
         mma_steps<BN, KC, MA>(acc, ah, al, f, nk - j, bh + j * BN * 32,
                               bl + j * BN * 32);
         // the next steps' x loads overlap these steps' products
@@ -872,8 +917,6 @@ __device__ __forceinline__ void mma_tile(const T* __restrict__ x,
         pin(al);
       }
       pin(acc);
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[st]);
     }
   } else {
     uint32_t ar[KC][MA][4], f[KC][MA][4];
@@ -979,59 +1022,105 @@ inline int split_rule(long long blocks, int steps, int sms) {
   return static_cast<int>((steps + per - 1) / per);
 }
 
-// The launch of one FCU / KPU call: template arguments, grid and plan.
+// How a block groups the plan's tiles: `rows` pixel tiles and `cols`
+// column tiles, each 0 for the rule of the kernel that asks.  The FCU's
+// rule (`wide` false) packs up to 64 / bm pixel tiles into one 64-row atom
+// where bm < 64, and one column tile.  The KPU's on f32 (`wide`) packs up
+// to 128 / bm pixel tiles where bm <= 64 and the accumulators allow two
+// consumer warpgroups (else as the FCU), then the widest run of column tiles
+// (a power of two dividing d_out / bn) whose wgmma width, at most 256,
+// leaves the consumers' accumulators within their budget; each step only
+// where the cluster split the wider block gets leaves it 3 steps or more.
+struct MmaGroup {
+  bool wide;
+  int rows, cols;
+};
+
+// The launch of one FCU / KPU call: template arguments, grid and plan,
+// and the plan's pixel and column tiles a block runs.
 struct MmaLaunch {
   int bn_pad, ma, nc, split;
+  int rows, cols;
   MmaTile t;
   size_t smem;
   dim3 grid, block;
 };
 
-// Plan the (bm, bk, bn) tile of `s`, split `split` ways along a cluster
-// (0: as `split_rule` gives); false if the kernels do not take it.
-// `x_ok`, `w_ok`: x, w are 16-byte aligned; `elem`: bytes of an element
-// (4: f32, 2: bf16).
-inline bool plan_tile(const MmaShape& s, int bm, int bk, int bn, int split,
+// 64-row atoms of a block of `rows` pixels and their consumer warpgroups
+// (`nc`, each of `ma` atoms); false past 512 rows, or where the
+// accumulators of a `bn_pad`-wide block pass a consumer thread's budget:
+// 128 beside one warpgroup, 64 beside two (384 threads leave at most 168
+// registers a thread).
+inline bool block_atoms(long long rows, int bn_pad, int* ma, int* nc) {
+  if (rows > 512 || bn_pad > 256) return false;
+  const int atoms = rows <= 64 ? 1 : rows <= 128 ? 2 : rows <= 256 ? 4 : 8;
+  *nc = atoms == 1 ? 1 : 2;
+  *ma = atoms / *nc;
+  return *ma * bn_pad / 2 <= (*nc == 1 ? 128 : 64);
+}
+
+// Plan the (bm, bk, bn) tile of `s`, grouped as `g` gives, split `split`
+// ways along a cluster (0: as `split_rule` gives); false if the kernels
+// do not take it.  `x_ok`, `w_ok`: x, w are 16-byte aligned; `elem`: bytes
+// of an element (4: f32, 2: bf16).
+inline bool plan_tile(const MmaShape& s, int bm, int bk, int bn, int split, MmaGroup g,
                       bool x_ok, bool w_ok, int elem, MmaLaunch* l) {
   if (bm < 1 || bm > 512 || bk < 1 || bn < 1 || bn > 256 || s.d_in % bk ||
-      s.d_out % bn || split < 0 || split > kMaxSplit)
+      s.d_out % bn || split < 0 || split > kMaxSplit || g.rows < 0 || g.cols < 0 ||
+      (s.d_out / bn) % (g.cols ? g.cols : 1))
     return false;
-  // a block runs up to 64 / bm of the plan's pixel tiles where bm < 64:
-  // they share one 64-row wgmma atom
-  const long long npix = static_cast<long long>(s.n) * s.ho * s.wo;
-  const long long tiles = bm < 64 ? std::min<long long>(64 / bm, (npix + bm - 1) / bm) : 1;
-  const int rows_live = static_cast<int>(bm * tiles);
-  const int atoms = bm <= 64 ? 1 : bm <= 128 ? 2 : bm <= 256 ? 4 : 8;
-  l->nc = atoms == 1 ? 1 : 2;
-  l->ma = atoms / l->nc;
-  l->bn_pad = pow2_at_least(bn, 8);
-  // accumulators a consumer thread holds: 128 beside one warpgroup, 64
-  // beside two (384 threads leave at most 168 registers a thread)
-  if (l->ma * l->bn_pad / 2 > (l->nc == 1 ? 128 : 64)) return false;
-  const int rows = 64 * atoms;
-  MmaTile& t = l->t;
-  t.bm = rows_live;
-  t.bk = bk;
-  t.bn = bn;
   const bool f32 = elem == 4;
   const int ev = 16 / elem;  // elements a 16-byte copy
   const bool narrow = s.d_in % ev || bk % ev;  // rows allow no 16-byte copy
+  MmaTile& t = l->t;
+  t.fold = narrow && bk == s.d_in && s.kw > 1;
+  t.steps = t.fold ? s.kh : s.d_in / bk * s.kh * s.kw;
+  const long long npix = static_cast<long long>(s.n) * s.ho * s.wo;
+  const long long ptiles = (npix + bm - 1) / bm;  // the plan's pixel tiles
+  const auto fits = [&](long long rows, int cols) {
+    return block_atoms(bm * std::min(rows, ptiles), pow2_at_least(bn * cols, 8), &l->ma,
+                       &l->nc);
+  };
+  // the KPU's rule takes a group only where the cluster split it would get
+  // leaves each block 3 steps or more: at small batches a wider group
+  // split further runs slower than the narrower one
+  const auto deep = [&](long long rows, int cols) {
+    const long long live = bm * std::min(rows, ptiles);
+    const int ways = split_rule((npix + live - 1) / live * (s.d_out / (bn * cols)), t.steps,
+                                sm_count());
+    return fits(rows, cols) && (ways == 1 || t.steps >= 3 * ways);
+  };
+  l->cols = g.cols ? g.cols : 1;
+  l->rows = g.rows ? g.rows : g.wide && bm <= 64 && deep(128 / bm, l->cols) ? 128 / bm
+                            : bm < 64 ? 64 / bm : 1;
+  l->rows = static_cast<int>(std::min<long long>(l->rows, ptiles));
+  if (!fits(l->rows, l->cols)) return false;
+  if (!g.cols && g.wide)
+    for (int c = 2; (s.d_out / bn) % c == 0 && deep(l->rows, c); c *= 2) l->cols = c;
+  const int rows_live = bm * l->rows;
+  l->bn_pad = pow2_at_least(bn * l->cols, 8);
+  fits(l->rows, l->cols);  // the chosen group's atoms
+  const int atoms = l->ma * l->nc;
+  const int rows = 64 * atoms;
+  t.bm = rows_live;
+  t.bk = bk;
+  t.bn = bn * l->cols;
   t.vec = f32 ? x_ok && !narrow
               : x_ok && w_ok && !narrow && s.d_out % ev == 0 && bn % ev == 0;
-  t.fold = narrow && bk == s.d_in && s.kw > 1;
   t.kdim = t.fold ? s.kw * s.d_in : bk;
   const int kstep = f32 ? 8 : 16;
   t.bkp = (t.kdim + kstep - 1) / kstep * kstep;
-  t.steps = t.fold ? s.kh : s.d_in / bk * s.kh * s.kw;
   t.wvec = w_ok && s.d_out % 4 == 0 && bn % 4 == 0;
   t.wrow = l->bn_pad * 2 < 128 ? l->bn_pad * 2 : 128;
   const long long tiles_m = (npix + rows_live - 1) / rows_live;
-  if (split == 0) split = split_rule(tiles_m * (s.d_out / bn), t.steps, sm_count());
+  if (split == 0) split = split_rule(tiles_m * (s.d_out / t.bn), t.steps, sm_count());
   if (split > t.steps) return false;
   const int red = split > 1 ? rows * l->bn_pad * 4 : 0;
   const int steps_per_block = (t.steps + split - 1) / split;
-  // the widest slot that leaves room for two blocks an SM, else for one
-  for (int budget : {kSmemHalf, kSmemBlock}) {
+  // the widest slot that leaves room for two blocks an SM, else for one; a
+  // KPU block whose registers allow one block an SM takes all of it
+  const bool one = g.wide && mma_min_blocks(l->bn_pad, l->ma, l->nc) == 1;
+  for (int budget : {one ? kSmemBlock : kSmemHalf, kSmemBlock}) {
     for (int k8 : {4, 3, 2, 1}) {
       const int ks = k8 * 32 / elem;  // a row slice of 128, 96, 64, 32 bytes
       if (t.bkp % ks) continue;
@@ -1064,7 +1153,7 @@ inline bool plan_tile(const MmaShape& s, int bm, int bk, int bn, int split,
       const int ring = stages * t.slot_bytes + own;
       l->smem = table_bytes(rows) + slack + (ring > red ? ring : red);
       l->split = split;
-      l->grid = dim3(static_cast<unsigned>(tiles_m), s.d_out / bn, split);
+      l->grid = dim3(static_cast<unsigned>(tiles_m), s.d_out / t.bn, split);
       l->block = dim3(kProducer * (l->nc + 1));
       return true;
     }

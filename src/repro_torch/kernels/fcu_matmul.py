@@ -67,8 +67,8 @@ def cluster_split(m: int, d_in: int, d_out: int, *, bm: int, bk: int, bn: int,
     """Blocks the kernel splits each (bm, bk, bn) tile's steps over on the
     current card for ``dtype`` operands (1: none; 0: a tile it does not
     take)."""
-    return _build.library().mma_split(1, 1, m, d_in, 1, m, d_out, 1, 1, bm, bk, bn,
-                                      dtype.itemsize)
+    return _build.mma_plan(1, 1, m, d_in, 1, m, d_out, 1, 1, bm, bk, bn,
+                           dtype.itemsize, kpu=False)[0]
 
 
 fcu_matmul.launches = 0

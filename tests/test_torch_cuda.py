@@ -396,16 +396,19 @@ def test_mma_kernels_bf16_match_plain_at_every_tile(card, label, shape, d_in, d_
         (1568, 64, 384, 196, 32, 32, 1),      # b8_expand: 96 blocks, 2 steps
         (392, 320, 1280, 49, 160, 32, 1),     # conv_last: 320 blocks fill the SMs
         (8, 1280, 1000, 1, 32, 8, 2),         # fc: 8 one-row tiles a block, 125 blocks
-        ((56, 3, 1), 64, 64, 256, 64, 32, 1),     # resnet18 l1: 196 blocks
-        ((7, 3, 1), 512, 512, 49, 256, 32, 2),    # resnet18 l4: 128 blocks, 18 steps
+        ((56, 3, 1), 64, 64, 256, 64, 32, 2),     # resnet18 l1: 98 blocks of 2 column
+                                                  # tiles, 9 steps
+        ((7, 3, 1), 512, 512, 49, 256, 32, 6),    # resnet18 l4: 16 blocks of 2 pixel x
+                                                  # 4 column tiles, 18 steps
         ((1, 3, 1), 3, 32, 1, 3, 32, 3),  # 3-channel taps folded: 3 rows, not 9
     ],
 )
 def test_cluster_split_rule(card, shape, d_in, d_out, bm, bk, bn, split):
     """Where a call's blocks leave the H100's 132 SMs idle, the FCU / KPU
-    kernel splits each tile's steps over a cluster of up to 8 blocks (two
+    kernel splits each block's steps over a cluster of up to 8 blocks (two
     an SM at most), as few as give each the fewest steps; down to one
-    step a block only where fewer than half the SMs have a block."""
+    step a block only where fewer than half the SMs have a block.  The
+    KPU's blocks are its groups of plan tiles (``block_group``)."""
     assert torch.cuda.get_device_properties(card).multi_processor_count == 132
     assert _split_of(shape, d_in, d_out, bm, bk, bn) == split
 
@@ -461,6 +464,98 @@ def test_mma_kernels_are_deterministic_with_the_cluster_split(card, label, shape
     torch.cuda.synchronize()
     assert torch.equal(first, again)
     _close(first, want)
+
+
+def _resnet18_kpu_tiles():
+    """Every distinct KPU call of ResNet-18 at 224x224 in the plans at rate
+    3 and 3/32: (label, (hw, k, stride), d_in, d_out, bm, bk, bn)."""
+    api = get_cnn_api("resnet18", device="cpu")
+    cfg = api.make_config()
+    graph, seen = api.graph(cfg), {}
+    for rate in (Fraction(3), Fraction(3, 32)):
+        for name, ip in api.plan(cfg, rate).items():
+            s, t = graph.spec(name), ip.tile
+            if t is None or s.kind != "conv":
+                continue
+            case = ((s.in_hw[0], s.kernel[0], s.stride[0]), s.d_in, s.d_out,
+                    t.bm, t.bk, t.bn)
+            seen.setdefault(case, f"r{rate}/{name}")
+    return [(label, *case) for case, label in seen.items()]
+
+
+RESNET18_KPU_TILES = _resnet18_kpu_tiles()
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("batch", [64, 8])
+@pytest.mark.parametrize("label,shape,d_in,d_out,bm,bk,bn", RESNET18_KPU_TILES,
+                         ids=[t[0] for t in RESNET18_KPU_TILES])
+def test_grouped_kpu_launch_equals_one_tile_a_block(card, label, shape, d_in, d_out,
+                                                     bm, bk, bn, batch, dtype):
+    """The KPU's f32 block runs a group of the plan's tiles (at batch 64
+    at every tile but one whose bn is all of d_out; a bf16 block one
+    column tile); every tile keeps its steps in the same order, so the
+    grouped launch equals the launch of one plan tile a block bit for
+    bit, both unsplit, at every ResNet-18 tile of the benchmark's plans,
+    at its batch and at batch 8."""
+    (hw, k, stride) = shape
+    x = _rand((batch, hw, hw, d_in), hw + d_in).to(card, dtype)
+    w = _rand((k, k, d_in, d_out), d_out, (k * k * d_in) ** -0.5).to(card, dtype)
+    group = kpu_conv.block_group(x.shape, w.shape, stride=stride, bm=bm, bci=bk,
+                                 bco=bn, dtype=dtype)
+    if dtype == torch.float32:
+        assert group[0] * group[1] > 1 or d_out == bn or batch < 64
+    else:
+        assert group[1] == 1
+    before = kpu_conv.kpu_conv.grouped_launches
+    grouped = _launched(kpu_conv.kpu_conv, lambda: kpu_conv._launch(
+        x, w, stride, bm, bk, bn, 1))
+    assert kpu_conv.kpu_conv.grouped_launches - before == (group[0] * group[1] > 1)
+    alone = _launched(kpu_conv.kpu_conv, lambda: kpu_conv._launch(
+        x, w, stride, bm, bk, bn, 1, (1, 1)))
+    assert kpu_conv.kpu_conv.grouped_launches - before == (group[0] * group[1] > 1)
+    torch.cuda.synchronize()
+    assert torch.equal(grouped, alone)
+    _close(grouped, kpu_conv.kpu_conv_plain(x, w, stride), _tol("kpu_conv", dtype))
+
+
+def _conv_groups(api, cfg, kp, batch):
+    """The (pixel, column) tiles a KPU block runs at each conv node."""
+    graph = api.graph(cfg)
+    out = {}
+    for name, ip in kp.items():
+        s = graph.spec(name)
+        if ip.has_kernel and s.kind == "conv":
+            out[name] = kpu_conv.block_group(
+                (batch, *s.in_hw, s.d_in), (*s.kernel, s.d_in, s.d_out),
+                stride=s.stride[0], bm=ip.tile.bm, bci=ip.tile.bk, bco=ip.tile.bn)
+    return out
+
+
+def test_grouped_launches_count_resnet18_not_mobilenet_v2_conv1(card):
+    """``kpu_conv.grouped_launches`` rises once for every ResNet-18 conv
+    whose block groups plan tiles (``block_group``, read from the kernel's
+    own plan), at the benchmark's batch all but conv1, and not for
+    MobileNetV2's one KPU node, conv1, whose bn = 32 is all of its d_out."""
+    batch = 64
+    x = _rand((batch, 224, 224, 3), 9)
+    for family in ("resnet18", "mobilenet_v2"):
+        api, cpu = get_cnn_api(family), get_cnn_api(family, device="cpu")
+        cfg = api.make_config()
+        kp = api.plan(cfg, Fraction(3))
+        groups = _conv_groups(api, cfg, kp, batch)
+        params = _card_params(cpu.init(cfg, torch.Generator().manual_seed(0)), card)
+        launches = kpu_conv.kpu_conv.launches
+        grouped = kpu_conv.kpu_conv.grouped_launches
+        api.apply(params, x.to(card), cfg, plan=kp)
+        torch.cuda.synchronize()
+        assert kpu_conv.kpu_conv.launches - launches == len(groups)
+        want = sum(r * c > 1 for r, c in groups.values())
+        assert kpu_conv.kpu_conv.grouped_launches - grouped == want
+        if family == "resnet18":
+            assert want == len(groups) - 1  # all but conv1 (bn = 64 = d_out)
+        else:
+            assert groups == {"conv1": (1, 1)} and want == 0
 
 
 @pytest.mark.parametrize("family", ["mobilenet_v2", "resnet18"])

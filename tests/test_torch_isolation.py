@@ -113,6 +113,58 @@ def test_cuda_request_without_build_raises(which, monkeypatch, tmp_path):
     finally:
         _build.library.cache_clear()
     assert fn.launches == before
+    if which == "kpu_conv":
+        assert fn.grouped_launches == 0
+
+
+@pytest.mark.parametrize("query", ["kpu_conv.cluster_split", "kpu_conv.block_group",
+                                   "fcu_matmul.cluster_split"])
+def test_plan_queries_read_the_built_kernels(query, monkeypatch, tmp_path):
+    """The FCU / KPU plan queries read the kernels' own host plan in the
+    built library, and keep no second copy of its rule in Python: with no
+    toolkit and no built library they raise."""
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    _build.library.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            if query == "fcu_matmul.cluster_split":
+                fcu_matmul.cluster_split(392, 960, 160, bm=49, bk=32, bn=32)
+            else:
+                getattr(kpu_conv, query.split(".")[1])(
+                    (8, 7, 7, 512), (3, 3, 512, 512), stride=1, bm=49, bci=256, bco=32)
+    finally:
+        _build.library.cache_clear()
+
+
+def _c_entry_points():
+    """Each ``extern "C"`` function of ``csrc/*.cu``: its parameters' kinds
+    as ctypes sees them (int, float, int* or another pointer)."""
+    import re
+
+    found = {}
+    for src in sorted(_build.CSRC.glob("*.cu")):
+        text = src.read_text()
+        for m in re.finditer(r'extern "C" [\w ]+?\*?\s*(\w+)\(([^)]*)\)', text):
+            kinds = []
+            for p in m.group(2).split(","):
+                p = " ".join(p.split())
+                kinds.append("int*" if re.match(r"(const )?int ?\*", p)
+                             else "ptr" if "*" in p or p.startswith("cudaStream_t")
+                             else "float" if p.startswith("float") else "int")
+            found[m.group(1)] = kinds
+    return found
+
+
+@pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
+def test_c_entry_points_match_their_bindings(name):
+    """The ctypes binding of each C entry point (``_build.SIGNATURES``)
+    passes as many arguments as the C function takes, each of its kind: a
+    pointer bound as an int is cut to 32 bits, an out-parameter bound as
+    an int writes through a number."""
+    kind = {_build._P: "ptr", _build._I: "int", _build._F: "float", _build._IP: "int*"}
+    assert [kind[t] for t in _build.SIGNATURES[name]] == _c_entry_points()[name]
 
 
 def test_other_devices_raise():
