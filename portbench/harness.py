@@ -225,7 +225,7 @@ def run_cell(cell, *, seed, seconds, trace, device, t_start):
     kept[i - 1] = out
     window_s = t2 - start
 
-    tr = loop_s = None
+    tr = None
     if trace:
         n = cell.traffic["trace_requests"]
 
@@ -235,8 +235,6 @@ def run_cell(cell, *, seed, seconds, trace, device, t_start):
 
         tr = devtrace.record(torch, sub_window, frames=n * drv.frames_per_request,
                              passes=n * drv.passes_per_request)
-        if hasattr(drv, "loop_s"):
-            loop_s = drv.loop_s()
     peak = torch.cuda.max_memory_allocated() if on_card else 0
 
     # the program's state goes before the reference runs
@@ -254,7 +252,7 @@ def run_cell(cell, *, seed, seconds, trace, device, t_start):
 
     ctx = types.SimpleNamespace(
         setup_s=setup_s, window_s=window_s, records=records, trace=tr,
-        loop_s=loop_s, frames_per_request=drv.frames_per_request,
+        frames_per_request=drv.frames_per_request,
         launch_batch=drv.launch_batch, layers=layers,
         itemsize=torch.empty((), dtype=dtype).element_size())
     metrics = {}

@@ -1,10 +1,14 @@
 """The plain reference: a CNN's layer list run in plain PyTorch.
 
 A layer is a dict: ``name``, ``kind`` (``conv``, ``dwconv``,
-``pointwise``, ``dense``, ``pool``, ``gap``, ``add``), ``inputs`` (the
-names it reads; none for the first), ``d_in``, ``d_out``, ``k``,
-``stride``, ``act`` (``none``, ``relu``, ``relu6``), ``in_hw`` and
-``out_hw``.  Frames are NHWC.  Weights are ``{name: {"w", "b"}}`` in the
+``pointwise``, ``dense``, ``pool``, ``gap``, ``add``, ``scale``),
+``inputs`` (the names it reads; none for the first), ``d_in``, ``d_out``,
+``k``, ``stride``, ``act`` (``none``, ``relu``, ``relu6``, ``sigmoid``,
+``silu``), ``in_hw`` and ``out_hw``.  ``scale`` is squeeze-and-excitation's
+join: ``inputs = [map, gate]``, a ``[N, C, H, W]`` map times a ``[N, C]``
+gate (what ``gap`` and ``dense`` give) broadcast over the pixels, with no
+weights; its ``d_in``, ``d_out``, ``in_hw`` and ``out_hw`` are the map's.
+Frames are NHWC.  Weights are ``{name: {"w", "b"}}`` in the
 layouts ``weight_shape`` gives (HWIO convs, ``[k, k, 1, C]`` depthwise,
 ``[d_in, d_out]`` pointwise and dense); the benchmark makes them and hands
 the same tensors to the program.
@@ -58,7 +62,22 @@ def _pad(x, k, s, fill=0.0):
 
 
 _ACT = {"none": lambda x: x, "relu": torch.relu,
-        "relu6": lambda x: torch.clamp(x, 0.0, 6.0)}
+        "relu6": lambda x: torch.clamp(x, 0.0, 6.0),
+        "sigmoid": torch.sigmoid, "silu": F.silu}
+
+
+def _scale(lay, xs):
+    if len(xs) != 2:
+        raise ValueError(f"{lay['name']}: scale takes [map, gate], got {len(xs)} "
+                         "operands")
+    fmap, gate = xs
+    if fmap.dim() != 4 or gate.dim() != 2:
+        raise ValueError(f"{lay['name']}: scale takes a 4-D map and a 2-D gate, got "
+                         f"{tuple(fmap.shape)} and {tuple(gate.shape)}")
+    if tuple(gate.shape) != tuple(fmap.shape[:2]):
+        raise ValueError(f"{lay['name']}: the gate {tuple(gate.shape)} is not the "
+                         f"map's [N, C] {tuple(fmap.shape[:2])}")
+    return fmap * gate[:, :, None, None]
 
 
 def _layer_forward(lay, xs, p):
@@ -81,6 +100,8 @@ def _layer_forward(lay, xs, p):
         y = x.mean(dim=(2, 3))
     elif kind == "add":
         y = xs[0] + xs[1]
+    elif kind == "scale":
+        y = _scale(lay, xs)
     else:
         raise ValueError(f"{lay['name']}: no reference for kind {kind!r}")
     if kind in WEIGHTED:

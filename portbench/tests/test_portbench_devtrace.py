@@ -33,7 +33,7 @@ def test_readers_on_a_trace():
         ROOT, harness.load_manifest(ROOT), "resnet18.offline.r3.b64").config)
     ctx = types.SimpleNamespace(trace=TRACE, layers=layers, launch_batch=2,
                                 itemsize=4, records=[(0.0, 0.001, 0.01)] * 3,
-                                frames_per_request=2, window_s=0.03, loop_s=None,
+                                frames_per_request=2, window_s=0.03,
                                 setup_s=1.5)
 
     def read(name):
@@ -48,7 +48,6 @@ def test_readers_on_a_trace():
         100 * work.frame_flops(layers) * 4 / 7.5 / work.PEAK_FLOPS)
     assert read("executor.enqueue_ms_per_batch") == pytest.approx(1.0)
     assert read("frames_per_s") == pytest.approx(200.0)
-    assert read("stream.loop_us_per_frame") is None
     assert read("setup_s") == 1.5
     ctx.trace = None
     assert read("step.mfu") is None and read("kpu_conv_roofline") is None

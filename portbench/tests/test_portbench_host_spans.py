@@ -78,6 +78,26 @@ def test_readers_on_a_stream_trace():
     assert _read("executor.nodes_ms_per_batch", STREAM) is None
 
 
+# Per-layer readers under a cell's own name, that read what their
+# original reads (the MobileNetV2 offline cell's, where they move
+# frames_per_s): each against its original on one offline context.
+SPLIT = {"step.batch_latency_p95_ms": "batch_latency_p95_ms",
+         "executor.enqueue_ms_per_batch.host_paced": "executor.enqueue_ms_per_batch",
+         "executor.table_ms_per_batch.host_paced": "executor.table_ms_per_batch",
+         "executor.nodes_ms_per_batch.host_paced": "executor.nodes_ms_per_batch"}
+
+
+@pytest.mark.parametrize("name", SPLIT)
+def test_a_split_reader_reads_its_original(name):
+    records = [(0.0, 0.001 * (1 + j % 5), 0.006 + 0.0001 * j) for j in range(40)]
+    ctx = types.SimpleNamespace(trace=OFFLINE, records=records)
+    value = harness.reader(ROOT, name)(ctx)
+    assert value is not None and value > 0
+    assert value == harness.reader(ROOT, SPLIT[name])(ctx)
+    per_layer = {m["name"]: m for m in MANIFEST["per_layer"]}
+    assert per_layer[name]["moves"] == "frames_per_s"
+
+
 @pytest.mark.parametrize("trace", [BARE, None], ids=["no_spans", "no_trace"])
 def test_readers_find_nothing_without_program_spans(trace):
     for name in NEW:

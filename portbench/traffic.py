@@ -91,23 +91,6 @@ class Stream:
     def inputs(self, i):
         return self.frames
 
-    def loop_s(self):
-        """Host seconds of the engine's event loop alone over one run: its
-        ``execute=False`` twin, which runs the same tick model and no
-        tensors."""
-        from repro_torch.serving import CNNStreamEngine
-
-        e = self.env
-        config = self.config.with_(
-            execute=False,
-            kernel_plan=self.partition.kernel_plan(batch=self.launch_batch))
-        twin = CNNStreamEngine(e.api.graph(e.cfg), e.params, self.partition, config)
-        for _ in range(self.frames_per_request):
-            twin.submit(None)
-        t0 = time.perf_counter()
-        twin.run()
-        return time.perf_counter() - t0
-
     def release(self):
         self.partition = self.config = None
 

@@ -4,7 +4,10 @@ Counted from the benchmark's own layer lists (``reference/``), never from
 the program's plan or from what a kernel implements: the algorithm's work,
 so that a later route of the same layer reads against the same bound.
 
-- FLOPs: 2 x MACs.
+- FLOPs: 2 x MACs.  The elementwise kinds (``pool``, ``gap``, ``add``,
+  and squeeze-and-excitation's ``scale``) count no MACs, no weights and no
+  model FLOPs, and have no unit; an SE block's two ``dense`` layers count
+  as FCU work.
 - Bytes: the input, the weights and the output of a launch, each once.
 - Units, by the layer's kind, as the paper assigns them: the KPU takes
   every dense KxK conv (1x1 downsamples and MobileNet's stem included),
